@@ -1,0 +1,637 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (mfvi_dip_mia_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out results.json] [--profile-steps N]
+
+Phases, each of which raises on failure (the script then exits non-zero):
+
+1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
+   versions, and the build of the hand-written CUDA kernels from csrc/.
+2. Every kernel against its plain PyTorch version on the card, in f32 and
+   bf16: the VALID conv (forward and dx) and its weight gradient at every
+   conv-site shape of the 256^2 CT U-Net, and the banded Radon forward and
+   adjoint at 256^2 / 45 angles with the f32 and the bf16 band.
+3. One f32 CT loss and gradient through the 256^2 net on the card against
+   the CPU's plain path. Then the main path: bench.py's CT configuration
+   (256^2, input depth 16, temp 2.2e-10, sigma 1.7e-7, lr 1e-3, seed 1,
+   bf16, metrics every 10) through the port's ``fit``, 100 warm-up and 200
+   timed iterations; then a den/mfvi f32 fit of 500 iterations (bench.py
+   --metric train's configuration). Launch counters are zeroed just before
+   each fit and read just after it.
+4. Each kernel's time at the main path's shapes beside its bound, its plain
+   version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
+   off; timed here only, never called by the port), printed as one JSON
+   line ``{"kernels": [...]}``.
+
+The last line of standard output is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Without a CUDA device, or without the package beside it, the script exits
+with a non-zero code and prints no result. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+# H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor-core rate,
+# f32 rate outside the tensor cores, HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+SIZE = 256
+DEVICE = "cuda"
+CT_ITERS_WARM = 100            # first show_every chunk: warm-up
+CT_ITERS_TIMED = 200
+DEN_ITERS = 500
+
+# Tolerances of a kernel against its plain version, as a share of the
+# plain result's largest magnitude:
+#   f32 conv / dx: the same <= 1188-term f32 sums in another order
+#   bf16 conv / dx: both round an f32 sum to bf16; a sum that differs in its
+#     last f32 bits can round one bf16 ulp (2^-8) apart
+#   dw (f32 out, f32 accumulation of up to 65,536 products from f32 or bf16
+#     inputs): split partial sums in another order than cuBLAS's
+#   Radon: f32 accumulation of the same band products (bf16 band promoted
+#     to f32 in both), in another order
+TOL = {("conv", "f32"): 1e-4, ("conv", "bf16"): 8e-3,
+       ("dw", "f32"): 1e-3, ("dw", "bf16"): 1e-3,
+       ("radon", "f32"): 1e-4, ("radon", "bf16"): 1e-4}
+# One f32 CT step, card against CPU: the same f32 arithmetic in another
+# summation order at every one of 26 convs, 30 BatchNorms and the Radon;
+# gradients as a share of the largest one
+TOL_STEP = {"out": 1e-4, "loss": 1e-4, "grad": 1e-3}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rel_err(got, ref) -> tuple[float, float]:
+    """(max |got - ref|, that over max |ref|)."""
+    d = float((got.float() - ref.float()).abs().max())
+    return d, d / max(float(ref.float().abs().max()), 1e-30)
+
+
+def bound(flops: float, nbytes: float, peak_flops: float):
+    """(least time in ms, which of bytes / operations bounds it)."""
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+# -- the 256^2 CT U-Net's conv sites ------------------------------------------
+
+def conv_sites(net, size: int) -> list[dict]:
+    """Every conv site of ``net`` on a size^2 input, as the VALID stride-1
+    conv the kernel sees: xp (I, Hp, Wp) and w (O, I, k, k) after padding and
+    the stride-2 parity planes (ops/kernels/cf_conv.py::conv2d_cf)."""
+    sites = []
+
+    def add(name, site, s_in, needs_dx=True):
+        k = site.kernel
+        hp = s_in + 2 * ((k - 1) // 2)
+        if site.stride == 1:
+            xp, w = (site.c_in, hp, hp), (site.c_out, site.c_in, k, k)
+        elif site.stride == 2 and k > 1:
+            k2 = (k + 1) // 2
+            m = (hp - k) // 2 + 1 + k2 - 1
+            xp, w = (4 * site.c_in, m, m), (site.c_out, 4 * site.c_in, k2, k2)
+        else:
+            raise ValueError(f"site {name}: stride {site.stride}, k {k}")
+        sites.append(dict(name=name, xp=xp, w=w, needs_dx=needs_dx))
+
+    for i, cfg in enumerate(net.levels):
+        s = size >> i
+        first = i == 0            # level 0's skip and down1 read the input z
+        if cfg.skip_conv is not None:
+            add(f"levels.{i}.skip", cfg.skip_conv, s, not first)
+        add(f"levels.{i}.down1", cfg.down1, s, not first)
+        add(f"levels.{i}.down2", cfg.down2, s // 2)
+        add(f"levels.{i}.up", cfg.up, s)
+        if cfg.up1x1 is not None:
+            add(f"levels.{i}.up1x1", cfg.up1x1, s)
+    add("out", net.out_conv, size)
+    return sites
+
+
+def conv_operands(site: dict, dtype, gen):
+    import torch
+    i_ch, hp, wp = site["xp"]
+    o_ch, _, kh, kw = site["w"]
+    dev = DEVICE
+    xp = torch.randn(site["xp"], generator=gen, device=dev).to(dtype)
+    w = (torch.randn(site["w"], generator=gen, device=dev)
+         / (i_ch * kh * kw) ** 0.5).to(dtype)
+    g = torch.randn((o_ch, hp - kh + 1, wp - kw + 1), generator=gen,
+                    device=dev).to(dtype)
+    return xp, w, g
+
+
+# -- phase 2: kernels against their plain versions ----------------------------
+
+def check_conv_kernels(sites, results: dict) -> None:
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    shapes = {}
+    for s in sites:
+        shapes.setdefault((s["xp"], s["w"]), s)
+    log(f"[2] conv kernels at {len(shapes)} distinct shapes of "
+        f"{len(sites)} conv sites")
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        worst = {"cf_conv_fwd": (0.0, 0.0), "cf_conv_dw": (0.0, 0.0)}
+        for (xps, ws), s in shapes.items():
+            xp, w, g = conv_operands(s, dtype, gen)
+            k = ws[2]
+            checks = [
+                ("cf_conv_fwd", "conv", tcf.conv_valid_fwd(xp, w),
+                 tcf.conv_valid_plain(xp, w)),
+                ("cf_conv_fwd", "conv", tcf.conv_dx(g, w),
+                 tcf.conv_dx_plain(g, w)),
+                ("cf_conv_dw", "dw", tcf.conv_dw(xp, g, k, k),
+                 tcf.conv_dw_plain(xp, g, k, k)),
+            ]
+            torch.cuda.synchronize()
+            for kname, kind, got, ref in checks:
+                if got.shape != ref.shape or got.dtype != ref.dtype:
+                    raise AssertionError(
+                        f"{kname} {dname} at xp {xps} w {ws}: got "
+                        f"{tuple(got.shape)} {got.dtype}, plain "
+                        f"{tuple(ref.shape)} {ref.dtype}")
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"{kname} {dname} at xp {xps} w "
+                                         f"{ws}: non-finite output")
+                a, r = rel_err(got, ref)
+                if r > TOL[(kind, dname)]:
+                    raise AssertionError(
+                        f"{kname} {dname} at xp {xps} w {ws}: max abs err "
+                        f"{a:.3e} (rel {r:.3e}) > tolerance "
+                        f"{TOL[(kind, dname)]:.0e}")
+                worst[kname] = max(worst[kname], (a, r), key=lambda t: t[1])
+        for kname, (a, r) in worst.items():
+            log(f"    {kname:12s} {dname:4s} worst max abs err {a:.3e} "
+                f"rel {r:.3e} (tolerance {TOL[('conv' if 'fwd' in kname else 'dw', dname)]:.0e}) ok")
+            results.setdefault(kname, {})[f"max_abs_err_{dname}"] = a
+
+
+def check_radon_kernels(results: dict) -> dict:
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import radon_banded as rb
+    from mfvi_dip_mia_tpu_torch.tasks.problems import _CT_THETA
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    states = {}
+    t0 = time.perf_counter()
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        states[dname] = rb.prepare_banded_direct(
+            _CT_THETA, SIZE, SIZE, dtype=dtype, device=DEVICE)
+    log(f"[2] Radon bands built in {time.perf_counter() - t0:.2f} s: "
+        f"blocks {tuple(states['bf16'].blocks.shape)}, tchunk "
+        f"{states['bf16'].tchunk}")
+    for dname, st in states.items():
+        g_count, _, _, pp = st.blocks.shape
+        v = torch.rand((1, g_count * pp), generator=gen, device=DEVICE)
+        y = torch.randn((st.t_pad * st.w, 1), generator=gen, device=DEVICE)
+        for kname, got, ref in (
+                ("radon_banded_fwd", rb.radon_fwd(st, v),
+                 rb.radon_fwd_plain(st, v)),
+                ("radon_banded_adj", rb.radon_adj(st, y),
+                 rb.radon_adj_plain(st, y))):
+            torch.cuda.synchronize()
+            a, r = rel_err(got, ref)
+            if got.shape != ref.shape or r > TOL[("radon", dname)]:
+                raise AssertionError(
+                    f"{kname} {dname} band: shape {tuple(got.shape)} vs "
+                    f"{tuple(ref.shape)}, max abs err {a:.3e} (rel {r:.3e})")
+            log(f"    {kname:16s} {dname:4s} band max abs err {a:.3e} "
+                f"rel {r:.3e} (tolerance {TOL[('radon', dname)]:.0e}) ok")
+            results.setdefault(kname, {})[f"max_abs_err_{dname}"] = a
+        # the adjoint identity <A v, y> = <v, A^T y> on the kernels
+        lhs = float((rb.radon_fwd(st, v) * y).double().sum())
+        rhs = float((v * rb.radon_adj(st, y)).double().sum())
+        if abs(lhs - rhs) > 1e-4 * max(abs(lhs), 1.0):
+            raise AssertionError(f"adjoint identity {dname}: {lhs} vs {rhs}")
+    return states
+
+
+# -- phase 3: the main path ---------------------------------------------------
+
+def check_step_against_cpu(net) -> dict:
+    """One CT loss and its parameter gradient through the 256^2 net at f32,
+    on the card (the kernels) and on the CPU (their plain versions), from
+    the same sampled weights and input: the slice's model against its
+    reference on one input."""
+    import numpy as np
+    import torch
+    from mfvi_dip_mia_tpu_torch.bayes import vi
+    from mfvi_dip_mia_tpu_torch.ops.losses import mse_loss
+    from mfvi_dip_mia_tpu_torch.ops.radon import FastRadonTransform
+    from mfvi_dip_mia_tpu_torch.tasks.data import synthetic_ct
+    from mfvi_dip_mia_tpu_torch.tasks.problems import _CT_THETA
+    from mfvi_dip_mia_tpu_torch.utils.images import get_noise
+
+    gen = torch.Generator().manual_seed(5)
+    flat = vi.flatten(vi.to_mfvi(net.init_params(gen), gen))
+    leaves = {k: v.detach().clone() for k, v in
+              vi.sample_mfvi_tree(flat, gen).items()}
+    z = torch.from_numpy(get_noise(16, SIZE, rng=np.random.default_rng(5))
+                         ).permute(0, 3, 1, 2).contiguous()
+    gt = torch.from_numpy(synthetic_ct(0, SIZE))[None]
+    got = {}
+    for dev in ("cpu", DEVICE):
+        radon = FastRadonTransform(gt.shape, _CT_THETA, mode="banded",
+                                   device=dev)
+        p = {k: v.detach().clone().to(dev).requires_grad_(True)
+             for k, v in leaves.items()}
+        out = net(p, z.to(dev))
+        loss = mse_loss(radon(out), radon(gt.to(dev)))
+        loss.backward()
+        got[dev] = (out.detach().cpu(), loss.detach().cpu(),
+                    {k: v.grad.cpu() for k, v in p.items()
+                     if v.grad is not None})
+    (o_c, l_c, g_c), (o_d, l_d, g_d) = got["cpu"], got[DEVICE]
+    _, r_out = rel_err(o_d, o_c)
+    r_loss = abs(float(l_d - l_c)) / abs(float(l_c))
+    scale = max(float(g.abs().max()) for g in g_c.values())
+    r_grad = max(float((g_d[k] - g).abs().max()) for k, g in g_c.items()
+                 ) / scale
+    log(f"[3] one f32 CT step at {SIZE}^2, card vs CPU plain path: output rel "
+        f"{r_out:.2e}, loss rel {r_loss:.2e}, gradients rel {r_grad:.2e} "
+        f"(tolerances {TOL_STEP['out']:.0e} / {TOL_STEP['loss']:.0e} / "
+        f"{TOL_STEP['grad']:.0e})")
+    if set(g_d) != set(g_c) or not (
+            r_out <= TOL_STEP["out"] and r_loss <= TOL_STEP["loss"]
+            and r_grad <= TOL_STEP["grad"]):
+        raise AssertionError("the card's CT step disagrees with the CPU's")
+    return dict(out_rel=r_out, loss_rel=r_loss, grad_rel=r_grad)
+
+
+def run_fits(results: dict) -> dict:
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    import mfvi_dip_mia_tpu_torch.tasks.data as D
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+
+    # bench.py's images: the synthetic CT slice and x-ray at SIZE^2
+    P.D.get_img_ct = lambda img: (D.synthetic_ct(img, SIZE), (SIZE, SIZE))
+    P.D.get_image_denoising = lambda img: (D.synthetic_xray(img, SIZE),
+                                           (SIZE, SIZE))
+    out = {}
+
+    problem = P.build_problem("ct", "mfvi", 0, input_depth=16,
+                              device=DEVICE)
+    if problem.operator.mode != "banded-bf16":
+        raise AssertionError(f"CT operator mode {problem.operator.mode}")
+    method = Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
+    n_iter = CT_ITERS_WARM + CT_ITERS_TIMED
+    kernels.reset_launches()
+    res = fit(problem, method, num_iter=n_iter - 1, lr=1e-3, seed=1,
+              show_every=CT_ITERS_WARM, metrics_every=10,
+              compute_dtype="bf16", collect_snapshots=False,
+              device=DEVICE)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    traj = res.psnrs[::10, 2]
+    log(f"[3] ct/mfvi bf16 {SIZE}^2: {res.executed} iterations, "
+        f"{res.iters_per_sec:.2f} it/s over the last {CT_ITERS_TIMED} "
+        f"(first chunk incl. set-up {res.compile_seconds:.1f} s)")
+    log("    smoothed PSNR every 10 it: "
+        + " ".join(f"{p:.2f}" for p in traj))
+    log(f"    final smoothed PSNR {res.final_psnr:.3f} dB (iteration 0: "
+        f"{res.psnrs[0, 2]:.3f}); launches {launches}")
+    if not (np.isfinite(res.final_psnr)
+            and res.final_psnr > res.psnrs[0, 2]):
+        raise AssertionError("CT fit did not improve on iteration 0")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "CT main path")
+    out["ct"] = dict(iters_per_sec=res.iters_per_sec,
+                     final_psnr=res.final_psnr,
+                     psnr_it0=float(res.psnrs[0, 2]),
+                     psnr_every10=[float(p) for p in traj],
+                     executed=res.executed, launches=launches,
+                     launches_per_step={k: n / res.executed
+                                        for k, n in launches.items()})
+
+    problem = P.build_problem("den", "mfvi", 0, input_depth=16,
+                              device=DEVICE)
+    method = Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
+    kernels.reset_launches()
+    res = fit(problem, method, num_iter=DEN_ITERS - 1, lr=1e-3, seed=1,
+              show_every=100, metrics_every=1,
+              compute_dtype="f32", collect_snapshots=True, device=DEVICE)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"[3] den/mfvi f32 {SIZE}^2: {res.executed} iterations, "
+        f"{res.iters_per_sec:.2f} it/s, final smoothed PSNR "
+        f"{res.final_psnr:.3f} dB (iteration 0: {res.psnrs[0, 2]:.3f}); "
+        f"launches {launches}")
+    if not (np.isfinite(res.final_psnr)
+            and res.final_psnr > res.psnrs[0, 2]):
+        raise AssertionError("den fit did not improve on iteration 0")
+    if not np.isfinite(res.recons).all() or res.recons.shape != (
+            DEN_ITERS // 100 + 1, 1, SIZE, SIZE):
+        raise AssertionError(f"den snapshots {res.recons.shape}")
+    for name in ("cf_conv_fwd", "cf_conv_dw"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "den main path")
+    out["den"] = dict(iters_per_sec=res.iters_per_sec,
+                      final_psnr=res.final_psnr,
+                      psnr_it0=float(res.psnrs[0, 2]),
+                      executed=res.executed, launches=launches)
+    return out
+
+
+def profile_ct(steps: int, step_ms: float) -> dict:
+    """torch.profiler over a short CT fit: device time by kernel, and the
+    device's busy share of a step. The profiler slows the host, so the share
+    is taken of ``step_ms``, the unprofiled fit's time per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+
+    problem = P.build_problem("ct", "mfvi", 0, input_depth=16)
+    method = Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
+    kw = dict(lr=1e-3, seed=1, metrics_every=10, compute_dtype="bf16",
+              collect_snapshots=False)
+    fit(problem, method, num_iter=9, show_every=10, **kw)      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit(problem, method, num_iter=steps - 1, show_every=steps, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device kernels only: an operator's row repeats its kernels' time
+    rows = [(ev.key, ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3 / steps
+    launches = sum(r[2] for r in rows) / steps
+    log(f"[3] profile of {steps} CT steps: {launches:.0f} device kernels and "
+        f"{busy_ms:.3f} ms of device time per step; the unprofiled step takes "
+        f"{step_ms:.3f} ms, so the card is busy {100 * busy_ms / step_ms:.1f}%"
+        f" of it (profiled wall {wall * 1e3 / steps:.1f} ms/step)")
+    for key, us, n in rows[:12]:
+        log(f"    {us / 1e3 / steps:9.4f} ms/step  x{n / steps:6.1f}  "
+            f"{key[:90]}")
+    # the port's kernels by their CUDA function names (csrc/*.cu)
+    families = {"cf_conv_fwd": "conv_fwd_kernel", "cf_conv_dw": "conv_dw_",
+                "radon_banded_fwd": "radon_fwd_", "radon_banded_adj":
+                "radon_adj_"}
+    ours = {name: sum(us for key, us, _ in rows if tag in key) / 1e3 / steps
+            for name, tag in families.items()}
+    log("    the port's kernels, device ms/step: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ours.items()))
+    return dict(steps=steps, device_ms_per_step=busy_ms, step_ms=step_ms,
+                kernels_device_ms_per_step=ours,
+                busy_share=busy_ms / step_ms, kernels_per_step=launches,
+                profiled_wall_ms_per_step=wall * 1e3 / steps,
+                top=[dict(kernel=k, ms_per_step=us / 1e3 / steps,
+                          calls_per_step=n / steps) for k, us, n in rows[:40]])
+
+
+# -- phase 4: times beside bounds ---------------------------------------------
+
+def time_conv_kernels(sites, results: dict) -> None:
+    """Per training step of the CT main path (bf16): every forward site and
+    every dx (one cf_conv_fwd launch each), every dw (one cf_conv_dw)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    dt = torch.bfloat16
+    item = 2
+    fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               t_ops=0.0, t_bytes=0.0, calls=0, flops=0.0)
+    dw = dict(fwd)
+    per_site = []
+    for s in sites:
+        xp, w, g = conv_operands(s, dt, gen)
+        o_ch, i_ch, kh, kw = w.shape
+        h, wd = g.shape[1], g.shape[2]
+        calls = [("fwd", xp, w)]
+        if s["needs_dx"]:
+            calls.append(("dx",) + tcf._dx_operands(g, w))
+        row = dict(site=s["name"], xp=list(s["xp"]), w=list(s["w"]))
+        for tag, a, b in calls:
+            flops = 2.0 * b.shape[0] * b.shape[1] * kh * kw * (
+                a.shape[1] - kh + 1) * (a.shape[2] - kw + 1)
+            nbytes = (a.numel() + b.numel() + b.shape[0] * (
+                a.shape[1] - kh + 1) * (a.shape[2] - kw + 1)) * item
+            b_ms, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            t_k = time_ms(lambda: tcf.conv_valid_fwd(a, b))
+            t_p = time_ms(lambda: tcf.conv_valid_plain(a, b))
+            t_l = time_ms(lambda: F.conv2d(a[None], b))
+            for key, val in (("ms", t_k), ("plain_ms", t_p),
+                             ("library_ms", t_l), ("bound_ms", b_ms)):
+                fwd[key] += val
+            fwd["t_ops"] += flops / PEAK_BF16_FLOPS * 1e3
+            fwd["t_bytes"] += nbytes / PEAK_BYTES_PER_S * 1e3
+            fwd["calls"] += 1
+            fwd["flops"] += flops
+            row[tag] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                            bound_ms=b_ms, gflop=flops / 1e9)
+        flops = 2.0 * o_ch * i_ch * kh * kw * h * wd
+        nbytes = (xp.numel() + g.numel()) * item + o_ch * i_ch * kh * kw * 4
+        b_ms, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        t_k = time_ms(lambda: tcf.conv_dw(xp, g, kh, kw))
+        t_p = time_ms(lambda: tcf.conv_dw_plain(xp, g, kh, kw))
+        t_l = time_ms(lambda: conv2d_weight(xp[None], w.shape, g[None]))
+        for key, val in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                         ("bound_ms", b_ms)):
+            dw[key] += val
+        dw["t_ops"] += flops / PEAK_BF16_FLOPS * 1e3
+        dw["t_bytes"] += nbytes / PEAK_BYTES_PER_S * 1e3
+        dw["calls"] += 1
+        dw["flops"] += flops
+        row["dw"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                         gflop=flops / 1e9)
+        per_site.append(row)
+    for name, agg in (("cf_conv_fwd", fwd), ("cf_conv_dw", dw)):
+        r = results.setdefault(name, {})
+        r.update(ms=agg["ms"], plain_ms=agg["plain_ms"],
+                 library_ms=agg["library_ms"], bound_ms=agg["bound_ms"],
+                 bound_by=("operations" if agg["t_ops"] > agg["t_bytes"]
+                           else "bytes"),
+                 calls_timed_per_step=agg["calls"],
+                 gflop_per_step=agg["flops"] / 1e9)
+        log(f"[4] {name}: {agg['calls']} launches per step, "
+            f"{agg['flops'] / 1e9:.3f} GFLOP: kernel {agg['ms']:.3f} ms, "
+            f"plain {agg['plain_ms']:.3f} ms, library {agg['library_ms']:.3f}"
+            f" ms, bound {agg['bound_ms']:.4f} ms")
+    results["_conv_sites"] = per_site
+
+
+def time_radon_kernels(states, results: dict) -> None:
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import radon_banded as rb
+    from mfvi_dip_mia_tpu_torch.ops.radon import _build_projection_matrix
+    from mfvi_dip_mia_tpu_torch.tasks.problems import _CT_THETA
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    t0 = time.perf_counter()
+    dense = torch.from_numpy(_build_projection_matrix(
+        _CT_THETA, SIZE, SIZE)).to(DEVICE)            # (T*W, H*W) f32
+    log(f"[4] dense projection matrix {tuple(dense.shape)} "
+        f"({dense.numel() * 4 / 1e9:.2f} GB) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    img = torch.rand((1, 1, SIZE, SIZE), generator=gen, device=DEVICE)
+    for dname, st in states.items():
+        v = rb.patchify(img, st.patch).contiguous()
+        y = torch.randn((st.t_pad * st.w, 1), generator=gen, device=DEVICE)
+        flat_img = img.reshape(-1)
+        y_dense = y[:len(_CT_THETA) * SIZE, 0].contiguous()
+        band_bytes = st.blocks.numel() * st.blocks.element_size()
+        flops = 2.0 * st.blocks.numel()
+        for kname, fk, fp, fl, io_bytes in (
+                ("radon_banded_fwd", lambda: rb.radon_fwd(st, v),
+                 lambda: rb.radon_fwd_plain(st, v),
+                 lambda: torch.mv(dense, flat_img),
+                 (v.numel() + y.numel()) * 4),
+                ("radon_banded_adj", lambda: rb.radon_adj(st, y),
+                 lambda: rb.radon_adj_plain(st, y),
+                 lambda: torch.mv(dense.T, y_dense),
+                 (v.numel() + y.numel()) * 4)):
+            nbytes = band_bytes + st.jlo.numel() * 4 + io_bytes
+            b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+            t_k, t_p, t_l = time_ms(fk), time_ms(fp, reps=5), time_ms(fl)
+            log(f"[4] {kname} {dname} band ({band_bytes / 1e6:.1f} MB): "
+                f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, dense mv "
+                f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{band_bytes / (t_k * 1e-3) / 1e9:.0f} GB/s of band")
+            r = results.setdefault(kname, {})
+            r[f"ms_{dname}"] = t_k
+            r[f"plain_ms_{dname}"] = t_p
+            r[f"bound_ms_{dname}"] = b_ms
+            r["library_ms"] = t_l
+            if dname == "bf16":       # the main path's band
+                r.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+    del dense
+    torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write every measurement to this JSON file")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="profile this many CT steps with torch.profiler")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run on the "
+              "card", file=sys.stderr)
+        return 2
+    try:
+        from mfvi_dip_mia_tpu_torch.nn import build_skip_net
+        from mfvi_dip_mia_tpu_torch.ops import kernels
+        from mfvi_dip_mia_tpu_torch.ops.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e})",
+              file=sys.stderr)
+        return 2
+    if "jax" in sys.modules or "mfvi_dip_mia_tpu" in sys.modules:
+        raise AssertionError("the port imported JAX or the JAX package")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[1] {smi}")
+    log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+        f"{sys.version.split()[0]}, {torch.cuda.device_count()} device(s): "
+        f"{kind}")
+    build.library()
+    log(f"[1] kernels built and loaded in {build.BUILD_SECONDS:.1f} s")
+
+    results: dict = {}
+    net = build_skip_net(16, n_channels=1, pad="reflection",
+                         skip_n33d=[16, 32, 64, 128, 128],
+                         skip_n33u=[16, 32, 64, 128, 128], skip_n11=4,
+                         num_scales=5, upsample_mode="bilinear")
+    sites = conv_sites(net, SIZE)
+    check_conv_kernels(sites, results)
+    states = check_radon_kernels(results)
+
+    step = check_step_against_cpu(net)
+    fits = run_fits(results)
+    fits["step_vs_cpu"] = step
+
+    time_conv_kernels(sites, results)
+    time_radon_kernels(states, results)
+    del states
+    if args.profile_steps:
+        fits["profile"] = profile_ct(args.profile_steps,
+                                     1e3 / fits["ct"]["iters_per_sec"])
+
+    line = []
+    for k in kernels.KERNELS:
+        r = results[k.name]
+        line.append(dict(
+            name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+            launches=fits["ct"]["launches"][k.name],
+            launches_per_step=fits["ct"]["launches_per_step"][k.name],
+            max_abs_err=r["max_abs_err_bf16"],
+            max_abs_err_f32=r["max_abs_err_f32"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(card=smi, torch=torch.__version__,
+                           cuda=torch.version.cuda,
+                           build_seconds=build.BUILD_SECONDS, kernels=line,
+                           details=results, fits=fits,
+                           seconds=time.perf_counter() - t_start), f,
+                      indent=1, default=float)
+    log(f"[4] total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": line}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

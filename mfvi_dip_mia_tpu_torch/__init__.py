@@ -1,0 +1,20 @@
+"""mfvi_dip_mia_tpu_torch: the PyTorch / CUDA port of mfvi_dip_mia_tpu for an
+NVIDIA H100 (sm_90a).
+
+It runs the system's main path, one MFVI fit of the DIP skip U-Net for CT
+(with the banded Radon operator) and denoising, on hand-written CUDA kernels
+(csrc/) that replace the JAX package's Pallas TPU kernels:
+
+  * ``nn``     — the NCHW skip U-Net and its layers
+  * ``bayes``  — mean-field VI on a flat [mu | rho | det] buffer
+  * ``ops``    — the Radon operator, losses, metrics, and ``ops.kernels``
+                 (the CUDA kernels' wrappers and their plain versions)
+  * ``optim``  — flat AdamW with the analytic KL gradient
+  * ``tasks``  — data, problems and the trainer
+  * ``utils``  — host images, device resolution, the JAX weight bridge
+
+Entry points run on the card unless the caller passes ``device="cpu"``; the
+JAX package and JAX itself are never imported.
+"""
+
+__version__ = "0.1.0"

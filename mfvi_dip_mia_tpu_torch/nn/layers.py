@@ -1,0 +1,94 @@
+"""NCHW building blocks of the skip U-Net (counterpart of
+mfvi_dip_mia_tpu/nn/layers.py and nn/cf.py, which collapse into this one op
+set): train-mode BatchNorm with shifted one-pass moments, LeakyReLU(0.2),
+the x2 upsample through interpolation matrices, and the center-cropping
+concat; reflection padding is the conv site's (ops/kernels/cf_conv.py::
+conv2d_cf). Every function takes batch-first NCHW tensors."""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
+                     offset: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm2d in train mode (biased batch statistics over N, H, W) with
+    the shifted one-pass moments of nn/cf.py::batch_norm_train: a per-channel
+    shift c from the first 8 rows (no gradient) keeps E[(x-c)^2] - E[x-c]^2
+    free of the f32 cancellation a large channel mean causes. Statistics in
+    f32; the normalization is one multiply-add in x's dtype."""
+    xf = x.float()
+    c = xf[:, :, :8, :].mean(dim=(0, 2, 3), keepdim=True).detach()
+    xc = xf - c
+    mean_c = xc.mean(dim=(0, 2, 3), keepdim=True)
+    ex2 = (xc * xc).mean(dim=(0, 2, 3), keepdim=True)
+    var = torch.clamp(ex2 - mean_c * mean_c, min=0.0)
+    mean = c + mean_c
+    inv = torch.rsqrt(var + eps)
+    sc = scale[None, :, None, None].float()
+    a = (inv * sc).to(x.dtype)
+    b = (offset[None, :, None, None].float() - mean * inv * sc).to(x.dtype)
+    return x * a + b
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """where(x >= 0, x, slope * x), with the JAX package's gradient at 0."""
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+@functools.lru_cache(maxsize=None)
+def _bilinear_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
+    """(out, in) row-stochastic interpolation matrix with torch's
+    align_corners=False mapping src = (dst + 0.5) / scale - 0.5, clamped
+    (layers.py::_bilinear_matrix)."""
+    dst = np.arange(out_size, dtype=np.float64)
+    src = (dst + 0.5) / scale - 0.5
+    src = np.clip(src, 0.0, in_size - 1)
+    i0 = np.floor(src).astype(np.int64)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    frac = (src - i0).astype(np.float64)
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    m[np.arange(out_size), i0] += (1.0 - frac).astype(np.float32)
+    m[np.arange(out_size), i1] += frac.astype(np.float32)
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix_on(in_size: int, out_size: int, scale: float, device: str,
+               dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(_bilinear_matrix(in_size, out_size, scale)).to(
+        device=device, dtype=dtype)
+
+
+def resize_bilinear(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """F.interpolate(x, scale_factor=scale, mode='bilinear',
+    align_corners=False) as two interpolation-matrix products."""
+    _, _, h, w = x.shape
+    oh, ow = int(h * scale), int(w * scale)
+    mh = _matrix_on(h, oh, scale, str(x.device), x.dtype)
+    mw = _matrix_on(w, ow, scale, str(x.device), x.dtype)
+    x = torch.einsum("oh,nchw->ncow", mh, x)
+    return torch.einsum("pw,nchw->nchp", mw, x)
+
+
+def upsample2x(x: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "bilinear":
+        return resize_bilinear(x, 2.0)
+    if mode == "nearest":
+        return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    raise ValueError(f"unknown upsample mode {mode!r}")
+
+
+def concat_center_crop(xs: list[torch.Tensor]) -> torch.Tensor:
+    """Concat along channels, center-cropping to the smallest H and W."""
+    th = min(x.shape[2] for x in xs)
+    tw = min(x.shape[3] for x in xs)
+    cropped = []
+    for x in xs:
+        dh = (x.shape[2] - th) // 2
+        dw = (x.shape[3] - tw) // 2
+        cropped.append(x[:, :, dh:dh + th, dw:dw + tw])
+    return torch.cat(cropped, dim=1)

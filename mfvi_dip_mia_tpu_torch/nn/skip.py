@@ -1,0 +1,232 @@
+"""The DIP skip-connection encoder-decoder U-Net (counterpart of
+mfvi_dip_mia_tpu/nn/skip.py, 5-scale skip topology), NCHW.
+
+  level i (of n scales), input x with c_i channels:
+    skip branch (if skip_ch[i] > 0):  conv1x1 -> BN -> act
+    deeper:   conv(k_down, stride2) -> BN -> act
+              conv(k_down)          -> BN -> act
+              [ level i+1 ]                        (except at the deepest)
+              upsample x2 (bilinear|nearest)
+    join:     concat(skip, deeper)  (center-crop to min spatial size)
+              BN(skip_ch + deeper_ch)
+              conv(k_up) -> BN -> act
+              [conv1x1 -> BN -> act]               (if need1x1_up)
+  output:  conv1x1 -> [sigmoid]
+
+The module holds the static topology only; parameters are a flat dict of
+tensors keyed by the JAX package's leaf paths (``levels.0.down1.conv.w``,
+``levels.0.down1.bn.scale``, ``out.conv.b``, ...), so one forward serves the
+deterministic and the sampled-variational trees, and weights move across from
+the JAX package by name (utils/bridge.py). Conv kernels are OIHW.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from . import init as init_lib
+from . import layers
+from .var_conv import apply_conv_leaf
+
+_CONV_KEYS = ("w", "b", "w_mu", "w_rho", "b_mu", "b_rho")
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSite:
+    """Static description of one conv site."""
+    site_id: int
+    c_in: int
+    c_out: int
+    kernel: int
+    stride: int = 1
+    pad_mode: str = "zero"            # 'zero' | 'reflection'
+    bias: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class _LevelCfg:
+    skip_conv: ConvSite | None
+    down1: ConvSite
+    down2: ConvSite
+    up: ConvSite
+    up1x1: ConvSite | None
+    bn_cat_ch: int
+    upsample_mode: str
+
+
+def _as_list(v, n):
+    if isinstance(v, (list, tuple)):
+        if len(v) != n:
+            raise ValueError(f"expected {n} entries, got {len(v)}")
+        return list(v)
+    return [v] * n
+
+
+class SkipNet(nn.Module):
+    """Static network description; ``init_params(generator)`` makes the
+    parameter dict and ``forward(params, x)`` applies it."""
+
+    def __init__(self, num_input_channels: int = 2,
+                 num_output_channels: int = 3,
+                 num_channels_down: Sequence[int] = (16, 32, 64, 128, 128),
+                 num_channels_up: Sequence[int] = (16, 32, 64, 128, 128),
+                 num_channels_skip: Sequence[int] = (4, 4, 4, 4, 4),
+                 filter_size_down=3, filter_size_up=3,
+                 filter_skip_size: int = 1, need_sigmoid: bool = True,
+                 need_bias: bool = True, pad: str = "zero",
+                 upsample_mode="nearest", act_fun: str = "LeakyReLU",
+                 need1x1_up: bool = True):
+        super().__init__()
+        n = len(num_channels_down)
+        if not len(num_channels_up) == len(num_channels_skip) == n:
+            raise ValueError("channel lists must have one entry per scale")
+        if act_fun != "LeakyReLU":
+            raise NotImplementedError(f"activation {act_fun!r} is not ported "
+                                      "yet (ROADMAP Queue 1 item 14)")
+        self.n_scales = n
+        self.need_sigmoid = need_sigmoid
+        up_modes = _as_list(upsample_mode, n)
+        k_down = _as_list(filter_size_down, n)
+        k_up = _as_list(filter_size_up, n)
+
+        sid = [0]
+
+        def site(c_in, c_out, k, stride=1) -> ConvSite:
+            s = ConvSite(site_id=sid[0], c_in=c_in, c_out=c_out, kernel=k,
+                         stride=stride, pad_mode=pad, bias=need_bias)
+            sid[0] += 1
+            return s
+
+        levels = []
+        c_in = num_input_channels
+        for i in range(n):
+            last = i == n - 1
+            deeper_out = num_channels_down[i] if last else num_channels_up[i + 1]
+            skip_conv = None
+            if num_channels_skip[i] != 0:
+                skip_conv = site(c_in, num_channels_skip[i], filter_skip_size)
+            down1 = site(c_in, num_channels_down[i], k_down[i], 2)
+            down2 = site(num_channels_down[i], num_channels_down[i],
+                         k_down[i])
+            up = site(num_channels_skip[i] + deeper_out, num_channels_up[i],
+                      k_up[i])
+            up1x1 = (site(num_channels_up[i], num_channels_up[i], 1)
+                     if need1x1_up else None)
+            levels.append(_LevelCfg(
+                skip_conv=skip_conv, down1=down1, down2=down2, up=up,
+                up1x1=up1x1, bn_cat_ch=num_channels_skip[i] + deeper_out,
+                upsample_mode=up_modes[i]))
+            c_in = num_channels_down[i]
+        self.levels = levels
+        self.out_conv = site(num_channels_up[0], num_output_channels, 1)
+        self.num_conv_sites = sid[0]
+
+    # -- init ---------------------------------------------------------------
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """Deterministic parameters with torch-default conv init, in the JAX
+        package's SkipNet.init insertion order (CPU tensors)."""
+        params = {}
+
+        def conv(prefix, s: ConvSite):
+            params[f"{prefix}.conv.w"] = init_lib.conv_kernel_torch_default(
+                generator, s.kernel, s.kernel, s.c_in, s.c_out)
+            if s.bias:
+                params[f"{prefix}.conv.b"] = init_lib.conv_bias_torch_default(
+                    generator, s.c_out, s.c_in * s.kernel * s.kernel)
+
+        def bn(prefix, c):
+            params[f"{prefix}.scale"] = torch.ones(c)
+            params[f"{prefix}.offset"] = torch.zeros(c)
+
+        for i, cfg in enumerate(self.levels):
+            p = f"levels.{i}"
+            parts = (("skip", cfg.skip_conv), ("down1", cfg.down1),
+                     ("down2", cfg.down2), ("bn_cat", None), ("up", cfg.up),
+                     ("up1x1", cfg.up1x1))
+            for name, s in parts:
+                if name == "bn_cat":
+                    bn(f"{p}.bn_cat", cfg.bn_cat_ch)
+                elif s is not None:
+                    conv(f"{p}.{name}", s)
+                    bn(f"{p}.{name}.bn", s.c_out)
+        conv("out", self.out_conv)
+        return params
+
+    # -- forward ------------------------------------------------------------
+
+    @staticmethod
+    def _leaf(params: dict, prefix: str) -> dict:
+        return {k: params[f"{prefix}.{k}"] for k in _CONV_KEYS
+                if f"{prefix}.{k}" in params}
+
+    def _conv_site(self, s: ConvSite, params, prefix, x, generator, training,
+                   skip_bias=False):
+        return apply_conv_leaf(self._leaf(params, f"{prefix}.conv"), x,
+                               stride=s.stride, padding=(s.kernel - 1) // 2,
+                               pad_mode=s.pad_mode, generator=generator,
+                               training=training, skip_bias=skip_bias)
+
+    def _conv_bn_act(self, s: ConvSite, params, prefix, x, generator,
+                     training):
+        # the conv bias is a per-channel constant that the train-mode BN's
+        # mean subtraction removes exactly: skip it (skip.py::_conv_bn_act)
+        x = self._conv_site(s, params, prefix, x, generator, training,
+                            skip_bias=True)
+        x = layers.batch_norm_train(x, params[f"{prefix}.bn.scale"],
+                                    params[f"{prefix}.bn.offset"])
+        return layers.leaky_relu(x)
+
+    def _apply_level(self, params, i, x, generator, training):
+        cfg = self.levels[i]
+        p = f"levels.{i}"
+        h = self._conv_bn_act(cfg.down1, params, f"{p}.down1", x, generator,
+                              training)
+        h = self._conv_bn_act(cfg.down2, params, f"{p}.down2", h, generator,
+                              training)
+        if i < self.n_scales - 1:
+            h = self._apply_level(params, i + 1, h, generator, training)
+        h = layers.upsample2x(h, cfg.upsample_mode)
+        if cfg.skip_conv is not None:
+            s = self._conv_bn_act(cfg.skip_conv, params, f"{p}.skip", x,
+                                  generator, training)
+            z = layers.concat_center_crop([s, h])
+        else:
+            z = h
+        z = layers.batch_norm_train(z, params[f"{p}.bn_cat.scale"],
+                                    params[f"{p}.bn_cat.offset"])
+        z = self._conv_bn_act(cfg.up, params, f"{p}.up", z, generator,
+                              training)
+        if cfg.up1x1 is not None:
+            z = self._conv_bn_act(cfg.up1x1, params, f"{p}.up1x1", z,
+                                  generator, training)
+        return z
+
+    def forward(self, params: dict, x: torch.Tensor, generator=None,
+                training: bool = True) -> torch.Tensor:
+        """x: (1, C, H, W). ``generator`` drives the RT weight draws of a
+        variational tree; a deterministic (or pre-sampled) tree needs none."""
+        z = self._apply_level(params, 0, x, generator, training)
+        z = self._conv_site(self.out_conv, params, "out", z, generator,
+                            training)
+        return torch.sigmoid(z) if self.need_sigmoid else z
+
+
+def build_skip_net(input_depth: int, n_channels: int = 3, pad: str = "zero",
+                   upsample_mode="nearest", act_fun: str = "LeakyReLU",
+                   need_sigmoid: bool = False, skip_n33d=128, skip_n33u=128,
+                   skip_n11=4, num_scales: int = 5) -> SkipNet:
+    """get_net() parity constructor (skip.py::build_skip_net)."""
+    def per_scale(v):
+        return [v] * num_scales if isinstance(v, int) else v
+    return SkipNet(
+        num_input_channels=input_depth, num_output_channels=n_channels,
+        num_channels_down=per_scale(skip_n33d),
+        num_channels_up=per_scale(skip_n33u),
+        num_channels_skip=per_scale(skip_n11),
+        upsample_mode=upsample_mode, need_sigmoid=need_sigmoid,
+        need_bias=True, pad=pad, act_fun=act_fun)

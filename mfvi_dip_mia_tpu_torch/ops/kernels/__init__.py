@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels (csrc/) and their wrappers; see build.py."""
+
+from . import cf_conv, radon_banded
+
+KERNELS = (cf_conv.FWD, cf_conv.DW, radon_banded.FWD, radon_banded.ADJ)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -1,0 +1,72 @@
+"""Image quality metrics on the device (counterpart of
+mfvi_dip_mia_tpu/ops/metrics.py), NCHW:
+
+  * PSNR = 10*log10(1 / mse), images with max value 1
+  * SSIM with an 11x11 Gaussian window (sigma 1.5), zero-padded, C1=0.01^2,
+    C2=0.03^2; the separable blur runs as two banded-matrix products.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def psnr(image_true: torch.Tensor, image_test: torch.Tensor) -> torch.Tensor:
+    err = torch.mean((image_true.float() - image_test.float()) ** 2)
+    return 10.0 * torch.log10(1.0 / err)
+
+
+@functools.lru_cache(maxsize=None)
+def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
+    g = np.exp(-((np.arange(window_size) - window_size // 2) ** 2)
+               / float(2 * sigma ** 2))
+    g /= g.sum()
+    return g.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_matrix(size: int, window_size: int, sigma: float) -> np.ndarray:
+    """(size, size) banded matrix B with B @ x == conv1d(x, g), zero padded."""
+    g = _gaussian_window(window_size, sigma)
+    pad = window_size // 2
+    m = np.zeros((size, size), np.float32)
+    for off in range(-pad, pad + 1):
+        m += np.diag(np.full(size - abs(off), g[off + pad], np.float32), k=off)
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_on(size: int, window_size: int, sigma: float,
+             device: str) -> torch.Tensor:
+    return torch.from_numpy(_blur_matrix(size, window_size, sigma)).to(device)
+
+
+def _blur(x: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
+    h, w = x.shape[2], x.shape[3]
+    bh = _blur_on(h, window_size, sigma, str(x.device))
+    bw = _blur_on(w, window_size, sigma, str(x.device))
+    x = torch.einsum("oh,nchw->ncow", bh, x)
+    return torch.einsum("pw,nchw->nchp", bw, x)
+
+
+def ssim(image_true: torch.Tensor, image_test: torch.Tensor,
+         window_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
+    """Mean SSIM over the image (including zero-padding border effects)."""
+    x = image_true.float()
+    y = image_test.float()
+    c = x.shape[1]
+    blurred = _blur(torch.cat([x, y, x * x, y * y, x * y], dim=1),
+                    window_size, sigma)
+    mu1, mu2, exx, eyy, exy = (blurred[:, i * c:(i + 1) * c]
+                               for i in range(5))
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = exx - mu1_sq
+    sigma2_sq = eyy - mu2_sq
+    sigma12 = exy - mu1_mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+    return ssim_map.mean()

@@ -1,0 +1,42 @@
+"""Carry parameters and noise across from the JAX package (mfvi_dip_mia_tpu).
+
+The JAX parameter tree arrives as nested dicts / lists of numpy arrays (the
+caller converts it with np.asarray; this module never sees JAX). HWIO conv
+kernels (``w``, ``w_mu``, ``w_rho``) become OIHW; biases and BatchNorm
+``scale``/``offset`` copy as they are. Leaf names keep the JAX paths, e.g.
+``levels.0.down1.conv.w_mu``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_KERNEL_LEAVES = ("w", "w_mu", "w_rho")
+
+
+def leaf_from_jax(name: str, value) -> torch.Tensor:
+    """One JAX leaf -> the port's tensor (OIHW for 4-D conv kernels)."""
+    a = np.array(value, np.float32)          # a writable copy
+    if name.rsplit(".", 1)[-1] in _KERNEL_LEAVES and a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def named_leaves(tree, prefix: str = ""):
+    """(path, leaf) pairs of a nested dict/list tree in its own iteration
+    order; None leaves (absent biases) are skipped."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}{i}.")
+    elif tree is not None:
+        yield prefix[:-1], tree
+
+
+def params_from_jax(tree) -> dict:
+    """The JAX parameter tree -> the port's parameter dict (name -> tensor),
+    in the tree's own order."""
+    return {name: leaf_from_jax(name, v) for name, v in named_leaves(tree)}
