@@ -7,18 +7,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of the hand-written CUDA kernels from csrc/.
-2. Every kernel against its plain PyTorch version on the card, in f32 and
-   bf16: the VALID conv (forward and dx) and its weight gradient at every
-   conv-site shape of the 256^2 CT U-Net, and the banded Radon forward and
-   adjoint at 256^2 / 45 angles with the f32 and the bf16 band.
-3. One f32 CT loss and gradient through the 256^2 net on the card against
-   the CPU's plain path. Then the main path: bench.py's CT configuration
-   (256^2, input depth 16, temp 2.2e-10, sigma 1.7e-7, lr 1e-3, seed 1,
-   bf16, metrics every 10) through the port's ``fit``, 100 warm-up and 200
-   timed iterations; then a den/mfvi f32 fit of 500 iterations (bench.py
-   --metric train's configuration). Launch counters are zeroed just before
-   each fit and read just after it.
-4. Each kernel's time at the main path's shapes beside its bound, its plain
+2. Every kernel against its plain PyTorch version on the card: the VALID
+   conv (forward and dx) and its weight gradient in f32 and bf16 at every
+   conv-site shape of the 256^2 CT U-Net, the banded Radon forward and
+   adjoint at 256^2 / 45 angles with the f32 and the bf16 band, and the four
+   fused conv + BN + LeakyReLU kernels in f32 at every fused-site shape of
+   the 256^2 den U-Net (out, stats, dconv, dgamma, dbeta, dw, dx).
+3. One f32 CT and one f32 den loss and gradient through the 256^2 nets on
+   the card against the CPU's plain path. Then the main paths: bench.py's CT
+   configuration (256^2, input depth 16, temp 2.2e-10, sigma 1.7e-7, lr
+   1e-3, seed 1, bf16, metrics every 10) through ``fit``, 100 warm-up and
+   200 timed iterations; then the den/MFVI f32 fit of 500 iterations (bench.py
+   --metric train's configuration) through the user's entry point
+   ``run_den_mfvi`` (save.npz into a temporary directory, no plots), with
+   its 25-sample MC posterior summary, and the MC posterior samples per
+   second of ``mc_predict``. Launch counters are zeroed just before each
+   path and read just after it.
+4. Each kernel's time at the main paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
    off; timed here only, never called by the port), printed as one JSON
    line ``{"kernels": [...]}``.
@@ -48,6 +53,8 @@ DEVICE = "cuda"
 CT_ITERS_WARM = 100            # first show_every chunk: warm-up
 CT_ITERS_TIMED = 200
 DEN_ITERS = 500
+MC_SAMPLES_TIMED = 100
+DEN_AB_ITERS = 110             # unprofiled den steps of the fused A/B
 
 # Tolerances of a kernel against its plain version, as a share of the
 # plain result's largest magnitude:
@@ -61,8 +68,16 @@ DEN_ITERS = 500
 TOL = {("conv", "f32"): 1e-4, ("conv", "bf16"): 8e-3,
        ("dw", "f32"): 1e-3, ("dw", "bf16"): 1e-3,
        ("radon", "f32"): 1e-4, ("radon", "bf16"): 1e-4}
-# One f32 CT step, card against CPU: the same f32 arithmetic in another
-# summation order at every one of 26 convs, 30 BatchNorms and the Radon;
+# The fused block's kernels against their plain versions (f32), as a share
+# of the plain result's largest magnitude (per column of stats):
+#   out / dconv / dx: f32 sums of <= 1188 products in another order, then
+#     elementwise BN / LeakyReLU / dconv arithmetic
+#   mu, inv: sums of up to 65,536 terms in another (fixed) order
+#   dw, dgamma, dbeta: sums of up to 65,536 products in another order
+TOL_FUSED = {"out": 1e-4, "dconv": 1e-4, "dx": 1e-4, "mu": 1e-5, "inv": 1e-5,
+             "dw": 1e-3, "dgamma": 1e-3, "dbeta": 1e-3}
+# One f32 step, card against CPU: the same f32 arithmetic in another
+# summation order at every one of 26 convs, 30 BatchNorms (and the Radon);
 # gradients as a share of the largest one
 TOL_STEP = {"out": 1e-4, "loss": 1e-4, "grad": 1e-3}
 
@@ -245,21 +260,113 @@ def check_radon_kernels(results: dict) -> dict:
     return states
 
 
+def fused_sites(net, size: int) -> list[dict]:
+    """Every site of ``net`` on a size^2 f32 input that runs as the fused
+    block (nn/skip.py: stride 1, k in {1, 3}): (Ci, Co, H, W, k), and
+    whether the backward needs its dx (level 0's skip reads the input z)."""
+    sites = []
+    for i, cfg in enumerate(net.levels):
+        s = size >> i
+        for name, site, s_in in (("skip", cfg.skip_conv, s),
+                                 ("down2", cfg.down2, s // 2),
+                                 ("up", cfg.up, s), ("up1x1", cfg.up1x1, s)):
+            if site is None or site.stride != 1 or site.kernel not in (1, 3):
+                continue
+            sites.append(dict(name=f"levels.{i}.{name}", ci=site.c_in,
+                              co=site.c_out, h=s_in, w=s_in, k=site.kernel,
+                              needs_dx=not (i == 0 and name == "skip")))
+    return sites
+
+
+def fused_operands(site: dict, gen):
+    """(xp, w, gamma, beta, g) on the card: the reflection-padded input, the
+    OIHW kernel, the BN affine and a cotangent of the output."""
+    import torch
+    import torch.nn.functional as F
+    ci, co, h, w, k = (site[n] for n in ("ci", "co", "h", "w", "k"))
+    p = (k - 1) // 2
+    x = torch.randn((1, ci, h, w), generator=gen, device=DEVICE)
+    xp = (F.pad(x, (p,) * 4, mode="reflect") if p else x)[0].contiguous()
+    wk = torch.randn((co, ci, k, k), generator=gen, device=DEVICE) / (
+        ci * k * k) ** 0.5
+    gamma = torch.rand((co,), generator=gen, device=DEVICE) + 0.5
+    beta = torch.randn((co,), generator=gen, device=DEVICE)
+    g = torch.randn((co, h, w), generator=gen, device=DEVICE)
+    return xp, wk, gamma, beta, g
+
+
+def check_fused_kernels(sites, results: dict) -> None:
+    """Each fused kernel against its plain version at every distinct
+    fused-site shape; the backward kernels take the plain forward's out and
+    stats and the plain dconv, so each is held alone."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    shapes = {}
+    for s in sites:
+        shapes.setdefault(tuple(s[n] for n in ("ci", "co", "h", "w", "k")), s)
+    log(f"[2] fused-block kernels at {len(shapes)} distinct shapes of "
+        f"{len(sites)} fused sites")
+    worst = {}
+    for shape, s in shapes.items():
+        xp, wk, gamma, beta, g = fused_operands(s, gen)
+        k = s["k"]
+        out, stats = tfb.fwd(xp, wk, gamma, beta)
+        out_p, stats_p = tfb.fwd_plain(xp, wk, gamma, beta)
+        dc, dgam, dbet = tfb.bwd_dc(g, out_p, stats_p, gamma, beta)
+        dc_p, dgam_p, dbet_p = tfb.bwd_dc_plain(g, out_p, stats_p, gamma,
+                                                beta)
+        checks = [
+            ("fused_block_fwd", "out", out, out_p),
+            ("fused_block_fwd", "mu", stats[:, 0], stats_p[:, 0]),
+            ("fused_block_fwd", "inv", stats[:, 1], stats_p[:, 1]),
+            ("fused_block_bwd_dc", "dconv", dc, dc_p),
+            ("fused_block_bwd_dc", "dgamma", dgam, dgam_p),
+            ("fused_block_bwd_dc", "dbeta", dbet, dbet_p),
+            ("fused_block_bwd_dw", "dw", tfb.bwd_dw(dc_p, xp, k),
+             tfb.bwd_dw_plain(dc_p, xp, k)),
+            ("fused_block_bwd_dx", "dx", tfb.bwd_dx(dc_p, wk),
+             tfb.bwd_dx_plain(dc_p, wk)),
+        ]
+        torch.cuda.synchronize()
+        for kname, what, got, ref in checks:
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"{kname} {what} at {shape}: shape {tuple(got.shape)} vs "
+                    f"{tuple(ref.shape)} or non-finite values")
+            a, r = rel_err(got, ref)
+            if r > TOL_FUSED[what]:
+                raise AssertionError(
+                    f"{kname} {what} at (Ci, Co, H, W, k) {shape}: max abs "
+                    f"err {a:.3e} (rel {r:.3e}) > tolerance "
+                    f"{TOL_FUSED[what]:.0e}")
+            if r >= worst.get((kname, what), (0.0, -1.0))[1]:
+                worst[(kname, what)] = (a, r)
+    for (kname, what), (a, r) in worst.items():
+        log(f"    {kname:18s} {what:6s} worst max abs err {a:.3e} rel "
+            f"{r:.3e} (tolerance {TOL_FUSED[what]:.0e}) ok")
+        res = results.setdefault(kname, {})
+        res["max_abs_err_f32"] = max(res.get("max_abs_err_f32", 0.0), a)
+        res.setdefault("errors", {})[what] = dict(max_abs_err=a, rel=r)
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
-def check_step_against_cpu(net) -> dict:
-    """One CT loss and its parameter gradient through the 256^2 net at f32,
-    on the card (the kernels) and on the CPU (their plain versions), from
-    the same sampled weights and input: the slice's model against its
-    reference on one input."""
+def check_step_against_cpu(net, task: str) -> dict:
+    """One f32 loss and its parameter gradient through the 256^2 net, on the
+    card (the kernels) and on the CPU (their plain versions), from the same
+    sampled weights and input: the slice's model against its reference on
+    one input. ct: MSE of the banded Radon sinograms; den: the Gaussian NLL
+    of the noisy x-ray."""
     import numpy as np
     import torch
     from mfvi_dip_mia_tpu_torch.bayes import vi
-    from mfvi_dip_mia_tpu_torch.ops.losses import mse_loss
+    from mfvi_dip_mia_tpu_torch.ops.losses import gaussian_nll, mse_loss
     from mfvi_dip_mia_tpu_torch.ops.radon import FastRadonTransform
-    from mfvi_dip_mia_tpu_torch.tasks.data import synthetic_ct
+    from mfvi_dip_mia_tpu_torch.tasks.data import synthetic_ct, synthetic_xray
     from mfvi_dip_mia_tpu_torch.tasks.problems import _CT_THETA
-    from mfvi_dip_mia_tpu_torch.utils.images import get_noise
+    from mfvi_dip_mia_tpu_torch.utils.images import add_gaussian_noise, get_noise
 
     gen = torch.Generator().manual_seed(5)
     flat = vi.flatten(vi.to_mfvi(net.init_params(gen), gen))
@@ -267,15 +374,22 @@ def check_step_against_cpu(net) -> dict:
               vi.sample_mfvi_tree(flat, gen).items()}
     z = torch.from_numpy(get_noise(16, SIZE, rng=np.random.default_rng(5))
                          ).permute(0, 3, 1, 2).contiguous()
-    gt = torch.from_numpy(synthetic_ct(0, SIZE))[None]
+    if task == "ct":
+        gt = torch.from_numpy(synthetic_ct(0, SIZE))[None]
+    else:
+        noisy = torch.from_numpy(add_gaussian_noise(
+            synthetic_xray(0, SIZE), 0.1, np.random.default_rng(5)))[None]
     got = {}
     for dev in ("cpu", DEVICE):
-        radon = FastRadonTransform(gt.shape, _CT_THETA, mode="banded",
-                                   device=dev)
         p = {k: v.detach().clone().to(dev).requires_grad_(True)
              for k, v in leaves.items()}
         out = net(p, z.to(dev))
-        loss = mse_loss(radon(out), radon(gt.to(dev)))
+        if task == "ct":
+            radon = FastRadonTransform(gt.shape, _CT_THETA, mode="banded",
+                                       device=dev)
+            loss = mse_loss(radon(out), radon(gt.to(dev)))
+        else:
+            loss = gaussian_nll(out[:, :1], out[:, 1:], noisy.to(dev))
         loss.backward()
         got[dev] = (out.detach().cpu(), loss.detach().cpu(),
                     {k: v.grad.cpu() for k, v in p.items()
@@ -286,20 +400,22 @@ def check_step_against_cpu(net) -> dict:
     scale = max(float(g.abs().max()) for g in g_c.values())
     r_grad = max(float((g_d[k] - g).abs().max()) for k, g in g_c.items()
                  ) / scale
-    log(f"[3] one f32 CT step at {SIZE}^2, card vs CPU plain path: output rel "
-        f"{r_out:.2e}, loss rel {r_loss:.2e}, gradients rel {r_grad:.2e} "
+    log(f"[3] one f32 {task} step at {SIZE}^2, card vs CPU plain path: output "
+        f"rel {r_out:.2e}, loss rel {r_loss:.2e}, gradients rel {r_grad:.2e} "
         f"(tolerances {TOL_STEP['out']:.0e} / {TOL_STEP['loss']:.0e} / "
         f"{TOL_STEP['grad']:.0e})")
     if set(g_d) != set(g_c) or not (
             r_out <= TOL_STEP["out"] and r_loss <= TOL_STEP["loss"]
             and r_grad <= TOL_STEP["grad"]):
-        raise AssertionError("the card's CT step disagrees with the CPU's")
+        raise AssertionError(f"the card's {task} step disagrees with the "
+                             "CPU's")
     return dict(out_rel=r_out, loss_rel=r_loss, grad_rel=r_grad)
 
 
 def run_fits(results: dict) -> dict:
     import numpy as np
     from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block
     import mfvi_dip_mia_tpu_torch.tasks.data as D
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
     from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
@@ -308,6 +424,8 @@ def run_fits(results: dict) -> dict:
     P.D.get_img_ct = lambda img: (D.synthetic_ct(img, SIZE), (SIZE, SIZE))
     P.D.get_image_denoising = lambda img: (D.synthetic_xray(img, SIZE),
                                            (SIZE, SIZE))
+    fused = {k.name for k in (fused_block.FWD, fused_block.DC, fused_block.DW,
+                              fused_block.DX)}
     out = {}
 
     problem = P.build_problem("ct", "mfvi", 0, input_depth=16,
@@ -334,9 +452,10 @@ def run_fits(results: dict) -> dict:
             and res.final_psnr > res.psnrs[0, 2]):
         raise AssertionError("CT fit did not improve on iteration 0")
     for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "CT main path")
+        if (n > 0) == (name in fused):
+            raise AssertionError(
+                f"kernel {name} was launched {n} times on the bf16 CT main "
+                "path (the fused block is f32 only; every other kernel runs)")
     out["ct"] = dict(iters_per_sec=res.iters_per_sec,
                      final_psnr=res.final_psnr,
                      psnr_it0=float(res.psnrs[0, 2]),
@@ -344,50 +463,123 @@ def run_fits(results: dict) -> dict:
                      executed=res.executed, launches=launches,
                      launches_per_step={k: n / res.executed
                                         for k, n in launches.items()})
-
-    problem = P.build_problem("den", "mfvi", 0, input_depth=16,
-                              device=DEVICE)
-    method = Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
-    kernels.reset_launches()
-    res = fit(problem, method, num_iter=DEN_ITERS - 1, lr=1e-3, seed=1,
-              show_every=100, metrics_every=1,
-              compute_dtype="f32", collect_snapshots=True, device=DEVICE)
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    log(f"[3] den/mfvi f32 {SIZE}^2: {res.executed} iterations, "
-        f"{res.iters_per_sec:.2f} it/s, final smoothed PSNR "
-        f"{res.final_psnr:.3f} dB (iteration 0: {res.psnrs[0, 2]:.3f}); "
-        f"launches {launches}")
-    if not (np.isfinite(res.final_psnr)
-            and res.final_psnr > res.psnrs[0, 2]):
-        raise AssertionError("den fit did not improve on iteration 0")
-    if not np.isfinite(res.recons).all() or res.recons.shape != (
-            DEN_ITERS // 100 + 1, 1, SIZE, SIZE):
-        raise AssertionError(f"den snapshots {res.recons.shape}")
-    for name in ("cf_conv_fwd", "cf_conv_dw"):
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "den main path")
-    out["den"] = dict(iters_per_sec=res.iters_per_sec,
-                      final_psnr=res.final_psnr,
-                      psnr_it0=float(res.psnrs[0, 2]),
-                      executed=res.executed, launches=launches)
+    out["den"] = run_den(kernels, fused)
     return out
 
 
-def profile_ct(steps: int, step_ms: float) -> dict:
-    """torch.profiler over a short CT fit: device time by kernel, and the
+DEN_KEYS = {"mse_gt", "recons", "uncerts", "uncerts_ale", "psnrs", "ssims",
+            "img_gt", "img_noisy", "mse_noisy", "mc_mean_recon",
+            "mc_mean_psnr", "mc_mean_ssim", "mc_ale", "mc_epi"}
+
+
+def run_den(kernels, fused: set) -> dict:
+    """The den/MFVI f32 fit through the user's entry point, run_den_mfvi,
+    with its MC summary and save.npz; then the MC posterior sampling rate."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mfvi_dip_mia_tpu_torch.bayes import vi
+    from mfvi_dip_mia_tpu_torch.bayes.uncertainty import mc_predict
+    import mfvi_dip_mia_tpu_torch.tasks.runners as R
+
+    seen = {}
+    fit = R.fit
+
+    def fit_and_count(problem, method, **kw):
+        seen["res"] = fit(problem, method, **kw)
+        seen["problem"] = problem
+        seen["fit_launches"] = {k.name: k.launches for k in kernels.KERNELS}
+        return seen["res"]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_den_")
+    R.fit = fit_and_count
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        final = R.run_den_mfvi(
+            device=DEVICE, num_iter=DEN_ITERS - 1, lr=1e-3, temp=5.66e-7,
+            sigma=1.46e-5, seed=1, input_depth=16, show_every=100,
+            metrics_every=1, plot=False, save=True, save_path=tmp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        (path,) = glob.glob(os.path.join(tmp, "*", "save.npz"))
+        z = np.load(path, allow_pickle=True)
+        arrays = {k: z[k].item() if z[k].dtype == object else z[k]
+                  for k in z.files}
+    finally:
+        R.fit = fit
+        shutil.rmtree(tmp, ignore_errors=True)
+    res, problem = seen["res"], seen["problem"]
+    per_step = {k: n / res.executed for k, n in seen["fit_launches"].items()}
+    mc_psnr = float(arrays["mc_mean_psnr"])
+    log(f"[3] den/mfvi f32 {SIZE}^2 through run_den_mfvi: {res.executed} "
+        f"iterations, {res.iters_per_sec:.2f} it/s (run wall {wall:.1f} s), "
+        f"final smoothed PSNR {final:.3f} dB (iteration 0: "
+        f"{res.psnrs[0, 2]:.3f}), 25-sample MC mean PSNR {mc_psnr:.3f} dB")
+    log(f"    launches per fit step {per_step}; whole run {launches}")
+    if set(arrays) != DEN_KEYS:
+        raise AssertionError(f"save.npz keys {sorted(arrays)}")
+    for k, v in arrays.items():
+        for a in (v.values() if isinstance(v, dict) else [v]):
+            if not np.isfinite(np.asarray(a, np.float64)).all():
+                raise AssertionError(f"save.npz {k} is not finite")
+    if not (np.isfinite(final) and np.isfinite(mc_psnr)
+            and final > res.psnrs[0, 2]):
+        raise AssertionError("den fit did not improve on iteration 0")
+    for name, n in launches.items():
+        if n <= 0 and (name in fused or name.startswith("cf_conv")):
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "den main path")
+
+    # MC posterior samples per second of mc_predict at SIZE^2 (bench.py
+    # --metric mc's counterpart): the final parameters, 100 whole-tree draws
+    flat = vi.flatten({k: torch.from_numpy(v) for k, v in res.params.items()},
+                      device=DEVICE)
+    x = torch.from_numpy(res.net_input).permute(0, 3, 1, 2).contiguous().to(
+        DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    mc_predict(problem.net, flat, x, gen, 5)                 # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = mc_predict(problem.net, flat, x, gen, MC_SAMPLES_TIMED)
+    torch.cuda.synchronize()
+    mc_rate = MC_SAMPLES_TIMED / (time.perf_counter() - t0)
+    if not torch.isfinite(outs).all():
+        raise AssertionError("mc_predict gave non-finite samples")
+    log(f"[3] mc_predict at {SIZE}^2: {mc_rate:.1f} posterior samples/s over "
+        f"{MC_SAMPLES_TIMED} samples")
+    return dict(iters_per_sec=res.iters_per_sec, final_psnr=final,
+                psnr_it0=float(res.psnrs[0, 2]), mc_mean_psnr=mc_psnr,
+                mc_samples_per_sec=mc_rate, executed=res.executed,
+                run_wall_seconds=wall, launches=launches,
+                fit_launches=seen["fit_launches"],
+                launches_per_step=per_step)
+
+
+# the port's kernels by their CUDA function names (csrc/*.cu)
+KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_kernel", "cf_conv_dw": "conv_dw_",
+                "radon_banded_fwd": "radon_fwd_",
+                "radon_banded_adj": "radon_adj_",
+                "fused_block_fwd": "fused_fwd_kernel",
+                "fused_block_bwd_dc": "fused_bwd_dc_kernel",
+                "fused_block_bwd_dw": "fused_bwd_dw_kernel",
+                "fused_block_bwd_dx": "fused_bwd_dx_kernel"}
+
+
+def profile_fit(label: str, problem, method, kw: dict, steps: int,
+                step_ms: float) -> dict:
+    """torch.profiler over a short fit: device time by kernel, and the
     device's busy share of a step. The profiler slows the host, so the share
     is taken of ``step_ms``, the unprofiled fit's time per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    import mfvi_dip_mia_tpu_torch.tasks.problems as P
-    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import fit
 
-    problem = P.build_problem("ct", "mfvi", 0, input_depth=16)
-    method = Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
-    kw = dict(lr=1e-3, seed=1, metrics_every=10, compute_dtype="bf16",
-              collect_snapshots=False)
     fit(problem, method, num_iter=9, show_every=10, **kw)      # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -404,27 +596,65 @@ def profile_ct(steps: int, step_ms: float) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3 / steps
     launches = sum(r[2] for r in rows) / steps
-    log(f"[3] profile of {steps} CT steps: {launches:.0f} device kernels and "
-        f"{busy_ms:.3f} ms of device time per step; the unprofiled step takes "
-        f"{step_ms:.3f} ms, so the card is busy {100 * busy_ms / step_ms:.1f}%"
-        f" of it (profiled wall {wall * 1e3 / steps:.1f} ms/step)")
+    log(f"[3] profile of {steps} {label} steps: {launches:.0f} device kernels "
+        f"and {busy_ms:.3f} ms of device time per step; the unprofiled step "
+        f"takes {step_ms:.3f} ms, so the card is busy "
+        f"{100 * busy_ms / step_ms:.1f}% of it (profiled wall "
+        f"{wall * 1e3 / steps:.1f} ms/step)")
     for key, us, n in rows[:12]:
         log(f"    {us / 1e3 / steps:9.4f} ms/step  x{n / steps:6.1f}  "
             f"{key[:90]}")
-    # the port's kernels by their CUDA function names (csrc/*.cu)
-    families = {"cf_conv_fwd": "conv_fwd_kernel", "cf_conv_dw": "conv_dw_",
-                "radon_banded_fwd": "radon_fwd_", "radon_banded_adj":
-                "radon_adj_"}
     ours = {name: sum(us for key, us, _ in rows if tag in key) / 1e3 / steps
-            for name, tag in families.items()}
+            for name, tag in KERNEL_FUNCS.items()}
     log("    the port's kernels, device ms/step: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in ours.items()))
+        f"{k} {v:.4f}" for k, v in ours.items() if v > 0))
     return dict(steps=steps, device_ms_per_step=busy_ms, step_ms=step_ms,
                 kernels_device_ms_per_step=ours,
                 busy_share=busy_ms / step_ms, kernels_per_step=launches,
                 profiled_wall_ms_per_step=wall * 1e3 / steps,
                 top=[dict(kernel=k, ms_per_step=us / 1e3 / steps,
                           calls_per_step=n / steps) for k, us, n in rows[:40]])
+
+
+def profile_ct(steps: int, step_ms: float) -> dict:
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method
+
+    problem = P.build_problem("ct", "mfvi", 0, input_depth=16)
+    return profile_fit(
+        "CT", problem, Method("mfvi", temp=2.2e-10, sigma=1.7e-7),
+        dict(lr=1e-3, seed=1, metrics_every=10, compute_dtype="bf16",
+             collect_snapshots=False), steps, step_ms)
+
+
+def profile_den(steps: int) -> dict:
+    """The den f32 fit profiled with the fused block, and once more with its
+    sites sent down the unfused chain (an A/B of this script only: the port
+    has no switch), each beside its own unprofiled it/s over 100 steps."""
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+
+    problem = P.build_problem("den", "mfvi", 0, input_depth=16)
+    method = Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
+    kw = dict(lr=1e-3, seed=1, metrics_every=1, compute_dtype="f32",
+              collect_snapshots=False)
+    out = {}
+    supported = fused_block.supported
+    try:
+        for variant in ("fused", "unfused"):
+            if variant == "unfused":
+                fused_block.supported = lambda x, k: False
+            res = fit(problem, method, num_iter=DEN_AB_ITERS - 1,
+                      show_every=10, **kw)
+            out[variant] = profile_fit(f"den ({variant})", problem, method,
+                                       kw, steps, 1e3 / res.iters_per_sec)
+            out[variant]["iters_per_sec"] = res.iters_per_sec
+            log(f"    den {variant}: {res.iters_per_sec:.2f} it/s over "
+                f"{DEN_AB_ITERS - 10} unprofiled steps")
+    finally:
+        fused_block.supported = supported
+    return out
 
 
 # -- phase 4: times beside bounds ---------------------------------------------
@@ -501,6 +731,89 @@ def time_conv_kernels(sites, results: dict) -> None:
     results["_conv_sites"] = per_site
 
 
+def time_fused_kernels(sites, results: dict) -> None:
+    """Per training step of the den main path (f32): each fused site's
+    forward, dc, dw and (where the input needs it) dx, one launch each."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    names = ("fused_block_fwd", "fused_block_bwd_dc", "fused_block_bwd_dw",
+             "fused_block_bwd_dx")
+    agg = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, chain_ms=0.0,
+                   bound_ms=0.0, t_ops=0.0, t_bytes=0.0, calls=0, flops=0.0,
+                   nbytes=0.0) for n in names}
+    per_site = []
+    for s in sites:
+        xp, wk, gamma, beta, g = fused_operands(s, gen)
+        ci, co, h, w, k = (s[n] for n in ("ci", "co", "h", "w", "k"))
+        out, stats = tfb.fwd_plain(xp, wk, gamma, beta)
+        dc = tfb.bwd_dc_plain(g, out, stats, gamma, beta)[0]
+        conv_flops = 2.0 * co * ci * k * k * h * w
+        n_out, n_io = co * h * w, xp.numel() + wk.numel()
+        calls = [
+            ("fused_block_fwd", conv_flops + 8.0 * n_out,
+             (n_io + n_out + 4 * co) * 4,
+             lambda: tfb.fwd(xp, wk, gamma, beta),
+             lambda: tfb.fwd_plain(xp, wk, gamma, beta), None,
+             lambda: F.leaky_relu(F.batch_norm(
+                 F.conv2d(xp[None], wk), None, None, gamma, beta,
+                 training=True), 0.2)),
+            ("fused_block_bwd_dc", 14.0 * n_out, (3 * n_out + 6 * co) * 4,
+             lambda: tfb.bwd_dc(g, out, stats, gamma, beta),
+             lambda: tfb.bwd_dc_plain(g, out, stats, gamma, beta), None,
+             None),
+            ("fused_block_bwd_dw", conv_flops, (n_out + n_io) * 4,
+             lambda: tfb.bwd_dw(dc, xp, k),
+             lambda: tfb.bwd_dw_plain(dc, xp, k),
+             lambda: conv2d_weight(xp[None], wk.shape, dc[None]), None)]
+        if s["needs_dx"]:
+            calls.append((
+                "fused_block_bwd_dx", conv_flops, (n_out + n_io) * 4,
+                lambda: tfb.bwd_dx(dc, wk), lambda: tfb.bwd_dx_plain(dc, wk),
+                lambda: conv2d_input((1,) + tuple(xp.shape), wk, dc[None]),
+                None))
+        row = dict(site=s["name"], shape=[ci, co, h, w, k])
+        for name, flops, nbytes, fk, fp, fl, fc in calls:
+            b_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
+            a = agg[name]
+            t = dict(ms=time_ms(fk), plain_ms=time_ms(fp),
+                     library_ms=time_ms(fl) if fl else 0.0,
+                     chain_ms=time_ms(fc) if fc else 0.0, bound_ms=b_ms)
+            for key, val in t.items():
+                a[key] += val
+            a["t_ops"] += flops / PEAK_F32_FLOPS * 1e3
+            a["t_bytes"] += nbytes / PEAK_BYTES_PER_S * 1e3
+            a["calls"] += 1
+            a["flops"] += flops
+            a["nbytes"] += nbytes
+            row[name] = t
+        per_site.append(row)
+    for name, a in agg.items():
+        r = results.setdefault(name, {})
+        lib = a["library_ms"] if name in ("fused_block_bwd_dw",
+                                          "fused_block_bwd_dx") else None
+        r.update(ms=a["ms"], plain_ms=a["plain_ms"], library_ms=lib,
+                 bound_ms=a["bound_ms"],
+                 bound_by=("operations" if a["t_ops"] > a["t_bytes"]
+                           else "bytes"),
+                 calls_timed_per_step=a["calls"],
+                 gflop_per_step=a["flops"] / 1e9, mb_per_step=a["nbytes"] / 1e6)
+        extra = ""
+        if name == "fused_block_fwd":
+            r["cudnn_conv_bn_lrelu_chain_ms"] = a["chain_ms"]
+            extra = (f", cuDNN conv + batch_norm + leaky_relu chain "
+                     f"{a['chain_ms']:.3f} ms")
+        log(f"[4] {name}: {a['calls']} launches per den step, "
+            f"{a['flops'] / 1e9:.3f} GFLOP, {a['nbytes'] / 1e6:.1f} MB: kernel "
+            f"{a['ms']:.3f} ms, plain {a['plain_ms']:.3f} ms, library "
+            f"{'none' if lib is None else f'{lib:.3f} ms'}{extra}, bound "
+            f"{a['bound_ms']:.4f} ms ({r['bound_by']})")
+    results["_fused_sites"] = per_site
+
+
 def time_radon_kernels(states, results: dict) -> None:
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import radon_banded as rb
@@ -554,7 +867,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--profile-steps", type=int, default=0,
-                    help="profile this many CT steps with torch.profiler")
+                    help="profile this many CT and den steps with "
+                    "torch.profiler (den with and without the fused block)")
     args = ap.parse_args(argv)
 
     import torch
@@ -586,33 +900,48 @@ def main(argv=None) -> int:
     log(f"[1] kernels built and loaded in {build.BUILD_SECONDS:.1f} s")
 
     results: dict = {}
-    net = build_skip_net(16, n_channels=1, pad="reflection",
-                         skip_n33d=[16, 32, 64, 128, 128],
-                         skip_n33u=[16, 32, 64, 128, 128], skip_n11=4,
-                         num_scales=5, upsample_mode="bilinear")
-    sites = conv_sites(net, SIZE)
+    # the 256^2 nets of the two main paths: ct (1 output channel) and den
+    # (2: mean and neg-logvar)
+    nets = {n_out: build_skip_net(16, n_channels=n_out, pad="reflection",
+                                  skip_n33d=[16, 32, 64, 128, 128],
+                                  skip_n33u=[16, 32, 64, 128, 128],
+                                  skip_n11=4, num_scales=5,
+                                  upsample_mode="bilinear")
+            for n_out in (1, 2)}
+    sites = conv_sites(nets[1], SIZE)
+    f_sites = fused_sites(nets[2], SIZE)
     check_conv_kernels(sites, results)
     states = check_radon_kernels(results)
+    check_fused_kernels(f_sites, results)
 
-    step = check_step_against_cpu(net)
+    steps = {task: check_step_against_cpu(nets[n_out], task)
+             for task, n_out in (("ct", 1), ("den", 2))}
     fits = run_fits(results)
-    fits["step_vs_cpu"] = step
+    fits["step_vs_cpu"] = steps
 
     time_conv_kernels(sites, results)
     time_radon_kernels(states, results)
     del states
+    time_fused_kernels(f_sites, results)
     if args.profile_steps:
         fits["profile"] = profile_ct(args.profile_steps,
                                      1e3 / fits["ct"]["iters_per_sec"])
+        fits["profile_den"] = profile_den(args.profile_steps)
 
     line = []
     for k in kernels.KERNELS:
         r = results[k.name]
+        # each kernel's launches on the main path it belongs to: the bf16 CT
+        # fit for the conv and Radon kernels, the den run (fit + MC summary)
+        # for the fused block's
+        path = "den" if k.name.startswith("fused_block") else "ct"
         line.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=fits["ct"]["launches"][k.name],
-            launches_per_step=fits["ct"]["launches_per_step"][k.name],
-            max_abs_err=r["max_abs_err_bf16"],
+            launches=fits[path]["launches"][k.name], path=path,
+            launches_per_step=fits[path]["launches_per_step"][k.name],
+            launches_ct=fits["ct"]["launches"][k.name],
+            launches_den=fits["den"]["launches"][k.name],
+            max_abs_err=r.get("max_abs_err_bf16", r["max_abs_err_f32"]),
             max_abs_err_f32=r["max_abs_err_f32"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

@@ -18,6 +18,13 @@ tensors keyed by the JAX package's leaf paths (``levels.0.down1.conv.w``,
 ``levels.0.down1.bn.scale``, ``out.conv.b``, ...), so one forward serves the
 deterministic and the sampled-variational trees, and weights move across from
 the JAX package by name (utils/bridge.py). Conv kernels are OIHW.
+
+Every stride-1 conv -> BN -> act site on a batch-1 f32 input with k in
+{1, 3} runs as one fused block (ops/kernels/fused_block.py), as JAX routes
+its channels-first sites (skip.py:325-343); JAX's further W % 128 / H % 8 /
+VMEM gate was about the TPU, so at 256^2 the port fuses 20 sites where JAX
+fuses 5. The stride-2 down1 sites, the bn_cat BatchNorms and every bf16 site
+keep the conv kernel + shifted one-pass BN + LeakyReLU chain.
 """
 
 from __future__ import annotations
@@ -28,9 +35,10 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.kernels import fused_block
 from . import init as init_lib
 from . import layers
-from .var_conv import apply_conv_leaf
+from .var_conv import apply_conv_leaf, sample_rt_kernel
 
 _CONV_KEYS = ("w", "b", "w_mu", "w_rho", "b_mu", "b_rho")
 
@@ -175,11 +183,18 @@ class SkipNet(nn.Module):
                      training):
         # the conv bias is a per-channel constant that the train-mode BN's
         # mean subtraction removes exactly: skip it (skip.py::_conv_bn_act)
+        scale = params[f"{prefix}.bn.scale"]
+        offset = params[f"{prefix}.bn.offset"]
+        if s.stride == 1 and fused_block.supported(x, s.kernel):
+            # the whole chain as one fused block (skip.py:328-343), with the
+            # kernel the unfused site would draw, so the RT stream is the same
+            w = sample_rt_kernel(self._leaf(params, f"{prefix}.conv"),
+                                 generator, training)
+            return fused_block.apply_fused(x, w, scale, offset,
+                                           pad_mode=s.pad_mode)
         x = self._conv_site(s, params, prefix, x, generator, training,
                             skip_bias=True)
-        x = layers.batch_norm_train(x, params[f"{prefix}.bn.scale"],
-                                    params[f"{prefix}.bn.offset"])
-        return layers.leaky_relu(x)
+        return layers.leaky_relu(layers.batch_norm_train(x, scale, offset))
 
     def _apply_level(self, params, i, x, generator, training):
         cfg = self.levels[i]

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels (csrc/) and their wrappers; see build.py."""
 
-from . import cf_conv, radon_banded
+from . import cf_conv, fused_block, radon_banded
 
-KERNELS = (cf_conv.FWD, cf_conv.DW, radon_banded.FWD, radon_banded.ADJ)
+KERNELS = (cf_conv.FWD, cf_conv.DW, radon_banded.FWD, radon_banded.ADJ,
+           fused_block.FWD, fused_block.DC, fused_block.DW, fused_block.DX)
 
 
 def reset_launches() -> None:

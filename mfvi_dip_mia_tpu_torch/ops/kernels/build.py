@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points of csrc/*.cu: name -> argtypes (every entry returns the
 # launch's cudaError_t as an int)
 _SIGNATURES = {
@@ -43,6 +44,10 @@ _SIGNATURES = {
     "radon_banded_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "radon_banded_adj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fused_block_fwd": [_P] * 8 + [_I] * 5 + [_F] * 3 + [_P],
+    "fused_block_bwd_dc": [_P] * 9 + [_I] * 2 + [_F] * 3 + [_P],
+    "fused_block_bwd_dw": [_P] * 4 + [_I] * 7 + [_P],
+    "fused_block_bwd_dx": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 
@@ -61,9 +66,9 @@ _LIB = None
 BUILD_SECONDS = 0.0
 
 
-def _sources() -> list[str]:
+def _sources(suffixes=(".cu",)) -> list[str]:
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                  if f.endswith(".cu"))
+                  if f.endswith(suffixes))
 
 
 def _nvcc() -> str:
@@ -120,7 +125,7 @@ def library() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         h = hashlib.sha256()
-        for src in _sources():
+        for src in _sources((".cu", ".cuh")):
             h.update(os.path.basename(src).encode())
             with open(src, "rb") as f:
                 h.update(f.read())

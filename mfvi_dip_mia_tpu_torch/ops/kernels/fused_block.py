@@ -1,0 +1,281 @@
+"""Fused 'same' conv + train-mode BatchNorm + LeakyReLU on hand-written CUDA
+kernels (counterpart of ``mfvi_dip_mia_tpu/ops/pallas/fused_block.py``).
+
+Four kernels (``csrc/fused_block.cu``), f32 only, as the TPU block is:
+
+* ``fused_block_fwd`` replaces ``_fwd_call``: a VALID conv of the padded
+  input (k in {1, 3}), BatchNorm over H*W with the exact two-pass biased
+  variance, LeakyReLU with ``y > 0``; returns (out, stats = [mu, inv]).
+* ``fused_block_bwd_dc`` replaces ``_bwd_dc_call``: dconv, dgamma and dbeta
+  with xhat recomputed from the block output (LeakyReLU inverted by sign, a
+  safe reciprocal of gamma), so the conv output is never stored.
+* ``fused_block_bwd_dw`` replaces ``_bwd_dw_call``: the weight gradient.
+* ``fused_block_bwd_dx`` replaces ``_bwd_dx_call``: the gradient of the
+  padded input, a full correlation of dconv with the flipped, I/O-transposed
+  kernel; the zero halo is applied by bounds in the kernel.
+
+Layouts are the port's: the padded input xp (Ci, H+k-1, W+k-1) and OIHW
+kernels, where the TPU kernel took a lane-aligned (Ci, H+8, Wp) input and a
+tap-major weight matrix. The TPU's ``supported()`` gate (W % 128, H % 8, a
+VMEM budget) was about its tiling and VMEM, not semantics, so every f32
+batch-1 site with k in {1, 3} fuses (``supported``). Neither the block's
+on/off switch nor its MXU-precision knob has a counterpart: on the card a
+wrapper launches its kernel or raises.
+
+Beside each kernel is its plain PyTorch version, which repeats the TPU
+kernel's arithmetic (the conv as unfold + matmul); a wrapper takes it only
+for a tensor on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+from .cf_conv import _dw_splits
+
+_SRC = "mfvi_dip_mia_tpu_torch/csrc/fused_block.cu"
+_TPU = "mfvi_dip_mia_tpu/ops/pallas/fused_block.py"
+FWD = build.Kernel("fused_block_fwd", _SRC, f"{_TPU}:127 (_fwd_call)")
+DC = build.Kernel("fused_block_bwd_dc", _SRC, f"{_TPU}:212 (_bwd_dc_call)")
+DW = build.Kernel("fused_block_bwd_dw", _SRC, f"{_TPU}:280 (_bwd_dw_call)")
+DX = build.Kernel("fused_block_bwd_dx", _SRC, f"{_TPU}:326 (_bwd_dx_call)")
+
+SLOPE = 0.2
+EPS = 1e-5
+KERNEL_SIZES = (1, 3)
+_F32 = (torch.float32,)
+_DC_PIX = 2048          # pixels of one bwd_dc work item (csrc kDcPix)
+
+
+def supported(x: torch.Tensor, k: int) -> bool:
+    """Whether a stride-1 conv -> BN -> LeakyReLU site on ``x`` (1, Ci, H, W)
+    with a k x k kernel runs as the fused block: batch 1, f32, k in {1, 3}
+    (fused_block.py:463-465)."""
+    return (x.dim() == 4 and x.shape[0] == 1 and x.dtype == torch.float32
+            and k in KERNEL_SIZES)
+
+
+def _check(xp: torch.Tensor, w: torch.Tensor) -> int:
+    if xp.dim() != 3 or w.dim() != 4 or w.shape[1] != xp.shape[0]:
+        raise ValueError(f"expected xp (Ci, Hp, Wp) and w (Co, Ci, k, k), got "
+                         f"{tuple(xp.shape)} and {tuple(w.shape)}")
+    k = w.shape[2]
+    if w.shape[3] != k or k not in KERNEL_SIZES:
+        raise ValueError(f"square kernel in {KERNEL_SIZES} expected, got "
+                         f"{w.shape[2]}x{w.shape[3]}")
+    if xp.shape[1] < k or xp.shape[2] < k:
+        raise ValueError(f"input {tuple(xp.shape)} smaller than the kernel")
+    return k
+
+
+def _lib_stream(t: torch.Tensor):
+    return build.library(), ctypes.c_void_p(build.stream_of(t))
+
+
+# -- kernel 1: forward ---------------------------------------------------------
+
+def fwd_plain(xp, w, gamma, beta, slope=SLOPE, eps=EPS):
+    """Plain version of ``fused_block_fwd``: (out (Co, H, W), stats (Co, 2))."""
+    k = _check(xp, w)
+    co = w.shape[0]
+    h, wd = xp.shape[1] - k + 1, xp.shape[2] - k + 1
+    inv_hw = 1.0 / (h * wd)
+    c = (w.reshape(co, -1) @ F.unfold(xp[None], k)[0]).reshape(co, h, wd)
+    mu = c.sum(dim=(1, 2)) * inv_hw
+    d = c - mu[:, None, None]
+    var = (d * d).sum(dim=(1, 2)) * inv_hw
+    inv = torch.rsqrt(var + eps)
+    y = d * inv[:, None, None] * gamma[:, None, None] + beta[:, None, None]
+    return torch.where(y > 0, y, slope * y), torch.stack([mu, inv], dim=1)
+
+
+def fwd(xp, w, gamma, beta, slope=SLOPE, eps=EPS):
+    """conv + BN + LeakyReLU of the padded input xp (Ci, H+k-1, W+k-1) with
+    w (Co, Ci, k, k): (out (Co, H, W), stats (Co, 2) = [mu, inv]). CUDA
+    tensors launch ``fused_block_fwd``; CPU tensors take the plain version."""
+    k = _check(xp, w)
+    if not xp.is_cuda:
+        return fwd_plain(xp, w, gamma, beta, slope, eps)
+    for t, what in ((xp, "xp"), (w, "w"), (gamma, "gamma"), (beta, "beta")):
+        build.require_cuda(t, f"fused_block_fwd {what}", _F32)
+    ci, hp, wp = xp.shape
+    co = w.shape[0]
+    h, wd = hp - k + 1, wp - k + 1
+    out = torch.empty((co, h, wd), dtype=torch.float32, device=xp.device)
+    stats = torch.empty((co, 2), dtype=torch.float32, device=xp.device)
+    n_sp = -(-h // 8) * -(-wd // 32)        # the most (row, column) tiles
+    part = torch.empty((2, n_sp * co), dtype=torch.float32, device=xp.device)
+    lib, st = _lib_stream(xp)
+    err = lib.fused_block_fwd(
+        xp.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), stats.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), ci, h, wd, co, k, 1.0 / (h * wd), slope, eps, st)
+    FWD.launches += 1
+    build.check(err, FWD.name)
+    return out, stats
+
+
+# -- kernel 2: dconv, dgamma, dbeta ----------------------------------------------
+
+def bwd_dc_plain(g, out, stats, gamma, beta, slope=SLOPE):
+    """Plain version of ``fused_block_bwd_dc``: (dconv, dgamma, dbeta)."""
+    h, wd = out.shape[1], out.shape[2]
+    inv_hw = 1.0 / (h * wd)
+    ga, be = gamma[:, None, None], beta[:, None, None]
+    inv = stats[:, 1, None, None]
+    rg = 1.0 / torch.where(ga.abs() < 1e-20, torch.full_like(ga, 1e-20), ga)
+    mask = out > 0
+    xhat = (torch.where(mask, out, out * (1.0 / slope)) - be) * rg
+    gp = torch.where(mask, g, slope * g)
+    s1 = gp.sum(dim=(1, 2))
+    s2 = (gp * xhat).sum(dim=(1, 2))
+    m1 = (s1 * inv_hw)[:, None, None]
+    m2 = (s2 * inv_hw)[:, None, None]
+    return inv * ga * (gp - m1 - xhat * m2), s2, s1
+
+
+def bwd_dc(g, out, stats, gamma, beta, slope=SLOPE):
+    """The BN + LeakyReLU backward from the block output: (dconv (Co, H, W),
+    dgamma (Co,), dbeta (Co,)). CUDA tensors launch ``fused_block_bwd_dc``."""
+    if g.shape != out.shape or out.dim() != 3:
+        raise ValueError(f"g {tuple(g.shape)} and out {tuple(out.shape)} "
+                         "must be the same (Co, H, W)")
+    if not out.is_cuda:
+        return bwd_dc_plain(g, out, stats, gamma, beta, slope)
+    for t, what in ((g, "g"), (out, "out"), (stats, "stats"),
+                    (gamma, "gamma"), (beta, "beta")):
+        build.require_cuda(t, f"fused_block_bwd_dc {what}", _F32)
+    co, h, wd = out.shape
+    dc = torch.empty_like(out)
+    dgb = torch.empty((2, co), dtype=torch.float32, device=out.device)
+    part = torch.empty((co * -(-(h * wd) // _DC_PIX) * 2,),
+                       dtype=torch.float32, device=out.device)
+    lib, st = _lib_stream(out)
+    err = lib.fused_block_bwd_dc(
+        g.data_ptr(), out.data_ptr(), stats.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), dc.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
+        part.data_ptr(), co, h * wd, 1.0 / (h * wd), slope, 1.0 / slope, st)
+    DC.launches += 1
+    build.check(err, DC.name)
+    return dc, dgb[0], dgb[1]
+
+
+# -- kernel 3: the weight gradient -------------------------------------------------
+
+def bwd_dw_plain(dc, xp, k):
+    """Plain version of ``fused_block_bwd_dw``: (Co, Ci, k, k)."""
+    co = dc.shape[0]
+    dw = dc.reshape(co, -1) @ F.unfold(xp[None], k)[0].T
+    return dw.reshape(co, xp.shape[0], k, k)
+
+
+def bwd_dw(dc, xp, k):
+    """Weight gradient from dconv (Co, H, W) and the padded input xp
+    (Ci, H+k-1, W+k-1). CUDA tensors launch ``fused_block_bwd_dw``."""
+    ci, hp, wp = xp.shape
+    co, h, wd = dc.shape
+    if k not in KERNEL_SIZES or (h, wd) != (hp - k + 1, wp - k + 1):
+        raise ValueError(f"dconv {tuple(dc.shape)} does not match xp "
+                         f"{tuple(xp.shape)} and a {k}x{k} kernel")
+    if not xp.is_cuda:
+        return bwd_dw_plain(dc, xp, k)
+    build.require_cuda(xp, "fused_block_bwd_dw xp", _F32)
+    build.require_cuda(dc, "fused_block_bwd_dw dc", _F32)
+    k_tot = ci * k * k
+    n_split, per = _dw_splits(h * wd, -(-k_tot // 32) * -(-co // 32))
+    part = torch.empty((n_split, co, k_tot), dtype=torch.float32,
+                       device=xp.device)
+    dw = torch.empty((co, ci, k, k), dtype=torch.float32, device=xp.device)
+    lib, st = _lib_stream(xp)
+    err = lib.fused_block_bwd_dw(xp.data_ptr(), dc.data_ptr(), part.data_ptr(),
+                                 dw.data_ptr(), ci, h, wd, co, k, n_split, per,
+                                 st)
+    DW.launches += 1
+    build.check(err, DW.name)
+    return dw
+
+
+# -- kernel 4: the input gradient ----------------------------------------------------
+
+def bwd_dx_plain(dc, w):
+    """Plain version of ``fused_block_bwd_dx``: the (k-1)-zero-padded dconv
+    correlated with the flipped, I/O-transposed kernel, (Ci, H+k-1, W+k-1)."""
+    co, ci, k, _ = w.shape
+    h, wd = dc.shape[1], dc.shape[2]
+    dcp = F.pad(dc, (k - 1,) * 4)
+    wf = w.flip(2, 3).transpose(0, 1).reshape(ci, -1)
+    return (wf @ F.unfold(dcp[None], k)[0]).reshape(ci, h + k - 1, wd + k - 1)
+
+
+def bwd_dx(dc, w):
+    """Gradient of the padded input from dconv (Co, H, W) and w
+    (Co, Ci, k, k). CUDA tensors launch ``fused_block_bwd_dx``."""
+    co, ci, k, _ = w.shape
+    if dc.dim() != 3 or dc.shape[0] != co or k not in KERNEL_SIZES:
+        raise ValueError(f"dconv {tuple(dc.shape)} and w {tuple(w.shape)}")
+    if not dc.is_cuda:
+        return bwd_dx_plain(dc, w)
+    build.require_cuda(dc, "fused_block_bwd_dx dc", _F32)
+    build.require_cuda(w, "fused_block_bwd_dx w", _F32)
+    h, wd = dc.shape[1], dc.shape[2]
+    dx = torch.empty((ci, h + k - 1, wd + k - 1), dtype=torch.float32,
+                     device=dc.device)
+    lib, st = _lib_stream(dc)
+    err = lib.fused_block_bwd_dx(dc.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                                 co, h, wd, ci, k, st)
+    DX.launches += 1
+    build.check(err, DX.name)
+    return dx
+
+
+# -- autograd and the site entry point ----------------------------------------------
+
+class _FusedBlock(torch.autograd.Function):
+    """fused_block.py::conv_bn_lrelu_cf: the residuals are the padded input,
+    the kernel, gamma, beta, the output and [mu, inv]; no conv output."""
+
+    @staticmethod
+    def forward(ctx, xp, w, gamma, beta, slope, eps):
+        out, stats = fwd(xp, w, gamma, beta, slope, eps)
+        ctx.save_for_backward(xp, w, gamma, beta, out, stats)
+        ctx.slope = slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w, gamma, beta, out, stats = ctx.saved_tensors
+        dc, dgamma, dbeta = bwd_dc(g.contiguous(), out, stats, gamma, beta,
+                                   ctx.slope)
+        dx = bwd_dx(dc, w) if ctx.needs_input_grad[0] else None
+        dw = bwd_dw(dc, xp, w.shape[2]) if ctx.needs_input_grad[1] else None
+        return dx, dw, dgamma, dbeta, None, None
+
+
+def conv_bn_lrelu(xp, w, gamma, beta, slope=SLOPE, eps=EPS):
+    """Differentiable fused block on the padded input xp (Ci, H+k-1, W+k-1)
+    -> (Co, H, W)."""
+    return _FusedBlock.apply(xp.contiguous(), w.contiguous(),
+                             gamma.contiguous(), beta.contiguous(), slope, eps)
+
+
+def apply_fused(x, w, gamma, beta, *, pad_mode="reflection", slope=SLOPE,
+                eps=EPS):
+    """(1, Ci, H, W) -> (1, Co, H, W): 'same' conv with w (Co, Ci, k, k),
+    k in {1, 3}, + train-mode BN + LeakyReLU (fused_block.py::apply_fused).
+    The reflection (or zero) pad runs before the kernel, so its adjoint is
+    autograd's, as JAX differentiates its jnp.pad."""
+    k = w.shape[2]
+    if not supported(x, k) or w.dtype != torch.float32 or w.shape[3] != k:
+        raise ValueError(f"the fused block takes a batch-1 f32 input and a "
+                         f"square f32 kernel in {KERNEL_SIZES}, got x "
+                         f"{tuple(x.shape)} {x.dtype}, w {tuple(w.shape)} "
+                         f"{w.dtype}")
+    p = (k - 1) // 2
+    if p:
+        mode = "reflect" if pad_mode == "reflection" else "constant"
+        x = F.pad(x, (p, p, p, p), mode=mode)
+    return conv_bn_lrelu(x[0], w, gamma, beta, slope, eps)[None]

@@ -42,6 +42,8 @@ class Problem:
     target: torch.Tensor          # loss target (noisy image / sinogram)
     operator: Optional[Callable]  # forward operator applied to the output
     device: torch.device
+    gt_np: np.ndarray             # (C, H, W) host copies for the artifacts
+    target_np: np.ndarray
     has_ale: bool = False         # output carries a neg-logvar channel
 
     def data_loss(self, out: torch.Tensor) -> torch.Tensor:
@@ -88,16 +90,19 @@ def _chw(img_np: np.ndarray, device) -> torch.Tensor:
 
 def build_problem(task: str, method: str, img: int, *, p_sigma: float = 0.1,
                   input_depth: int = 16, device=None,
-                  radon_mode: str = "auto") -> Problem:
+                  radon_mode: str = "auto",
+                  rng: np.random.Generator | None = None) -> Problem:
     """Load data, corrupt it, build the operator and the net on ``device``
     (default: the card). ``radon_mode`` picks the CT operator
-    (ops/radon.py)."""
+    (ops/radon.py). ``rng`` draws the noise (default ``default_rng(42)``);
+    a runner passes the stream it then hands to ``fit`` (problems.py:180)."""
     if method != "mfvi" or task not in ("ct", "den"):
         raise NotImplementedError(
             f"task {task!r} / method {method!r} is not ported yet: the port "
             "covers ct/mfvi and den/mfvi (ROADMAP Queue 1 item 10)")
     dev = resolve_device(device)
-    rng = np.random.default_rng(42)
+    if rng is None:
+        rng = np.random.default_rng(42)
 
     if task == "den":
         img_np, _ = D.get_image_denoising(img)
@@ -105,7 +110,7 @@ def build_problem(task: str, method: str, img: int, *, p_sigma: float = 0.1,
         return Problem(task, method, _standard_net(2, input_depth),
                        input_depth, tuple(img_np.shape[1:]), 1,
                        _chw(img_np, dev), _chw(noisy_np, dev), None, dev,
-                       has_ale=True)
+                       img_np, noisy_np, has_ale=True)
 
     img_np, _ = D.get_img_ct(img)
     gt = _chw(img_np, dev)
@@ -114,4 +119,5 @@ def build_problem(task: str, method: str, img: int, *, p_sigma: float = 0.1,
     with torch.no_grad():
         target = radon(gt)
     return Problem(task, method, _standard_net(1, input_depth), input_depth,
-                   tuple(img_np.shape[1:]), 1, gt, target, radon, dev)
+                   tuple(img_np.shape[1:]), 1, gt, target, radon, dev, img_np,
+                   target[0].cpu().numpy())

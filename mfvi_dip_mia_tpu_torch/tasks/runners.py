@@ -1,0 +1,197 @@
+"""The 16 ``run_{task}_{method}`` entry points (counterpart of
+mfvi_dip_mia_tpu/tasks/runners.py), each a thin closure over ``run_task``.
+
+A run creates ``save_path/<timestamp>/`` with ``locals.txt``, fits, takes a
+25-sample MC posterior summary from the final parameters, optionally plots,
+writes ``save.npz`` in the reference's per-task key schema, and returns the
+final smoothed-reconstruction PSNR (the BO objective). The port runs
+(den, mfvi) and (ct, mfvi); the other 14 raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..bayes import vi
+from ..bayes.uncertainty import mc_predict, uncert_regression_gal
+from ..ops.metrics import psnr, ssim
+from ..utils.config import dump_locals
+from ..utils.device import resolve_device
+from .problems import build_problem
+from .trainer import Method, fit
+
+MC_SAMPLES = 25
+_PORTED = {("den", "mfvi"), ("ct", "mfvi")}
+
+
+def method_for(task: str, method_name: str, overrides: dict) -> Method:
+    """The Method a ``run_task`` call with these kwargs uses, with the
+    reference's weight-decay quirks (ct and dip/mfvi zero it)."""
+    kw = dict(temp=4e-6, sigma=0.01, dropout_p=0.3, weight_decay=3e-4,
+              gamma=0.9999)
+    kw.update(overrides)
+    if task == "ct" or method_name in ("dip", "mfvi"):
+        kw["weight_decay"] = 0.0
+    return Method(name=method_name, **kw)
+
+
+def _npz_payload(task, problem, res, method_name):
+    """save.npz with the reference's per-task key schema."""
+    d = {
+        "mse_gt": {method_name: res.mse_gt},
+        "recons": {method_name: res.recons},
+        "uncerts": {method_name: res.uncerts_epi},
+        "uncerts_ale": {method_name: res.uncerts_ale},
+        "psnrs": {method_name: res.psnrs},
+        "ssims": {method_name: res.ssims},
+    }
+    if task == "den":
+        d.update(img_gt=problem.gt_np, img_noisy=problem.target_np,
+                 mse_noisy={method_name: res.mse_corrupted})
+    elif task == "ct":
+        d.update(img_gt=problem.gt_np[None], img_radon=problem.target_np[None],
+                 mse_noisy={method_name: res.mse_corrupted})
+    return d
+
+
+def mc_summary(problem, params: dict, net_input: np.ndarray, seed: int,
+               n_samples: int = MC_SAMPLES) -> dict:
+    """The posterior-predictive summary of a fit: ``n_samples`` RT draws of
+    the final parameters from a generator seeded ``seed`` (the runner passes
+    seed + 77, as JAX's PRNGKey(seed + 77)), transformed and decomposed.
+    Returns the mean reconstruction clipped to [0, 1] and its PSNR / SSIM,
+    and the aleatoric / epistemic maps, each (C, H, W)."""
+    dev = problem.device
+    flat = vi.flatten({k: torch.from_numpy(v) for k, v in params.items()},
+                      device=dev)
+    x = torch.from_numpy(net_input).permute(0, 3, 1, 2).contiguous().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    outs = mc_predict(problem.net, flat, x, gen, n_samples)
+    outs = problem.transform(outs[:, 0])[:, None]
+    mean, ale, epi = uncert_regression_gal(outs, problem.mean_ch)
+    mean_c = torch.clamp(mean, 0, 1)
+    return dict(mc_mean_recon=mean_c[0].cpu().numpy(),
+                mc_mean_psnr=float(psnr(problem.gt, mean_c)),
+                mc_mean_ssim=float(ssim(problem.gt, mean_c)),
+                mc_ale=ale[0].cpu().numpy(), mc_epi=epi[0].cpu().numpy())
+
+
+def run_task(task: str, method_name: str, *, img: int = 0,
+             num_iter: int = 5000, lr: float = 3e-4, temp: float = 4e-6,
+             sigma: float = 0.01, dropout_p: float = 0.3,
+             weight_decay: float = 3e-4, gamma: float = 0.9999,
+             p_sigma: float = 0.1, input_depth: int = 16, device=None,
+             index: int = 0, seed: int = 42, show_every: int = 100,
+             plot: bool = True, save: bool = True, save_path: str = "./logs",
+             log_every_chunk: bool = False, metrics_every: int = 1,
+             chunk_iters=None, early_stop=None, compute_dtype=None,
+             layout: str = "nhwc", **kwargs) -> float:
+    """Generic runner; the 16 named wrappers below pin (task, method).
+
+    ``device`` defaults to the card (utils/device.py::resolve_device; an int,
+    "cuda:1" or "tpu:3" names a CUDA ordinal modulo the card count) and
+    raises without one; ``device="cpu"`` runs the plain path. ``layout`` and
+    ``chunk_iters`` are the JAX trainer's XLA dispatch knobs: they are taken,
+    so that ``configs/*.json`` run_params pass unchanged, and change nothing
+    in eager PyTorch. ``compute_dtype`` is 'f32' (default) or 'bf16'."""
+    from ..utils import viz
+
+    if (task, method_name) not in _PORTED:
+        raise NotImplementedError(
+            f"run_{task}_{method_name} is not ported yet: the port runs "
+            "den/mfvi and ct/mfvi (ROADMAP Queue 1 item 10)")
+    if early_stop is not None:
+        raise NotImplementedError(
+            "early_stop is not ported yet (ROADMAP Queue 1, left from items "
+            "1-9)")
+    # reference quirks: ct and dip/mfvi runners zero weight_decay
+    if task == "ct" or method_name in ("dip", "mfvi"):
+        weight_decay = 0.0
+    dev = resolve_device(device)
+
+    timestamp = str(time.time())
+    out_dir = None
+    if plot or save:
+        out_dir = Path(save_path) / timestamp
+        out_dir.mkdir(parents=True, exist_ok=False)
+        dump_locals(str(out_dir / "locals.txt"), dict(
+            task=task, bayes=method_name, img=img, num_iter=num_iter, lr=lr,
+            temp=temp, sigma=sigma, dropout_p=dropout_p,
+            weight_decay=weight_decay, gamma=gamma, p_sigma=p_sigma,
+            input_depth=input_depth, device=str(device), seed=seed,
+            show_every=show_every, **kwargs))
+
+    on_card = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+    with on_card:
+        # one stream draws the noisy image, then the net input
+        rng = np.random.default_rng(seed)
+        problem = build_problem(task, method_name, img, p_sigma=p_sigma,
+                                input_depth=input_depth, device=dev, rng=rng)
+        method = Method(name=method_name, temp=temp, sigma=sigma,
+                        dropout_p=dropout_p, weight_decay=weight_decay,
+                        gamma=gamma)
+        if plot:
+            imgs = [problem.gt_np] + ([problem.target_np] if task == "den"
+                                      else [])
+            viz.plot_image_grid_png(imgs, str(out_dir / "input.png"))
+
+        def log_fn(i, row):
+            print(f"[{task}_{method_name} idx={index}] iter {i}: "
+                  f"mse={row[0]:.4f} psnr_sm={row[4]:.3f}", flush=True)
+
+        def snapshot_fn(i, recon, epi, ale):
+            viz.save_image_png(recon, str(out_dir / "out_avg.png"))
+            viz.save_normalized_png(epi, str(out_dir / "out_var.png"))
+            if problem.has_ale:
+                viz.save_normalized_png(ale, str(out_dir / "out_ale.png"))
+
+        res = fit(problem, method, num_iter=num_iter, lr=lr, seed=seed,
+                  show_every=show_every, rng=rng, device=dev,
+                  metrics_every=metrics_every, compute_dtype=compute_dtype,
+                  collect_snapshots=(plot or save),
+                  log_fn=log_fn if log_every_chunk else None,
+                  snapshot_fn=snapshot_fn if plot else None)
+
+        if plot:
+            viz.plot_loss(res.mse_corrupted, res.mse_gt, res.psnrs, num_iter,
+                          str(out_dir / f"loss_{method_name}.png"),
+                          f"MSE {method_name.upper()}")
+            with open(out_dir / "locals.txt", "a") as f:
+                viz.plot_results({method_name: res.mse_corrupted},
+                                 {method_name: res.mse_gt},
+                                 {method_name: res.psnrs},
+                                 {method_name: res.ssims}, str(out_dir),
+                                 file=f)
+        summary = mc_summary(problem, res.params, res.net_input, seed + 77)
+
+    if save:
+        np.savez(str(out_dir / "save.npz"),
+                 **_npz_payload(task, problem, res, method_name), **summary)
+    return res.final_psnr
+
+
+def _make_runner(task, method):
+    def runner(img: int = 0, device=None, index: int = 0, **kwargs) -> float:
+        return run_task(task, method, img=img, device=device, index=index,
+                        **kwargs)
+    runner.__name__ = f"run_{task}_{method}"
+    runner.__doc__ = (f"{task} task with {method} inference "
+                      f"(parity: reference run_{task}_{method})")
+    return runner
+
+
+_TASKS = ("ct", "den", "sr", "inp")
+_METHODS = ("dip", "mfvi", "mcd", "sgld")
+
+for _t in _TASKS:
+    for _m in _METHODS:
+        globals()[f"run_{_t}_{_m}"] = _make_runner(_t, _m)
+
+ALL_RUNNERS = {f"run_{t}_{m}": globals()[f"run_{t}_{m}"]
+               for t in _TASKS for m in _METHODS}

@@ -40,10 +40,15 @@ REG_NOISE_STD = 0.1
 
 @dataclasses.dataclass(frozen=True)
 class Method:
-    """Inference-mode hyperparameters (the two BO axes of MFVI)."""
+    """Inference-mode hyperparameters (the two BO axes of MFVI). The other
+    methods' fields ride along for the runners (tasks/runners.py::
+    method_for); MFVI uses none of them and its weight decay is 0."""
     name: str                      # 'mfvi'
     temp: float = 0.0
     sigma: float = 0.0
+    dropout_p: float = 0.3         # mcd
+    weight_decay: float = 0.0      # mcd / sgld
+    gamma: float = 0.9999          # sgld lr decay
 
     @property
     def prior_sigma(self) -> float:
@@ -109,11 +114,16 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         seed: int = 42, show_every: int = 100,
         snapshot_fn: Optional[Callable] = None, device=None,
         metrics_every: int = 1, compute_dtype="f32",
-        collect_snapshots: bool = True) -> FitResult:
+        collect_snapshots: bool = True,
+        rng: np.random.Generator | None = None,
+        log_fn: Optional[Callable] = None) -> FitResult:
     """Run one MFVI DIP fit on ``device`` (default: the card). Returns the
     per-iteration metric traces, the snapshot stacks and the final smoothed
     PSNR as ``final_psnr``. ``snapshot_fn(i, recon, epi, ale)`` fires at
-    every snapshot."""
+    every snapshot, ``log_fn(i, metrics_row)`` at every ``show_every``
+    boundary. ``rng`` draws the net input (default ``default_rng(seed)``);
+    a runner passes the stream that drew the problem's noise
+    (trainer.py:502-513)."""
     if method.name != "mfvi":
         raise NotImplementedError(
             f"method {method.name!r} is not ported yet (ROADMAP Queue 1 "
@@ -129,7 +139,7 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
     n_out = {"ct": 1, "den": 2}[problem.task]
 
     z_np = I.get_noise(problem.input_depth, (h, w),
-                       rng=np.random.default_rng(seed))
+                       rng=np.random.default_rng(seed) if rng is None else rng)
     z = torch.from_numpy(z_np).permute(0, 3, 1, 2).contiguous().to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -205,6 +215,8 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         if (it + 1) % show_every == 0 or it + 1 == num_iter:
             start = it + 1 - ((it % show_every) + 1)
             rows[start:it + 1] = rows_dev[start:it + 1].cpu().numpy()
+            if log_fn is not None:
+                log_fn(it, rows[it])
             if t_first is None:
                 _sync(dev)
                 t_first = time.perf_counter()

@@ -7,10 +7,28 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means ``"cuda"``; a CUDA device without a card raises."""
+    """``None`` means ``"cuda"``; a CUDA device without a card raises.
+
+    Besides torch devices and their names, the reference's spellings are
+    taken: an integer ordinal or a name with one ("cuda:1", "tpu:3") means
+    that CUDA device modulo the number of cards, so ``configs/*.json`` run
+    unchanged (runners.py:28-41)."""
+    if isinstance(device, int) or (
+            isinstance(device, str) and not device.startswith(("cpu", "cuda"))):
+        idx = device if isinstance(device, int) else (
+            int(device.rsplit(":", 1)[1]) if ":" in device else 0)
+        _require_cuda()
+        return torch.device("cuda", idx % torch.cuda.device_count())
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda":
+        _require_cuda()
+        if dev.index is not None:
+            dev = torch.device("cuda", dev.index % torch.cuda.device_count())
+    return dev
+
+
+def _require_cuda() -> None:
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available: the port runs on the card; pass "
             "device='cpu' explicitly to run its plain CPU path")
-    return dev

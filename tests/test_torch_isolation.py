@@ -11,11 +11,13 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import mfvi_dip_mia_tpu_torch
 from mfvi_dip_mia_tpu_torch.ops import kernels
 from mfvi_dip_mia_tpu_torch.ops.kernels import build
 from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
 from mfvi_dip_mia_tpu_torch.ops.kernels import radon_banded as rb
 import mfvi_dip_mia_tpu_torch.tasks.problems as TP
 import mfvi_dip_mia_tpu_torch.tasks.trainer as TT
@@ -58,7 +60,10 @@ def _run(args, cwd):
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert len(mods) >= 25
+    assert len(mods) >= 30
+    for name in ("ops.kernels.fused_block", "bayes.uncertainty",
+                 "utils.config", "utils.viz", "tasks.runners"):
+        assert f"mfvi_dip_mia_tpu_torch.{name}" in mods
     out = _run(["-c", _BLOCKED_IMPORT, *mods], REPO)
     assert out.returncode == 0, out.stderr[-3000:]
     assert f"imported {len(mods)}" in out.stdout
@@ -115,14 +120,22 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
         (st.t_pad * 32, 1)).astype(np.float32))
     assert torch.equal(rb.radon_fwd(st, v), rb.radon_fwd_plain(st, v))
     assert torch.equal(rb.radon_adj(st, y), rb.radon_adj_plain(st, y))
-    assert [k.launches for k in kernels.KERNELS] == [0, 0, 0, 0]
+    xf = torch.from_numpy(rng.standard_normal((1, 6, 8, 8)).astype(np.float32))
+    gam, bet = torch.ones(5), torch.zeros(5)
+    assert torch.equal(
+        tfb.apply_fused(xf, w, gam, bet),
+        tfb.fwd_plain(F.pad(xf, (1, 1, 1, 1), mode="reflect")[0], w, gam,
+                      bet)[0][None])
+    assert [k.launches for k in kernels.KERNELS] == [0] * 8
     assert build._LIB is None          # nothing was built or loaded
 
 
 def test_kernel_records_name_their_sources_and_tpu_kernels():
     names = [k.name for k in kernels.KERNELS]
     assert names == ["cf_conv_fwd", "cf_conv_dw", "radon_banded_fwd",
-                     "radon_banded_adj"]
+                     "radon_banded_adj", "fused_block_fwd",
+                     "fused_block_bwd_dc", "fused_block_bwd_dw",
+                     "fused_block_bwd_dx"]
     for k in kernels.KERNELS:
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(" ")[0].split(":")
@@ -130,7 +143,6 @@ def test_kernel_records_name_their_sources_and_tpu_kernels():
             src = f.read().splitlines()
         fn = k.replaces.split("(")[1].rstrip(")")
         assert src[int(line) - 1].startswith(f"def {fn}("), k.replaces
-    for sig in build._SIGNATURES:
-        assert sig in names
+    assert set(build._SIGNATURES) == set(names)
     with pytest.raises(ValueError, match="CUDA tensor"):
         build.require_cuda(torch.zeros(2), "x")

@@ -1,7 +1,9 @@
 """The port's skip U-Net (mfvi_dip_mia_tpu_torch/nn/skip.py) against the JAX
 SkipNet: the same weights (carried across by utils/bridge.py) and the same RT
-eps on both sides. The JAX net runs layout='auto' with the fused block off,
-i.e. every conv site on the Pallas conv kernels the port replaces."""
+eps on both sides. The JAX net runs layout='auto', with the fused block off
+(every conv site on the Pallas conv kernels) at 32x64, and with it on (its
+default, fusing the 128-wide level) at 128^2. The port fuses every stride-1
+f32 conv -> BN -> LeakyReLU site in both."""
 
 import numpy as np
 import pytest
@@ -12,8 +14,11 @@ import jax.numpy as jnp
 
 from mfvi_dip_mia_tpu.bayes import vi as jvi
 from mfvi_dip_mia_tpu.nn import build_skip_net as jbuild, cf as jcf
+from mfvi_dip_mia_tpu.ops.pallas import fused_block as jfb
 from mfvi_dip_mia_tpu_torch.bayes import vi as tvi
 from mfvi_dip_mia_tpu_torch.nn import build_skip_net as tbuild, layers
+from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
 from mfvi_dip_mia_tpu_torch.utils import bridge
 
 from torch_port_helpers import SMALL_NET, eps_pair, jax_sample_with_eps
@@ -40,8 +45,7 @@ def jax_fused_off(monkeypatch):
     monkeypatch.setenv("MFVI_DIP_FUSED_BLOCK", "0")
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _setup(h, w, x_seed):
     net_j = jbuild(16, n_channels=2, **SMALL_NET)
     k1, k2 = jax.random.split(jax.random.PRNGKey(3))
     # a pytree round trip sorts dict keys, as jax.grad's and jit's outputs
@@ -50,10 +54,34 @@ def setup():
     params_np = jax.tree.map(np.asarray, params_j)
     flat = tvi.flatten(bridge.params_from_jax(params_np))
     eps_j, eps_t = eps_pair(params_j, flat, seed=4)
-    x = (np.random.default_rng(10).uniform(size=(1, 32, 64, 16)) * 0.1
+    x = (np.random.default_rng(x_seed).uniform(size=(1, h, w, 16)) * 0.1
          ).astype(np.float32)
     net_t = tbuild(16, n_channels=2, **SMALL_NET)
     return net_j, params_j, eps_j, net_t, flat, eps_t, x
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(32, 64, 10)
+
+
+@pytest.fixture(scope="module")
+def setup128():
+    return _setup(128, 128, 11)
+
+
+@pytest.fixture
+def count_fused(monkeypatch):
+    """Counts the port's fused-block forwards (one per fused site)."""
+    calls = []
+    fwd = tfb.fwd
+
+    def spy(*args):
+        calls.append(tuple(args[0].shape))
+        return fwd(*args)
+
+    monkeypatch.setattr(tfb, "fwd", spy)
+    return calls
 
 
 def _nchw(a):
@@ -72,9 +100,43 @@ def test_forward_golden_against_jax(jax_fused_off, setup):
                                np.asarray(out_j), **GOLDEN)
 
 
+def test_forward_golden_against_jax_fused_block_on(setup128, count_fused,
+                                                   monkeypatch):
+    """A bridged tree through the port's fused sites against the JAX net
+    with its fused block on: the 128-wide level's stride-1 sites fuse on
+    both sides (JAX: skip, up, up1x1; its down2 runs at 64 wide)."""
+    net_j, params_j, eps_j, net_t, flat, eps_t, x = setup128
+    fused_j = []
+    apply_j = jfb.apply_fused
+
+    def spy_j(*args, **kw):
+        out = apply_j(*args, **kw)
+        fused_j.append(out is not None)
+        return out
+
+    monkeypatch.setattr(jfb, "apply_fused", spy_j)
+    out_j = jax.jit(lambda p: net_j.apply(
+        jax_sample_with_eps(p, eps_j), jnp.asarray(x), key=None,
+        training=True, layout="auto"))(params_j)
+    assert sum(fused_j) == 3
+    with torch.no_grad():
+        out_t = net_t(tvi.sample_mfvi_tree(flat, eps=eps_t), _nchw(x))
+    assert len(count_fused) == 8          # skip, down2, up, up1x1 per level
+    np.testing.assert_allclose(out_t.numpy().transpose(0, 2, 3, 1),
+                               np.asarray(out_j), **GOLDEN)
+
+
+def test_parameter_gradients_against_jax_fused_block_on(setup128):
+    _check_parameter_gradients(setup128)
+
+
 def test_parameter_gradients_against_jax(jax_fused_off, setup):
+    _check_parameter_gradients(setup)
+
+
+def _check_parameter_gradients(setup):
     net_j, params_j, eps_j, net_t, flat, eps_t, x = setup
-    tgt = np.random.default_rng(6).uniform(size=(1, 32, 64, 2)).astype(
+    tgt = np.random.default_rng(6).uniform(size=x.shape[:3] + (2,)).astype(
         np.float32)
 
     def loss_j(p):
@@ -205,3 +267,31 @@ def test_variational_tree_in_eval_uses_the_posterior_means(jax_fused_off,
     assert torch.isfinite(drawn).all() and not torch.equal(drawn, out_t)
     with pytest.raises(ValueError, match="generator"):
         net_t(var, _nchw(x))
+
+
+@pytest.mark.parametrize("dtype,n_fused", [(torch.float32, 20),
+                                           (torch.bfloat16, 0)])
+def test_fused_sites_of_the_five_scale_net(count_fused, monkeypatch, dtype,
+                                           n_fused):
+    """f32: the 20 stride-1 sites fuse (skip, down2, up, up1x1 at each of 5
+    levels); the 5 stride-2 down1 sites and the output conv stay on the conv
+    kernel. bf16 never fuses, as in JAX."""
+    convs = []
+    conv = tcf.conv_valid
+
+    def spy(*args):
+        convs.append(tuple(args[1].shape))
+        return conv(*args)
+
+    monkeypatch.setattr(tcf, "conv_valid", spy)
+    net = tbuild(16, n_channels=2, pad="reflection",
+                 skip_n33d=[16, 32, 64, 128, 128],
+                 skip_n33u=[16, 32, 64, 128, 128], skip_n11=4, num_scales=5,
+                 upsample_mode="bilinear")
+    params = {k: v.to(dtype) for k, v in
+              net.init_params(torch.Generator().manual_seed(0)).items()}
+    with torch.no_grad():
+        out = net(params, (torch.rand(1, 16, 64, 64) * 0.1).to(dtype))
+    assert out.shape == (1, 2, 64, 64) and torch.isfinite(out).all()
+    assert len(count_fused) == n_fused
+    assert len(convs) == 26 - n_fused

@@ -5,9 +5,11 @@ den/mfvi at 64^2 on a 2-scale net.
 Both sides start from the same parameters (carried across by utils/bridge.py),
 see the same fixed DIP input (the same numpy generator), run with the input
 jitter off and draw their RT weights from one fixed numpy eps. The JAX side
-runs layout='auto' with the fused block off and the banded Radon operator,
-i.e. every conv and Radon pass on the Pallas kernels the port replaces (in
-interpret mode here); the port runs their plain versions on the CPU."""
+runs layout='auto' with the banded Radon operator and, at 64^2, the fused
+block off, i.e. every conv and Radon pass on the Pallas kernels the port
+replaces (in interpret mode here); a den lockstep at 128^2 keeps the JAX
+fused block on, its default. The port runs the kernels' plain versions on
+the CPU."""
 
 import weakref
 
@@ -22,6 +24,7 @@ import mfvi_dip_mia_tpu.tasks.data as JD
 import mfvi_dip_mia_tpu.tasks.problems as JP
 import mfvi_dip_mia_tpu.tasks.trainer as JT
 import mfvi_dip_mia_tpu.utils.images as JI
+from mfvi_dip_mia_tpu.ops.pallas import fused_block as jfb
 from mfvi_dip_mia_tpu.nn import build_skip_net as jbuild
 import mfvi_dip_mia_tpu_torch.bayes.vi as tvi
 import mfvi_dip_mia_tpu_torch.tasks.data as TD
@@ -48,14 +51,13 @@ def _psnr_tol(i):
     return 2e-3 * (1 + i)
 
 
-@pytest.fixture
-def small_problems(monkeypatch):
-    """Both packages' build_problem at 64^2 on the 2-scale net."""
+def _patch_problems(monkeypatch, size):
+    """Both packages' build_problem at size^2 on the 2-scale net."""
     for D in (JD, TD):
         monkeypatch.setattr(D, "get_img_ct", lambda i, D=D: (
-            D.synthetic_ct(i, SIZE), (SIZE, SIZE)))
+            D.synthetic_ct(i, size), (size, size)))
         monkeypatch.setattr(D, "get_image_denoising", lambda i, D=D: (
-            D.synthetic_xray(i, SIZE), (SIZE, SIZE)))
+            D.synthetic_xray(i, size), (size, size)))
     monkeypatch.setattr(JP, "_standard_net", lambda n, m, dp, input_depth=16:
                         jbuild(input_depth, n_channels=n, **SMALL_NET))
     monkeypatch.setattr(TP, "_standard_net", lambda n, input_depth=16:
@@ -63,9 +65,20 @@ def small_problems(monkeypatch):
 
 
 @pytest.fixture
-def lockstep(monkeypatch, small_problems):
+def small_problems(monkeypatch):
+    _patch_problems(monkeypatch, SIZE)
+
+
+@pytest.fixture
+def lockstep(monkeypatch):
+    return _lockstep(monkeypatch, SIZE, jax_fused=False)
+
+
+def _lockstep(monkeypatch, size, jax_fused):
+    _patch_problems(monkeypatch, size)
     monkeypatch.setenv("MFVI_DIP_RADON", "banded")
-    monkeypatch.setenv("MFVI_DIP_FUSED_BLOCK", "0")
+    if not jax_fused:
+        monkeypatch.setenv("MFVI_DIP_FUSED_BLOCK", "0")
     for T in (JT, TT):
         monkeypatch.setattr(T, "REG_NOISE_STD", 0.0)
     # the compiled chunk runner is cached per net structure for the whole
@@ -106,7 +119,27 @@ def lockstep(monkeypatch, small_problems):
 
 @pytest.mark.parametrize("task", ["ct", "den"])
 def test_fit_lockstep_against_jax(lockstep, task):
-    prob_j, prob_t = lockstep(task)
+    _check_lockstep(*lockstep(task), task)
+
+
+def test_den_fit_lockstep_against_jax_fused_block_on(monkeypatch):
+    """den f32 at 128^2: the JAX fit runs its fused block at the 128-wide
+    level (skip, up, up1x1), the port fuses every stride-1 site."""
+    fused_j = []
+    apply_j = jfb.apply_fused
+
+    def spy_j(*args, **kw):
+        out = apply_j(*args, **kw)
+        fused_j.append(out is not None)
+        return out
+
+    monkeypatch.setattr(jfb, "apply_fused", spy_j)
+    prob_j, prob_t = _lockstep(monkeypatch, 128, jax_fused=True)("den")
+    _check_lockstep(prob_j, prob_t, "den")
+    assert sum(fused_j) >= 3
+
+
+def _check_lockstep(prob_j, prob_t, task):
     temp, sigma = PRIORS[task]
     kw = dict(num_iter=N_STEPS - 1, lr=LR, seed=1, show_every=N_STEPS,
               metrics_every=1)
