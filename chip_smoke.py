@@ -6,24 +6,31 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions, and the build of the hand-written CUDA kernels from csrc/.
+   versions, the build of the hand-written CUDA kernels from csrc/, and
+   each kernel's registers, shared memory and spills (``nvcc -Xptxas -v``).
 2. Every kernel against its plain PyTorch version on the card: the VALID
    conv (forward and dx) and its weight gradient in f32 and bf16 at every
    conv-site shape of the 256^2 CT U-Net, the banded Radon forward and
-   adjoint at 256^2 / 45 angles with the f32 and the bf16 band, and the four
+   adjoint at 256^2 / 45 angles with the f32 and the bf16 band, the four
    fused conv + BN + LeakyReLU kernels in f32 at every fused-site shape of
-   the 256^2 den U-Net (out, stats, dconv, dgamma, dbeta, dw, dx).
-3. One f32 CT and one f32 den loss and gradient through the 256^2 nets on
-   the card against the CPU's plain path. Then the main paths: bench.py's CT
-   configuration (256^2, input depth 16, temp 2.2e-10, sigma 1.7e-7, lr
-   1e-3, seed 1, bf16, metrics every 10) through ``fit``, 100 warm-up and
-   200 timed iterations; then the den/MFVI f32 fit of 500 iterations (bench.py
-   --metric train's configuration) through the user's entry point
+   the 256^2 den U-Net (out, stats, dconv, dgamma, dbeta, dw, dx), the LRT
+   double conv in f32 and bf16 at every conv-site shape of the 256^2 den
+   U-Net (act_mu, act_var; its backward in f32 at a quarter of them), and
+   the dense bf16-matrix Radon forward and adjoint at 256^2 / 45 angles.
+3. One f32 CT, one f32 den and one f32 LRT den loss and gradient through
+   the 256^2 nets on the card against the CPU's plain path. Then the paths:
+   bench.py's CT configuration (256^2, input depth 16, temp 2.2e-10, sigma
+   1.7e-7, lr 1e-3, seed 1, bf16, metrics every 10) through ``fit``, 100
+   warm-up and 200 timed iterations; the den/MFVI f32 fit of 500 iterations
+   (bench.py --metric train's configuration) through the user's entry point
    ``run_den_mfvi`` (save.npz into a temporary directory, no plots), with
    its 25-sample MC posterior summary, and the MC posterior samples per
-   second of ``mc_predict``. Launch counters are zeroed just before each
-   path and read just after it.
-4. Each kernel's time at the main paths' shapes beside its bound, its plain
+   second of ``mc_predict``; path A, the same den fit through
+   ``fit(..., reparam="lrt")`` (100 warm-up and 200 timed iterations) and
+   its 25-sample LRT posterior summary; path B, the CT configuration with
+   ``radon_mode="dense-bf16"`` (100 + 200 iterations). Launch counters are
+   zeroed just before each path and read just after it.
+4. Each kernel's time at the paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
    off; timed here only, never called by the port), printed as one JSON
    line ``{"kernels": [...]}``.
@@ -38,6 +45,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +64,9 @@ CT_ITERS_TIMED = 200
 DEN_ITERS = 500
 MC_SAMPLES_TIMED = 100
 DEN_AB_ITERS = 110             # unprofiled den steps of the fused A/B
+PATH_ITERS_WARM = 100          # paths A and B: first chunk, then timed
+PATH_ITERS_TIMED = 200
+MC_SAMPLES = 25                # the runner's posterior summary
 
 # Tolerances of a kernel against its plain version, as a share of the
 # plain result's largest magnitude:
@@ -65,9 +77,18 @@ DEN_AB_ITERS = 110             # unprofiled den steps of the fused A/B
 #     inputs): split partial sums in another order than cuBLAS's
 #   Radon: f32 accumulation of the same band products (bf16 band promoted
 #     to f32 in both), in another order
+#   LRT act_mu / act_var: as the conv, two sums of <= 1188 products (of x
+#     and of x^2, squared in f32 by both) in another order; bf16 as the conv
+#   LRT backward (f32): dx is two full correlations and an elementwise
+#     product, dw / dw_var the split sums of up to 65,536 products, each in
+#     another order than the plain version's matmuls
+#   dense Radon: f32 accumulation of the same bf16-matrix products (up to
+#     65,536 per bin or pixel) in another order than cuBLAS's f32 matmul
 TOL = {("conv", "f32"): 1e-4, ("conv", "bf16"): 8e-3,
        ("dw", "f32"): 1e-3, ("dw", "bf16"): 1e-3,
-       ("radon", "f32"): 1e-4, ("radon", "bf16"): 1e-4}
+       ("radon", "f32"): 1e-4, ("radon", "bf16"): 1e-4,
+       ("lrt", "f32"): 1e-4, ("lrt", "bf16"): 8e-3,
+       ("lrt_bwd", "f32"): 1e-3, ("radon_dense", "bf16"): 1e-4}
 # The fused block's kernels against their plain versions (f32), as a share
 # of the plain result's largest magnitude (per column of stats):
 #   out / dconv / dx: f32 sums of <= 1188 products in another order, then
@@ -93,6 +114,45 @@ def nvidia_smi_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report() -> dict:
+    """Each kernel's registers, static shared memory and spill bytes as
+    ``nvcc -Xptxas -v`` reports them: one nvcc per csrc/*.cu source, all
+    started together, objects discarded."""
+    from mfvi_dip_mia_tpu_torch.ops.kernels import build
+    procs = [(os.path.basename(src), subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o",
+         os.devnull], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for src in build._sources()]
+    report = {}
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{out}")
+        name = None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                report[name] = dict(source=src, spill=0)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                report[name]["spill"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$",
+                          line)
+            if m and name:
+                report[name].update(registers=int(m.group(1)),
+                                    smem=int(m.group(2) or 0))
+    for src in sorted({r["source"] for r in report.values()}):
+        rows = [r for r in report.values() if r["source"] == src]
+        log(f"[1] ptxas {src}: {len(rows)} entry functions, registers "
+            f"{min(r['registers'] for r in rows)}-"
+            f"{max(r['registers'] for r in rows)}, static shared memory up "
+            f"to {max(r['smem'] for r in rows)} B, spill bytes "
+            f"{sum(r['spill'] for r in rows)}")
+    return report
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -129,12 +189,18 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 def conv_sites(net, size: int) -> list[dict]:
     """Every conv site of ``net`` on a size^2 input, as the VALID stride-1
     conv the kernel sees: xp (I, Hp, Wp) and w (O, I, k, k) after padding and
-    the stride-2 parity planes (ops/kernels/cf_conv.py::conv2d_cf)."""
+    the stride-2 parity planes (ops/kernels/cf_conv.py::conv2d_cf). The
+    operations a bound counts are the site's own conv's (``flops``, one
+    contraction, and ``x_elems``, its padded input): a stride-2 site's plane
+    form holds 16 taps per output where the k=3 conv needs 9."""
     sites = []
 
     def add(name, site, s_in, needs_dx=True):
         k = site.kernel
         hp = s_in + 2 * ((k - 1) // 2)
+        ho = (hp - k) // site.stride + 1
+        own = dict(flops=2.0 * site.c_out * site.c_in * k * k * ho * ho,
+                   x_elems=site.c_in * hp * hp)
         if site.stride == 1:
             xp, w = (site.c_in, hp, hp), (site.c_out, site.c_in, k, k)
         elif site.stride == 2 and k > 1:
@@ -143,7 +209,7 @@ def conv_sites(net, size: int) -> list[dict]:
             xp, w = (4 * site.c_in, m, m), (site.c_out, 4 * site.c_in, k2, k2)
         else:
             raise ValueError(f"site {name}: stride {site.stride}, k {k}")
-        sites.append(dict(name=name, xp=xp, w=w, needs_dx=needs_dx))
+        sites.append(dict(name=name, xp=xp, w=w, needs_dx=needs_dx, **own))
 
     for i, cfg in enumerate(net.levels):
         s = size >> i
@@ -351,16 +417,143 @@ def check_fused_kernels(sites, results: dict) -> None:
         res.setdefault("errors", {})[what] = dict(max_abs_err=a, rel=r)
 
 
+def lrt_operands(site: dict, dtype, gen):
+    """(xp, w_mu, w_var, g) of one LRT site as the kernel sees it: the
+    padded input (or its stride-2 planes), both weights (w_var positive,
+    softplus(rho)^2-sized) and a cotangent of the outputs."""
+    import torch
+    xp, w_mu, g = conv_operands(site, dtype, gen)
+    w_var = (torch.rand(site["w"], generator=gen, device=DEVICE)
+             * 0.01).to(dtype)
+    return xp, w_mu, w_var, g
+
+
+def lrt_backward_plain(xp, w_mu, w_var, g_mu, g_var):
+    """(dxp, dw_mu, dw_var) of the double conv from the conv's plain
+    versions (lrt_conv_pallas.py::_vjp_bwd on the padded input)."""
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+    k = w_mu.shape[2]
+    dx = (tcf.conv_dx_plain(g_mu, w_mu)
+          + 2.0 * xp * tcf.conv_dx_plain(g_var, w_var))
+    return (dx, tcf.conv_dw_plain(xp, g_mu, k, k),
+            tcf.conv_dw_plain(xp * xp, g_var, k, k))
+
+
+def check_lrt_kernel(sites, results: dict) -> None:
+    """``lrt_conv_fwd`` against its plain version at every distinct LRT site
+    shape of the 256^2 den net (21 stride-1 sites and 5 stride-2 sites on
+    parity planes), in f32 and bf16; its autograd backward (the conv's dx
+    and dw kernels) against the plain formulas at every fourth shape."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import lrt_conv as tlrt
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    shapes = {}
+    for s in sites:
+        shapes.setdefault((s["xp"], s["w"]), s)
+    log(f"[2] LRT double conv at {len(shapes)} distinct shapes of "
+        f"{len(sites)} LRT sites")
+    worst = {}
+
+    def hold(kind, dname, what, shape, got, ref):
+        if got.shape != ref.shape or got.dtype != ref.dtype or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(
+                f"lrt_conv_fwd {what} {dname} at {shape}: {tuple(got.shape)} "
+                f"{got.dtype} vs {tuple(ref.shape)} {ref.dtype}, or not "
+                "finite")
+        a, r = rel_err(got, ref)
+        if r > TOL[(kind, dname)]:
+            raise AssertionError(
+                f"lrt_conv_fwd {what} {dname} at xp/w {shape}: max abs err "
+                f"{a:.3e} (rel {r:.3e}) > tolerance {TOL[(kind, dname)]:.0e}")
+        if r >= worst.get((kind, dname, what), (0.0, -1.0))[1]:
+            worst[(kind, dname, what)] = (a, r)
+
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for n, ((xps, ws), s) in enumerate(shapes.items()):
+            xp, w_mu, w_var, g = lrt_operands(s, dtype, gen)
+            got = tlrt.double_conv_fwd(xp, w_mu, w_var)
+            ref = tlrt.fused_double_conv(xp, w_mu, w_var)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("act_mu", "act_var"), got, ref):
+                hold("lrt", dname, what, (xps, ws), a, b)
+            if dtype != torch.float32 or n % 4:
+                continue
+            g_var = torch.randn(g.shape, generator=gen, device=DEVICE)
+            args = [t.clone().requires_grad_(True) for t in (xp, w_mu, w_var)]
+            mu, var = tlrt.lrt_double_conv(*args)
+            grads = torch.autograd.grad(
+                (mu * g).sum() + (var * g_var).sum(), args)
+            plain = lrt_backward_plain(xp, w_mu, w_var, g, g_var)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("dxp", "dw_mu", "dw_var"), grads, plain):
+                hold("lrt_bwd", dname, what, (xps, ws), a, b)
+    for (kind, dname, what), (a, r) in sorted(worst.items()):
+        log(f"    lrt_conv_fwd {what:7s} {dname:4s} worst max abs err "
+            f"{a:.3e} rel {r:.3e} (tolerance {TOL[(kind, dname)]:.0e}) ok")
+    res = results.setdefault("lrt_conv_fwd", {})
+    res["errors"] = {f"{what}_{dname}": dict(max_abs_err=a, rel=r)
+                     for (_, dname, what), (a, r) in worst.items()}
+    # the path runs f32: its forward error is the kernel's error
+    res["max_abs_err"] = max(worst[("lrt", "f32", w)][0]
+                             for w in ("act_mu", "act_var"))
+
+
+def check_dense_radon(results: dict):
+    """The bf16 projection matrix at 256^2 / 45 angles, built once (it is
+    cached for path B), and the dense forward and adjoint kernels against
+    their plain versions on it, with the adjoint identity."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops import radon as tradon
+    from mfvi_dip_mia_tpu_torch.ops.kernels import radon_dense as rd
+    from mfvi_dip_mia_tpu_torch.tasks.problems import _CT_THETA
+
+    t0 = time.perf_counter()
+    a = tradon.dense_matrix_bf16(_CT_THETA, SIZE, SIZE, DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"[2] dense bf16 projection matrix {tuple(a.shape)} "
+        f"({a.numel() * 2 / 1e9:.3f} GB) built and cast in {build_s:.1f} s")
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    v = torch.rand((1, a.shape[1]), generator=gen, device=DEVICE)
+    y = torch.randn((1, a.shape[0]), generator=gen, device=DEVICE)
+    tol = TOL[("radon_dense", "bf16")]
+    for kname, got, ref in (
+            ("radon_dense_fwd", rd.radon_dense_fwd(a, v),
+             rd.radon_dense_fwd_plain(a, v)),
+            ("radon_dense_adj", rd.radon_dense_adj(a, y),
+             rd.radon_dense_adj_plain(a, y))):
+        torch.cuda.synchronize()
+        err, r = rel_err(got, ref)
+        if got.shape != ref.shape or r > tol:
+            raise AssertionError(
+                f"{kname}: shape {tuple(got.shape)} vs {tuple(ref.shape)}, "
+                f"max abs err {err:.3e} (rel {r:.3e})")
+        log(f"    {kname:16s} bf16 matrix max abs err {err:.3e} rel "
+            f"{r:.3e} (tolerance {tol:.0e}) ok")
+        results.setdefault(kname, {})["max_abs_err"] = err
+    lhs = float((rd.radon_dense_fwd(a, v) * y).double().sum())
+    rhs = float((v * rd.radon_dense_adj(a, y)).double().sum())
+    if abs(lhs - rhs) > 1e-4 * max(abs(lhs), 1.0):
+        raise AssertionError(f"dense adjoint identity: {lhs} vs {rhs}")
+    results["radon_dense_fwd"]["matrix_build_seconds"] = build_s
+    return a
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
-def check_step_against_cpu(net, task: str) -> dict:
+def check_step_against_cpu(net, task: str, reparam: str = "rt") -> dict:
     """One f32 loss and its parameter gradient through the 256^2 net, on the
     card (the kernels) and on the CPU (their plain versions), from the same
-    sampled weights and input: the slice's model against its reference on
+    weights, noise and input: the slice's model against its reference on
     one input. ct: MSE of the banded Radon sinograms; den: the Gaussian NLL
-    of the noisy x-ray."""
+    of the noisy x-ray. RT: one sampled tree, gradients by sampled leaf;
+    LRT: the mu / rho tree with one fixed eps per site (nn/var_conv.py::
+    lrt_eps held to a table), gradients by mu / rho leaf."""
     import numpy as np
     import torch
+    import mfvi_dip_mia_tpu_torch.nn.var_conv as tvc
     from mfvi_dip_mia_tpu_torch.bayes import vi
     from mfvi_dip_mia_tpu_torch.ops.losses import gaussian_nll, mse_loss
     from mfvi_dip_mia_tpu_torch.ops.radon import FastRadonTransform
@@ -370,8 +563,10 @@ def check_step_against_cpu(net, task: str) -> dict:
 
     gen = torch.Generator().manual_seed(5)
     flat = vi.flatten(vi.to_mfvi(net.init_params(gen), gen))
-    leaves = {k: v.detach().clone() for k, v in
-              vi.sample_mfvi_tree(flat, gen).items()}
+    leaves = ({k: v.detach().clone() for k, v in flat.leaves().items()}
+              if reparam == "lrt" else
+              {k: v.detach().clone() for k, v in
+               vi.sample_mfvi_tree(flat, gen).items()})
     z = torch.from_numpy(get_noise(16, SIZE, rng=np.random.default_rng(5))
                          ).permute(0, 3, 1, 2).contiguous()
     if task == "ct":
@@ -379,43 +574,78 @@ def check_step_against_cpu(net, task: str) -> dict:
     else:
         noisy = torch.from_numpy(add_gaussian_noise(
             synthetic_xray(0, SIZE), 0.1, np.random.default_rng(5)))[None]
+    table = {}
+
+    def fixed_eps(shape, generator, site_id):
+        if site_id not in table:
+            table[site_id] = torch.randn(
+                tuple(shape), generator=torch.Generator().manual_seed(
+                    100 + site_id))
+        return table[site_id].to(generator.device)
+
     got = {}
-    for dev in ("cpu", DEVICE):
-        p = {k: v.detach().clone().to(dev).requires_grad_(True)
-             for k, v in leaves.items()}
-        out = net(p, z.to(dev))
-        if task == "ct":
-            radon = FastRadonTransform(gt.shape, _CT_THETA, mode="banded",
-                                       device=dev)
-            loss = mse_loss(radon(out), radon(gt.to(dev)))
-        else:
-            loss = gaussian_nll(out[:, :1], out[:, 1:], noisy.to(dev))
-        loss.backward()
-        got[dev] = (out.detach().cpu(), loss.detach().cpu(),
-                    {k: v.grad.cpu() for k, v in p.items()
-                     if v.grad is not None})
+    saved_eps, tvc.lrt_eps = tvc.lrt_eps, fixed_eps
+    try:
+        for dev in ("cpu", DEVICE):
+            p = {k: v.detach().clone().to(dev).requires_grad_(True)
+                 for k, v in leaves.items()}
+            out = net(p, z.to(dev), torch.Generator(device=dev),
+                      reparam=reparam)
+            if task == "ct":
+                radon = FastRadonTransform(gt.shape, _CT_THETA,
+                                           mode="banded", device=dev)
+                loss = mse_loss(radon(out), radon(gt.to(dev)))
+            else:
+                loss = gaussian_nll(out[:, :1], out[:, 1:], noisy.to(dev))
+            loss.backward()
+            got[dev] = (out.detach().cpu(), loss.detach().cpu(),
+                        {k: v.grad.cpu() for k, v in p.items()
+                         if v.grad is not None})
+    finally:
+        tvc.lrt_eps = saved_eps
     (o_c, l_c, g_c), (o_d, l_d, g_d) = got["cpu"], got[DEVICE]
     _, r_out = rel_err(o_d, o_c)
     r_loss = abs(float(l_d - l_c)) / abs(float(l_c))
     scale = max(float(g.abs().max()) for g in g_c.values())
     r_grad = max(float((g_d[k] - g).abs().max()) for k, g in g_c.items()
                  ) / scale
-    log(f"[3] one f32 {task} step at {SIZE}^2, card vs CPU plain path: output "
-        f"rel {r_out:.2e}, loss rel {r_loss:.2e}, gradients rel {r_grad:.2e} "
-        f"(tolerances {TOL_STEP['out']:.0e} / {TOL_STEP['loss']:.0e} / "
-        f"{TOL_STEP['grad']:.0e})")
+    label = task if reparam == "rt" else f"{task} {reparam}"
+    log(f"[3] one f32 {label} step at {SIZE}^2, card vs CPU plain path: "
+        f"output rel {r_out:.2e}, loss rel {r_loss:.2e}, gradients rel "
+        f"{r_grad:.2e} (tolerances {TOL_STEP['out']:.0e} / "
+        f"{TOL_STEP['loss']:.0e} / {TOL_STEP['grad']:.0e})")
+    if reparam == "lrt" and len(table) != net.num_conv_sites:
+        raise AssertionError(f"{len(table)} LRT sites drew noise")
     if set(g_d) != set(g_c) or not (
             r_out <= TOL_STEP["out"] and r_loss <= TOL_STEP["loss"]
             and r_grad <= TOL_STEP["grad"]):
-        raise AssertionError(f"the card's {task} step disagrees with the "
+        raise AssertionError(f"the card's {label} step disagrees with the "
                              "CPU's")
     return dict(out_rel=r_out, loss_rel=r_loss, grad_rel=r_grad)
+
+
+# the kernels each path launches; every other kernel must stay at 0 there
+CONV = {"cf_conv_fwd", "cf_conv_dw"}
+BANDED = {"radon_banded_fwd", "radon_banded_adj"}
+FUSED = {"fused_block_fwd", "fused_block_bwd_dc", "fused_block_bwd_dw",
+         "fused_block_bwd_dx"}
+DENSE = {"radon_dense_fwd", "radon_dense_adj"}
+# the path whose launches each kernel's line reports
+PATH_OF = {**{k: "ct" for k in CONV | BANDED}, **{k: "den" for k in FUSED},
+           "lrt_conv_fwd": "lrt_den", **{k: "dense_ct" for k in DENSE}}
+
+
+def hold_launches(path: str, launches: dict, expected: set) -> None:
+    for name, n in launches.items():
+        if (n > 0) != (name in expected):
+            raise AssertionError(
+                f"kernel {name} was launched {n} times on {path} (expected "
+                f"launches of {sorted(expected)} only)")
 
 
 def run_fits(results: dict) -> dict:
     import numpy as np
     from mfvi_dip_mia_tpu_torch.ops import kernels
-    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block
     import mfvi_dip_mia_tpu_torch.tasks.data as D
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
     from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
@@ -424,8 +654,6 @@ def run_fits(results: dict) -> dict:
     P.D.get_img_ct = lambda img: (D.synthetic_ct(img, SIZE), (SIZE, SIZE))
     P.D.get_image_denoising = lambda img: (D.synthetic_xray(img, SIZE),
                                            (SIZE, SIZE))
-    fused = {k.name for k in (fused_block.FWD, fused_block.DC, fused_block.DW,
-                              fused_block.DX)}
     out = {}
 
     problem = P.build_problem("ct", "mfvi", 0, input_depth=16,
@@ -451,11 +679,7 @@ def run_fits(results: dict) -> dict:
     if not (np.isfinite(res.final_psnr)
             and res.final_psnr > res.psnrs[0, 2]):
         raise AssertionError("CT fit did not improve on iteration 0")
-    for name, n in launches.items():
-        if (n > 0) == (name in fused):
-            raise AssertionError(
-                f"kernel {name} was launched {n} times on the bf16 CT main "
-                "path (the fused block is f32 only; every other kernel runs)")
+    hold_launches("the bf16 CT main path", launches, CONV | BANDED)
     out["ct"] = dict(iters_per_sec=res.iters_per_sec,
                      final_psnr=res.final_psnr,
                      psnr_it0=float(res.psnrs[0, 2]),
@@ -463,8 +687,110 @@ def run_fits(results: dict) -> dict:
                      executed=res.executed, launches=launches,
                      launches_per_step={k: n / res.executed
                                         for k, n in launches.items()})
-    out["den"] = run_den(kernels, fused)
+    out["den"] = run_den(kernels)
+    out["lrt_den"] = run_lrt_den(kernels)
+    out["dense_ct"] = run_dense_ct(kernels)
     return out
+
+
+def run_lrt_den(kernels) -> dict:
+    """Path A: the den/MFVI f32 fit through ``fit(..., reparam="lrt")``,
+    every conv site on the LRT kernel, then the runner's 25-sample LRT
+    posterior summary (runners.py::mc_summary)."""
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    import mfvi_dip_mia_tpu_torch.tasks.runners as R
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+
+    problem = P.build_problem("den", "mfvi", 0, input_depth=16,
+                              device=DEVICE)
+    n_sites = problem.net.num_conv_sites
+    kernels.reset_launches()
+    res = fit(problem, Method("mfvi", temp=5.66e-7, sigma=1.46e-5),
+              num_iter=PATH_ITERS_WARM + PATH_ITERS_TIMED - 1, lr=1e-3,
+              seed=1, show_every=PATH_ITERS_WARM, metrics_every=1,
+              compute_dtype="f32", collect_snapshots=False, device=DEVICE,
+              reparam="lrt")
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    per_step = {k: n / res.executed for k, n in launches.items()}
+    log(f"[3] path A, den/mfvi f32 LRT {SIZE}^2 through fit(reparam='lrt'): "
+        f"{res.executed} iterations, {res.iters_per_sec:.2f} it/s over the "
+        f"last {PATH_ITERS_TIMED} (first chunk incl. set-up "
+        f"{res.compile_seconds:.1f} s), final smoothed PSNR "
+        f"{res.final_psnr:.3f} dB (iteration 0: {res.psnrs[0, 2]:.3f})")
+    log(f"    launches per step {per_step}")
+    if not (np.isfinite(res.final_psnr)
+            and res.final_psnr > res.psnrs[0, 2]):
+        raise AssertionError("LRT den fit did not improve on iteration 0")
+    hold_launches("path A's fit", launches, CONV | {"lrt_conv_fwd"})
+    if launches["lrt_conv_fwd"] != n_sites * res.executed:
+        raise AssertionError(f"lrt_conv_fwd launched "
+                             f"{launches['lrt_conv_fwd']} times in "
+                             f"{res.executed} steps of {n_sites} sites")
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc = R.mc_summary(problem, res.params, res.net_input, seed=1 + 77,
+                      n_samples=MC_SAMPLES, reparam="lrt")
+    torch.cuda.synchronize()
+    mc_rate = MC_SAMPLES / (time.perf_counter() - t0)
+    mc_launches = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"[3] path A's posterior summary: {MC_SAMPLES} LRT samples, MC mean "
+        f"PSNR {mc['mc_mean_psnr']:.3f} dB, {mc_rate:.1f} samples/s; "
+        f"launches {mc_launches}")
+    hold_launches("path A's posterior summary", mc_launches,
+                  {"lrt_conv_fwd"})
+    if (mc_launches["lrt_conv_fwd"] != n_sites * MC_SAMPLES
+            or not np.isfinite(mc["mc_mean_psnr"])
+            or not np.isfinite(mc["mc_epi"]).all()):
+        raise AssertionError("path A's posterior summary failed")
+    return dict(iters_per_sec=res.iters_per_sec, final_psnr=res.final_psnr,
+                psnr_it0=float(res.psnrs[0, 2]),
+                mc_mean_psnr=mc["mc_mean_psnr"], mc_samples_per_sec=mc_rate,
+                executed=res.executed, launches=launches,
+                launches_per_step=per_step, mc_launches=mc_launches)
+
+
+def run_dense_ct(kernels) -> dict:
+    """Path B: the CT configuration through ``fit`` with the dense
+    bf16-matrix Radon operator (radon_mode='dense-bf16'); its target
+    sinogram is made by the same operator."""
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+
+    t0 = time.perf_counter()
+    problem = P.build_problem("ct", "mfvi", 0, input_depth=16, device=DEVICE,
+                              radon_mode="dense-bf16")
+    build_s = time.perf_counter() - t0
+    if problem.operator.mode != "dense-bf16":
+        raise AssertionError(f"CT operator mode {problem.operator.mode}")
+    kernels.reset_launches()
+    res = fit(problem, Method("mfvi", temp=2.2e-10, sigma=1.7e-7),
+              num_iter=PATH_ITERS_WARM + PATH_ITERS_TIMED - 1, lr=1e-3,
+              seed=1, show_every=PATH_ITERS_WARM, metrics_every=10,
+              compute_dtype="bf16", collect_snapshots=False, device=DEVICE)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    per_step = {k: n / res.executed for k, n in launches.items()}
+    log(f"[3] path B, ct/mfvi bf16 {SIZE}^2 with the dense bf16 matrix: "
+        f"problem built in {build_s:.1f} s (matrix cached), "
+        f"{res.executed} iterations, {res.iters_per_sec:.2f} it/s over the "
+        f"last {PATH_ITERS_TIMED}, final smoothed PSNR {res.final_psnr:.3f} "
+        f"dB (iteration 0: {res.psnrs[0, 2]:.3f})")
+    log(f"    launches per step {per_step}")
+    if not (np.isfinite(res.final_psnr)
+            and res.final_psnr > res.psnrs[0, 2]):
+        raise AssertionError("dense CT fit did not improve on iteration 0")
+    hold_launches("path B", launches, CONV | DENSE)
+    if any(launches[k] != res.executed for k in DENSE):
+        raise AssertionError("the dense Radon kernels did not run once each "
+                             "per step")
+    return dict(iters_per_sec=res.iters_per_sec, final_psnr=res.final_psnr,
+                psnr_it0=float(res.psnrs[0, 2]), executed=res.executed,
+                problem_seconds=build_s, launches=launches,
+                launches_per_step=per_step)
 
 
 DEN_KEYS = {"mse_gt", "recons", "uncerts", "uncerts_ale", "psnrs", "ssims",
@@ -472,7 +798,7 @@ DEN_KEYS = {"mse_gt", "recons", "uncerts", "uncerts_ale", "psnrs", "ssims",
             "mc_mean_psnr", "mc_mean_ssim", "mc_ale", "mc_epi"}
 
 
-def run_den(kernels, fused: set) -> dict:
+def run_den(kernels) -> dict:
     """The den/MFVI f32 fit through the user's entry point, run_den_mfvi,
     with its MC summary and save.npz; then the MC posterior sampling rate."""
     import glob
@@ -530,10 +856,7 @@ def run_den(kernels, fused: set) -> dict:
     if not (np.isfinite(final) and np.isfinite(mc_psnr)
             and final > res.psnrs[0, 2]):
         raise AssertionError("den fit did not improve on iteration 0")
-    for name, n in launches.items():
-        if n <= 0 and (name in fused or name.startswith("cf_conv")):
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "den main path")
+    hold_launches("the den main path", launches, CONV | FUSED)
 
     # MC posterior samples per second of mc_predict at SIZE^2 (bench.py
     # --metric mc's counterpart): the final parameters, 100 whole-tree draws
@@ -560,14 +883,18 @@ def run_den(kernels, fused: set) -> dict:
                 launches_per_step=per_step)
 
 
-# the port's kernels by their CUDA function names (csrc/*.cu)
+# the port's kernels by their CUDA function names (csrc/*.cu), each matched
+# at the start of an identifier (conv_fwd_kernel is not lrt_conv_fwd_kernel)
 KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_kernel", "cf_conv_dw": "conv_dw_",
                 "radon_banded_fwd": "radon_fwd_",
                 "radon_banded_adj": "radon_adj_",
                 "fused_block_fwd": "fused_fwd_kernel",
                 "fused_block_bwd_dc": "fused_bwd_dc_kernel",
                 "fused_block_bwd_dw": "fused_bwd_dw_kernel",
-                "fused_block_bwd_dx": "fused_bwd_dx_kernel"}
+                "fused_block_bwd_dx": "fused_bwd_dx_kernel",
+                "lrt_conv_fwd": "lrt_conv_fwd_kernel",
+                "radon_dense_fwd": "radon_dense_fwd_kernel",
+                "radon_dense_adj": "radon_dense_adj_"}
 
 
 def profile_fit(label: str, problem, method, kw: dict, steps: int,
@@ -604,7 +931,8 @@ def profile_fit(label: str, problem, method, kw: dict, steps: int,
     for key, us, n in rows[:12]:
         log(f"    {us / 1e3 / steps:9.4f} ms/step  x{n / steps:6.1f}  "
             f"{key[:90]}")
-    ours = {name: sum(us for key, us, _ in rows if tag in key) / 1e3 / steps
+    ours = {name: sum(us for key, us, _ in rows
+                      if re.search(r"(?<!\w)" + tag, key)) / 1e3 / steps
             for name, tag in KERNEL_FUNCS.items()}
     log("    the port's kernels, device ms/step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in ours.items() if v > 0))
@@ -657,6 +985,30 @@ def profile_den(steps: int) -> dict:
     return out
 
 
+def profile_paths(steps: int, fits: dict) -> dict:
+    """Path A (LRT den) and path B (dense CT) profiled, each beside its own
+    unprofiled it/s from phase 3."""
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method
+
+    den = P.build_problem("den", "mfvi", 0, input_depth=16)
+    ct = P.build_problem("ct", "mfvi", 0, input_depth=16,
+                         radon_mode="dense-bf16")
+    return {
+        "lrt_den": profile_fit(
+            "LRT den (path A)", den, Method("mfvi", temp=5.66e-7,
+                                            sigma=1.46e-5),
+            dict(lr=1e-3, seed=1, metrics_every=1, compute_dtype="f32",
+                 collect_snapshots=False, reparam="lrt"), steps,
+            1e3 / fits["lrt_den"]["iters_per_sec"]),
+        "dense_ct": profile_fit(
+            "dense CT (path B)", ct, Method("mfvi", temp=2.2e-10,
+                                            sigma=1.7e-7),
+            dict(lr=1e-3, seed=1, metrics_every=10, compute_dtype="bf16",
+                 collect_snapshots=False), steps,
+            1e3 / fits["dense_ct"]["iters_per_sec"])}
+
+
 # -- phase 4: times beside bounds ---------------------------------------------
 
 def time_conv_kernels(sites, results: dict) -> None:
@@ -677,14 +1029,12 @@ def time_conv_kernels(sites, results: dict) -> None:
     for s in sites:
         xp, w, g = conv_operands(s, dt, gen)
         o_ch, i_ch, kh, kw = w.shape
-        h, wd = g.shape[1], g.shape[2]
         calls = [("fwd", xp, w)]
         if s["needs_dx"]:
             calls.append(("dx",) + tcf._dx_operands(g, w))
         row = dict(site=s["name"], xp=list(s["xp"]), w=list(s["w"]))
         for tag, a, b in calls:
-            flops = 2.0 * b.shape[0] * b.shape[1] * kh * kw * (
-                a.shape[1] - kh + 1) * (a.shape[2] - kw + 1)
+            flops = s["flops"]        # dx of a conv: the same products
             nbytes = (a.numel() + b.numel() + b.shape[0] * (
                 a.shape[1] - kh + 1) * (a.shape[2] - kw + 1)) * item
             b_ms, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -700,7 +1050,7 @@ def time_conv_kernels(sites, results: dict) -> None:
             fwd["flops"] += flops
             row[tag] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                             bound_ms=b_ms, gflop=flops / 1e9)
-        flops = 2.0 * o_ch * i_ch * kh * kw * h * wd
+        flops = s["flops"]
         nbytes = (xp.numel() + g.numel()) * item + o_ch * i_ch * kh * kw * 4
         b_ms, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
         t_k = time_ms(lambda: tcf.conv_dw(xp, g, kh, kw))
@@ -814,19 +1164,15 @@ def time_fused_kernels(sites, results: dict) -> None:
     results["_fused_sites"] = per_site
 
 
-def time_radon_kernels(states, results: dict) -> None:
+def time_radon_kernels(states, dense_bf16, results: dict) -> None:
+    """The band kernels beside the dense f32 ``torch.mv``: the dense bf16
+    matrix promoted to f32 (3.02 GB), the bf16 band's own operator."""
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import radon_banded as rb
-    from mfvi_dip_mia_tpu_torch.ops.radon import _build_projection_matrix
     from mfvi_dip_mia_tpu_torch.tasks.problems import _CT_THETA
 
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    t0 = time.perf_counter()
-    dense = torch.from_numpy(_build_projection_matrix(
-        _CT_THETA, SIZE, SIZE)).to(DEVICE)            # (T*W, H*W) f32
-    log(f"[4] dense projection matrix {tuple(dense.shape)} "
-        f"({dense.numel() * 4 / 1e9:.2f} GB) built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    dense = dense_bf16.float()                        # (T*W, H*W) f32
     img = torch.rand((1, 1, SIZE, SIZE), generator=gen, device=DEVICE)
     for dname, st in states.items():
         v = rb.patchify(img, st.patch).contiguous()
@@ -862,13 +1208,95 @@ def time_radon_kernels(states, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def time_lrt_kernel(sites, results: dict) -> None:
+    """Per LRT den step (path A, f32): each of the 26 sites' forward, one
+    ``lrt_conv_fwd`` launch each, beside its bound (both contractions and
+    the squares of the site's own conv; the bytes of the kernel's operands,
+    parity planes included), its plain version and two
+    cuDNN ``F.conv2d`` calls (on xp and on a precomputed xp^2)."""
+    import torch
+    import torch.nn.functional as F
+    from mfvi_dip_mia_tpu_torch.ops.kernels import lrt_conv as tlrt
+
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_ops=0.0,
+               t_bytes=0.0, calls=0, flops=0.0, nbytes=0.0)
+    per_site = []
+    for s in sites:
+        xp, w_mu, w_var, g = lrt_operands(s, torch.float32, gen)
+        xp2 = xp * xp
+        flops = 2 * s["flops"] + s["x_elems"]
+        nbytes = (xp.numel() + 2 * w_mu.numel() + 2 * g.numel()) * 4
+        b_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
+        t = dict(ms=time_ms(lambda: tlrt.double_conv_fwd(xp, w_mu, w_var)),
+                 plain_ms=time_ms(
+                     lambda: tlrt.fused_double_conv(xp, w_mu, w_var)),
+                 library_ms=time_ms(lambda: (F.conv2d(xp[None], w_mu),
+                                             F.conv2d(xp2[None], w_var))),
+                 bound_ms=b_ms)
+        for key, val in t.items():
+            agg[key] += val
+        agg["t_ops"] += flops / PEAK_F32_FLOPS * 1e3
+        agg["t_bytes"] += nbytes / PEAK_BYTES_PER_S * 1e3
+        agg["calls"] += 1
+        agg["flops"] += flops
+        agg["nbytes"] += nbytes
+        per_site.append(dict(site=s["name"], xp=list(s["xp"]),
+                             w=list(s["w"]), **t))
+    r = results.setdefault("lrt_conv_fwd", {})
+    r.update(ms=agg["ms"], plain_ms=agg["plain_ms"],
+             library_ms=agg["library_ms"], bound_ms=agg["bound_ms"],
+             bound_by=("operations" if agg["t_ops"] > agg["t_bytes"]
+                       else "bytes"),
+             calls_timed_per_step=agg["calls"],
+             gflop_per_step=agg["flops"] / 1e9,
+             mb_per_step=agg["nbytes"] / 1e6, sites=per_site)
+    log(f"[4] lrt_conv_fwd: {agg['calls']} launches per LRT den step, "
+        f"{agg['flops'] / 1e9:.3f} GFLOP, {agg['nbytes'] / 1e6:.1f} MB: "
+        f"kernel {agg['ms']:.3f} ms, plain {agg['plain_ms']:.3f} ms, two "
+        f"cuDNN convs {agg['library_ms']:.3f} ms, bound "
+        f"{agg['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def time_dense_radon(a, results: dict) -> None:
+    """One call of each dense kernel at 256^2 / 45 angles beside its bound
+    (A's bytes read once), its plain version and cuBLAS ``torch.mv`` on the
+    same bf16 matrix (which rounds the vector and the result to bf16)."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import radon_dense as rd
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    p, q = a.shape
+    v = torch.rand((1, q), generator=gen, device=DEVICE)
+    y = torch.randn((1, p), generator=gen, device=DEVICE)
+    v16, y16 = v[0].to(torch.bfloat16), y[0].to(torch.bfloat16)
+    flops = 2.0 * p * q
+    nbytes = a.numel() * 2 + (p + q) * 4
+    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    for kname, fk, fp, fl in (
+            ("radon_dense_fwd", lambda: rd.radon_dense_fwd(a, v),
+             lambda: rd.radon_dense_fwd_plain(a, v),
+             lambda: torch.mv(a, v16)),
+            ("radon_dense_adj", lambda: rd.radon_dense_adj(a, y),
+             lambda: rd.radon_dense_adj_plain(a, y),
+             lambda: torch.mv(a.T, y16))):
+        t_k, t_p, t_l = time_ms(fk), time_ms(fp, reps=5), time_ms(fl)
+        log(f"[4] {kname} ({nbytes / 1e9:.3f} GB): kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, cuBLAS bf16 mv {t_l:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {a.numel() * 2 / (t_k * 1e-3) / 1e9:.0f}"
+            f" GB/s of matrix")
+        results.setdefault(kname, {}).update(
+            ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+            bound_by=b_by, gb=nbytes / 1e9)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--profile-steps", type=int, default=0,
-                    help="profile this many CT and den steps with "
-                    "torch.profiler (den with and without the fused block)")
+                    help="profile this many steps of each path with "
+                    "torch.profiler (den also without the fused block)")
     args = ap.parse_args(argv)
 
     import torch
@@ -898,6 +1326,7 @@ def main(argv=None) -> int:
         f"{kind}")
     build.library()
     log(f"[1] kernels built and loaded in {build.BUILD_SECONDS:.1f} s")
+    ptxas = ptxas_report()
 
     results: dict = {}
     # the 256^2 nets of the two main paths: ct (1 output channel) and den
@@ -910,46 +1339,60 @@ def main(argv=None) -> int:
             for n_out in (1, 2)}
     sites = conv_sites(nets[1], SIZE)
     f_sites = fused_sites(nets[2], SIZE)
+    # every LRT site of the den net, as the kernel sees it (stride-2 sites
+    # on parity planes): the conv sites' geometry
+    l_sites = conv_sites(nets[2], SIZE)
     check_conv_kernels(sites, results)
     states = check_radon_kernels(results)
     check_fused_kernels(f_sites, results)
+    check_lrt_kernel(l_sites, results)
+    dense = check_dense_radon(results)
 
-    steps = {task: check_step_against_cpu(nets[n_out], task)
-             for task, n_out in (("ct", 1), ("den", 2))}
+    steps = {label: check_step_against_cpu(nets[n_out], task, reparam)
+             for label, task, n_out, reparam in (
+                 ("ct", "ct", 1, "rt"), ("den", "den", 2, "rt"),
+                 ("lrt_den", "den", 2, "lrt"))}
     fits = run_fits(results)
     fits["step_vs_cpu"] = steps
 
     time_conv_kernels(sites, results)
-    time_radon_kernels(states, results)
+    time_radon_kernels(states, dense, results)
     del states
     time_fused_kernels(f_sites, results)
+    time_lrt_kernel(l_sites, results)
+    time_dense_radon(dense, results)
+    del dense
     if args.profile_steps:
         fits["profile"] = profile_ct(args.profile_steps,
                                      1e3 / fits["ct"]["iters_per_sec"])
         fits["profile_den"] = profile_den(args.profile_steps)
+        fits["profile_paths"] = profile_paths(args.profile_steps, fits)
 
     line = []
     for k in kernels.KERNELS:
         r = results[k.name]
-        # each kernel's launches on the main path it belongs to: the bf16 CT
-        # fit for the conv and Radon kernels, the den run (fit + MC summary)
-        # for the fused block's
-        path = "den" if k.name.startswith("fused_block") else "ct"
+        # each kernel's launches on the path it belongs to: the bf16 CT fit
+        # for the conv and banded Radon kernels, the den run (fit + MC
+        # summary) for the fused block's, path A's fit for the LRT kernel,
+        # path B's fit for the dense Radon kernels
+        path = PATH_OF[k.name]
+        err = r.get("max_abs_err",
+                    r.get("max_abs_err_bf16", r.get("max_abs_err_f32")))
         line.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=fits[path]["launches"][k.name], path=path,
             launches_per_step=fits[path]["launches_per_step"][k.name],
-            launches_ct=fits["ct"]["launches"][k.name],
-            launches_den=fits["den"]["launches"][k.name],
-            max_abs_err=r.get("max_abs_err_bf16", r["max_abs_err_f32"]),
-            max_abs_err_f32=r["max_abs_err_f32"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            launches_by_path={p: fits[p]["launches"][k.name]
+                              for p in ("ct", "den", "lrt_den", "dense_ct")},
+            max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, torch=torch.__version__,
                            cuda=torch.version.cuda,
-                           build_seconds=build.BUILD_SECONDS, kernels=line,
+                           build_seconds=build.BUILD_SECONDS, ptxas=ptxas,
+                           kernels=line,
                            details=results, fits=fits,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1, default=float)

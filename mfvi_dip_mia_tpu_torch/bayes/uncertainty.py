@@ -8,19 +8,30 @@ from __future__ import annotations
 
 import torch
 
+from ..nn.var_conv import REPARAMS
 from . import vi
 
 
 def mc_predict(apply_fn, params: vi.FlatParams, x: torch.Tensor,
-               generator: torch.Generator, n_samples: int) -> torch.Tensor:
-    """``n_samples`` stochastic forwards, each on one whole-tree RT draw
-    (vi.sample_mfvi_tree, as uncertainty.py:41-50 draws them), in a loop under
-    no_grad. ``apply_fn(leaves, x)`` -> (N, C, H, W). Returns (S, N, C, H, W).
-    JAX maps the samples through one compiled graph; eager PyTorch runs them
-    one after another."""
+               generator: torch.Generator, n_samples: int,
+               reparam: str = "rt") -> torch.Tensor:
+    """``n_samples`` stochastic forwards in a loop under no_grad, as
+    uncertainty.py:41-50 draws them: under ``reparam='rt'`` each on one
+    whole-tree RT draw (vi.sample_mfvi_tree), ``apply_fn(leaves, x)``; under
+    'lrt' each on the unsampled mu / rho tree with fresh activation noise,
+    ``apply_fn(leaves, x, generator, reparam='lrt')``. apply_fn returns
+    (N, C, H, W); the result is (S, N, C, H, W). JAX maps the samples
+    through one compiled graph; eager PyTorch runs them one after another."""
+    if reparam not in REPARAMS:
+        raise ValueError(f"unknown reparam {reparam!r}")
+
+    def one():
+        if reparam == "lrt":
+            return apply_fn(params.leaves(), x, generator, reparam="lrt")
+        return apply_fn(vi.sample_mfvi_tree(params, generator), x)
+
     with torch.no_grad():
-        return torch.stack([apply_fn(vi.sample_mfvi_tree(params, generator), x)
-                            for _ in range(n_samples)])
+        return torch.stack([one() for _ in range(n_samples)])
 
 
 def uncert_regression_gal(outputs: torch.Tensor, mean_channels: int = 1):

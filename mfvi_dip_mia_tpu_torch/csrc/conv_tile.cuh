@@ -52,6 +52,51 @@ struct Lane {
   }
 };
 
+// The shared-memory operands of one pass over kIC input channels from i0:
+// slab[ic][sy][sx] = src[i0 + ic][y0 + sy - pad][x0 + sx - pad] (zero outside
+// x (I, Hs, Ws); pad = K - 1 with FULL, else 0) and wsm[ic][tap][oo] = wt of
+// output channel o0 + oo (zero outside), wt as ``accumulate`` defines it.
+template <typename T, int K, int OG, bool FULL>
+__device__ __forceinline__ void load_slab(
+    const T* __restrict__ x, int I, int Hs, int Ws, int i0, int x0, int y0,
+    float (&slab)[kIC][Geom<OG>::TH + K - 1][kTW + K - 1]) {
+  constexpr int SH = Geom<OG>::TH + K - 1;
+  constexpr int SW = kTW + K - 1;
+  constexpr int pad = FULL ? K - 1 : 0;
+  for (int idx = threadIdx.x; idx < kIC * SH * SW; idx += kThreads) {
+    const int ic = idx / (SH * SW);
+    const int rem = idx - ic * (SH * SW);
+    const int sy = rem / SW;
+    const int sx = rem - sy * SW;
+    const int gi = i0 + ic, gy = y0 + sy - pad, gx = x0 + sx - pad;
+    float v = 0.f;
+    if (gi < I && gy < Hs && gx < Ws && (!FULL || (gy >= 0 && gx >= 0)))
+      v = to_f<T>(x[((size_t)gi * Hs + gy) * Ws + gx]);
+    slab[ic][sy][sx] = v;
+  }
+}
+
+template <typename T, int K, int OG, bool FULL>
+__device__ __forceinline__ void load_weights(
+    const T* __restrict__ w, int I, int O, int i0, int o0,
+    float (&wsm)[kIC][K * K][Geom<OG>::OT]) {
+  constexpr int OT = Geom<OG>::OT;
+  constexpr int KK = K * K;
+  // consecutive idx walk taps, then channels
+  for (int idx = threadIdx.x; idx < OT * kIC * KK; idx += kThreads) {
+    const int oo = idx / (kIC * KK);
+    const int rem = idx - oo * (kIC * KK);
+    const int ic = rem / KK;
+    const int tap = rem - ic * KK;
+    const int oc = o0 + oo, gi = i0 + ic;
+    float v = 0.f;
+    if (oc < O && gi < I)
+      v = FULL ? to_f<T>(w[((size_t)gi * O + oc) * KK + (KK - 1 - tap)])
+               : to_f<T>(w[((size_t)oc * I + gi) * KK + tap]);
+    wsm[ic][tap][oo] = v;
+  }
+}
+
 // acc[o][p] = sum_{i, ky, kx} wt[oc][i][ky][kx] * src[i][y + ky - pad][x + kx - pad]
 // for oc = o0 + og * kOPT + o, y = y0 + ty, x = x0 + tx * kPX + p, where src
 // is x (I, Hs, Ws), zero outside it, and wt is w (O, I, K, K) as it is. With
@@ -70,12 +115,10 @@ __device__ __forceinline__ void accumulate(const T* __restrict__ x,
   constexpr int SW = kTW + K - 1;
   constexpr int OT = Geom<OG>::OT;
   constexpr int KK = K * K;
-  constexpr int pad = FULL ? K - 1 : 0;
   __shared__ __align__(16) float slab[kIC][SH][SW];
   __shared__ __align__(16) float wsm[kIC][KK][OT];
 
   const Lane<OG> ln;
-  const int tid = threadIdx.x;
 #pragma unroll
   for (int o = 0; o < kOPT; ++o)
 #pragma unroll
@@ -83,30 +126,8 @@ __device__ __forceinline__ void accumulate(const T* __restrict__ x,
 
   for (int i0 = 0; i0 < I; i0 += kIC) {
     __syncthreads();
-    for (int idx = tid; idx < kIC * SH * SW; idx += kThreads) {
-      const int ic = idx / (SH * SW);
-      const int rem = idx - ic * (SH * SW);
-      const int sy = rem / SW;
-      const int sx = rem - sy * SW;
-      const int gi = i0 + ic, gy = y0 + sy - pad, gx = x0 + sx - pad;
-      float v = 0.f;
-      if (gi < I && gy < Hs && gx < Ws && (!FULL || (gy >= 0 && gx >= 0)))
-        v = to_f<T>(x[((size_t)gi * Hs + gy) * Ws + gx]);
-      slab[ic][sy][sx] = v;
-    }
-    // consecutive idx walk taps, then channels
-    for (int idx = tid; idx < OT * kIC * KK; idx += kThreads) {
-      const int oo = idx / (kIC * KK);
-      const int rem = idx - oo * (kIC * KK);
-      const int ic = rem / KK;
-      const int tap = rem - ic * KK;
-      const int oc = o0 + oo, gi = i0 + ic;
-      float v = 0.f;
-      if (oc < O && gi < I)
-        v = FULL ? to_f<T>(w[((size_t)gi * O + oc) * KK + (KK - 1 - tap)])
-                 : to_f<T>(w[((size_t)oc * I + gi) * KK + tap]);
-      wsm[ic][tap][oo] = v;
-    }
+    load_slab<T, K, OG, FULL>(x, I, Hs, Ws, i0, x0, y0, slab);
+    load_weights<T, K, OG, FULL>(w, I, O, i0, o0, wsm);
     __syncthreads();
     for (int ic = 0; ic < kIC; ++ic) {
 #pragma unroll

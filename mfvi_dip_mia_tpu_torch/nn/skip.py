@@ -25,6 +25,11 @@ its channels-first sites (skip.py:325-343); JAX's further W % 128 / H % 8 /
 VMEM gate was about the TPU, so at 256^2 the port fuses 20 sites where JAX
 fuses 5. The stride-2 down1 sites, the bn_cat BatchNorms and every bf16 site
 keep the conv kernel + shifted one-pass BN + LeakyReLU chain.
+
+``reparam='lrt'`` (local reparameterization) samples every variational conv
+site in activation space on the LRT double-conv kernel (nn/var_conv.py): no
+site elides its bias and none fuses, since the activation noise sits between
+the conv and the BN (skip.py:318-333). The output conv is an LRT site too.
 """
 
 from __future__ import annotations
@@ -173,19 +178,22 @@ class SkipNet(nn.Module):
                 if f"{prefix}.{k}" in params}
 
     def _conv_site(self, s: ConvSite, params, prefix, x, generator, training,
-                   skip_bias=False):
+                   reparam, skip_bias=False):
         return apply_conv_leaf(self._leaf(params, f"{prefix}.conv"), x,
                                stride=s.stride, padding=(s.kernel - 1) // 2,
                                pad_mode=s.pad_mode, generator=generator,
-                               training=training, skip_bias=skip_bias)
+                               training=training, skip_bias=skip_bias,
+                               reparam=reparam, site_id=s.site_id)
 
     def _conv_bn_act(self, s: ConvSite, params, prefix, x, generator,
-                     training):
+                     training, reparam):
         # the conv bias is a per-channel constant that the train-mode BN's
-        # mean subtraction removes exactly: skip it (skip.py::_conv_bn_act)
+        # mean subtraction removes exactly: skip it (skip.py::_conv_bn_act),
+        # unless LRT noise sits between the conv and the BN
+        lrt = reparam == "lrt"
         scale = params[f"{prefix}.bn.scale"]
         offset = params[f"{prefix}.bn.offset"]
-        if s.stride == 1 and fused_block.supported(x, s.kernel):
+        if s.stride == 1 and not lrt and fused_block.supported(x, s.kernel):
             # the whole chain as one fused block (skip.py:328-343), with the
             # kernel the unfused site would draw, so the RT stream is the same
             w = sample_rt_kernel(self._leaf(params, f"{prefix}.conv"),
@@ -193,41 +201,43 @@ class SkipNet(nn.Module):
             return fused_block.apply_fused(x, w, scale, offset,
                                            pad_mode=s.pad_mode)
         x = self._conv_site(s, params, prefix, x, generator, training,
-                            skip_bias=True)
+                            reparam, skip_bias=not lrt)
         return layers.leaky_relu(layers.batch_norm_train(x, scale, offset))
 
-    def _apply_level(self, params, i, x, generator, training):
+    def _apply_level(self, params, i, x, generator, training, reparam):
         cfg = self.levels[i]
         p = f"levels.{i}"
         h = self._conv_bn_act(cfg.down1, params, f"{p}.down1", x, generator,
-                              training)
+                              training, reparam)
         h = self._conv_bn_act(cfg.down2, params, f"{p}.down2", h, generator,
-                              training)
+                              training, reparam)
         if i < self.n_scales - 1:
-            h = self._apply_level(params, i + 1, h, generator, training)
+            h = self._apply_level(params, i + 1, h, generator, training,
+                                  reparam)
         h = layers.upsample2x(h, cfg.upsample_mode)
         if cfg.skip_conv is not None:
             s = self._conv_bn_act(cfg.skip_conv, params, f"{p}.skip", x,
-                                  generator, training)
+                                  generator, training, reparam)
             z = layers.concat_center_crop([s, h])
         else:
             z = h
         z = layers.batch_norm_train(z, params[f"{p}.bn_cat.scale"],
                                     params[f"{p}.bn_cat.offset"])
         z = self._conv_bn_act(cfg.up, params, f"{p}.up", z, generator,
-                              training)
+                              training, reparam)
         if cfg.up1x1 is not None:
             z = self._conv_bn_act(cfg.up1x1, params, f"{p}.up1x1", z,
-                                  generator, training)
+                                  generator, training, reparam)
         return z
 
     def forward(self, params: dict, x: torch.Tensor, generator=None,
-                training: bool = True) -> torch.Tensor:
-        """x: (1, C, H, W). ``generator`` drives the RT weight draws of a
-        variational tree; a deterministic (or pre-sampled) tree needs none."""
-        z = self._apply_level(params, 0, x, generator, training)
+                training: bool = True, reparam: str = "rt") -> torch.Tensor:
+        """x: (1, C, H, W). ``generator`` drives the RT weight draws (or,
+        with ``reparam='lrt'``, the activation noise) of a variational tree;
+        a deterministic (or pre-sampled) tree needs none."""
+        z = self._apply_level(params, 0, x, generator, training, reparam)
         z = self._conv_site(self.out_conv, params, "out", z, generator,
-                            training)
+                            training, reparam)
         return torch.sigmoid(z) if self.need_sigmoid else z
 
 

@@ -48,6 +48,9 @@ _SIGNATURES = {
     "fused_block_bwd_dc": [_P] * 9 + [_I] * 2 + [_F] * 3 + [_P],
     "fused_block_bwd_dw": [_P] * 4 + [_I] * 7 + [_P],
     "fused_block_bwd_dx": [_P] * 3 + [_I] * 5 + [_P],
+    "lrt_conv_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    "radon_dense_fwd": [_P] * 3 + [_I] * 3 + [_P],
+    "radon_dense_adj": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 

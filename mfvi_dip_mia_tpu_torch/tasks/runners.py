@@ -60,9 +60,10 @@ def _npz_payload(task, problem, res, method_name):
 
 
 def mc_summary(problem, params: dict, net_input: np.ndarray, seed: int,
-               n_samples: int = MC_SAMPLES) -> dict:
-    """The posterior-predictive summary of a fit: ``n_samples`` RT draws of
-    the final parameters from a generator seeded ``seed`` (the runner passes
+               n_samples: int = MC_SAMPLES, reparam: str = "rt") -> dict:
+    """The posterior-predictive summary of a fit: ``n_samples`` stochastic
+    forwards of the final parameters (RT draws, or LRT activation noise with
+    ``reparam='lrt'``) from a generator seeded ``seed`` (the runner passes
     seed + 77, as JAX's PRNGKey(seed + 77)), transformed and decomposed.
     Returns the mean reconstruction clipped to [0, 1] and its PSNR / SSIM,
     and the aleatoric / epistemic maps, each (C, H, W)."""
@@ -71,7 +72,7 @@ def mc_summary(problem, params: dict, net_input: np.ndarray, seed: int,
                       device=dev)
     x = torch.from_numpy(net_input).permute(0, 3, 1, 2).contiguous().to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    outs = mc_predict(problem.net, flat, x, gen, n_samples)
+    outs = mc_predict(problem.net, flat, x, gen, n_samples, reparam=reparam)
     outs = problem.transform(outs[:, 0])[:, None]
     mean, ale, epi = uncert_regression_gal(outs, problem.mean_ch)
     mean_c = torch.clamp(mean, 0, 1)

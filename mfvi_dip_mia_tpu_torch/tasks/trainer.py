@@ -4,14 +4,17 @@ MFVI method, as a plain Python loop on the device.
 Semantics kept from the JAX step (each with its reference line there):
   * ``num_iter + 1`` total iterations
   * input jitter: z + 0.1 * N(0, 1), fresh every iteration
-  * one whole-tree RT draw per step (bayes/vi.py::sample_mfvi_tree)
+  * one whole-tree RT draw per step (bayes/vi.py::sample_mfvi_tree); under
+    ``reparam='lrt'`` none: the net samples each site in activation space
+    from the fit's generator (trainer.py:198, :251-254)
   * prior sigma = sqrt(temp) * sigma; the KL value under no_grad, its
     gradient fused into the flat AdamW (optim/fused_adamw.py)
   * NaN guard: a non-finite loss skips the parameter AND optimizer update
   * EMA out_avg = 0.99 * out_avg + 0.01 * out_t, seeded with the first iterate
   * a 25-slot flat MC ring (unbiased variance at snapshots), PSNR/SSIM
     triples every ``metrics_every``, snapshots every ``show_every``
-  * ``compute_dtype`` f32/bf16: the sampled weights and the input are cast
+  * ``compute_dtype`` f32/bf16: the sampled weights (under LRT the mu / rho
+    leaves, before any softplus, as cast_tree does) and the input are cast
     once; the master parameters, the KL and the loss stay f32
 
 The host stays out of the loop: metric rows are written to a device buffer
@@ -116,14 +119,16 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         metrics_every: int = 1, compute_dtype="f32",
         collect_snapshots: bool = True,
         rng: np.random.Generator | None = None,
-        log_fn: Optional[Callable] = None) -> FitResult:
+        log_fn: Optional[Callable] = None,
+        reparam: str = "rt") -> FitResult:
     """Run one MFVI DIP fit on ``device`` (default: the card). Returns the
     per-iteration metric traces, the snapshot stacks and the final smoothed
     PSNR as ``final_psnr``. ``snapshot_fn(i, recon, epi, ale)`` fires at
     every snapshot, ``log_fn(i, metrics_row)`` at every ``show_every``
     boundary. ``rng`` draws the net input (default ``default_rng(seed)``);
     a runner passes the stream that drew the problem's noise
-    (trainer.py:502-513)."""
+    (trainer.py:502-513). ``reparam`` is 'rt' (weight-space draws) or 'lrt'
+    (local reparameterization, on the LRT double-conv kernel)."""
     if method.name != "mfvi":
         raise NotImplementedError(
             f"method {method.name!r} is not ported yet (ROADMAP Queue 1 "
@@ -170,13 +175,16 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
             x = z + REG_NOISE_STD * torch.randn(z.shape, generator=gen,
                                                 device=dev)
         p = flat.detach().requires_grad_(True)
-        leaves = vi.sample_mfvi_tree(
-            params.with_flat(p), gen,
-            out_dtype=None if dtype == torch.float32 else dtype)
+        if reparam == "lrt":
+            leaves = params.with_flat(p).leaves()
+        else:
+            leaves = vi.sample_mfvi_tree(
+                params.with_flat(p), gen,
+                out_dtype=None if dtype == torch.float32 else dtype)
         if dtype != torch.float32:
             leaves = {k: t.to(dtype) for k, t in leaves.items()}
             x = x.to(dtype)
-        out = problem.net(leaves, x).float()
+        out = problem.net(leaves, x, gen, reparam=reparam).float()
         loss = problem.data_loss(out)
         loss.backward()
         with torch.no_grad():

@@ -18,7 +18,9 @@ from mfvi_dip_mia_tpu_torch.ops import kernels
 from mfvi_dip_mia_tpu_torch.ops.kernels import build
 from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
 from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
+from mfvi_dip_mia_tpu_torch.ops.kernels import lrt_conv as tlrt
 from mfvi_dip_mia_tpu_torch.ops.kernels import radon_banded as rb
+from mfvi_dip_mia_tpu_torch.ops.kernels import radon_dense as rd
 import mfvi_dip_mia_tpu_torch.tasks.problems as TP
 import mfvi_dip_mia_tpu_torch.tasks.trainer as TT
 
@@ -62,7 +64,8 @@ def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert len(mods) >= 30
     for name in ("ops.kernels.fused_block", "bayes.uncertainty",
-                 "utils.config", "utils.viz", "tasks.runners"):
+                 "utils.config", "utils.viz", "tasks.runners",
+                 "ops.kernels.lrt_conv", "ops.kernels.radon_dense"):
         assert f"mfvi_dip_mia_tpu_torch.{name}" in mods
     out = _run(["-c", _BLOCKED_IMPORT, *mods], REPO)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -126,7 +129,16 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
         tfb.apply_fused(xf, w, gam, bet),
         tfb.fwd_plain(F.pad(xf, (1, 1, 1, 1), mode="reflect")[0], w, gam,
                       bet)[0][None])
-    assert [k.launches for k in kernels.KERNELS] == [0] * 8
+    wv = w.abs()
+    assert all(torch.equal(a, b) for a, b in zip(
+        tlrt.double_conv_fwd(xp, w, wv), tlrt.fused_double_conv(xp, w, wv)))
+    a = torch.from_numpy(rng.standard_normal((24, 64)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal((1, 64)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((1, 24)).astype(np.float32))
+    assert torch.equal(rd.radon_dense_fwd(a, v), rd.radon_dense_fwd_plain(a, v))
+    assert torch.equal(rd.radon_dense_adj(a, y), rd.radon_dense_adj_plain(a, y))
+    assert [k.launches for k in kernels.KERNELS] == [0] * 11
     assert build._LIB is None          # nothing was built or loaded
 
 
@@ -135,7 +147,8 @@ def test_kernel_records_name_their_sources_and_tpu_kernels():
     assert names == ["cf_conv_fwd", "cf_conv_dw", "radon_banded_fwd",
                      "radon_banded_adj", "fused_block_fwd",
                      "fused_block_bwd_dc", "fused_block_bwd_dw",
-                     "fused_block_bwd_dx"]
+                     "fused_block_bwd_dx", "lrt_conv_fwd", "radon_dense_fwd",
+                     "radon_dense_adj"]
     for k in kernels.KERNELS:
         assert os.path.isfile(os.path.join(REPO, k.source)), k.source
         path, line = k.replaces.split(" ")[0].split(":")

@@ -139,14 +139,17 @@ def test_den_fit_lockstep_against_jax_fused_block_on(monkeypatch):
     assert sum(fused_j) >= 3
 
 
-def _check_lockstep(prob_j, prob_t, task):
+def _check_lockstep(prob_j, prob_t, task, reparam="rt"):
+    """The port runs first (an LRT noise table fills in its site order);
+    ``reparam='lrt'`` runs the JAX side at layout='nhwc', where its LRT noise
+    is drawn in that same order."""
     temp, sigma = PRIORS[task]
     kw = dict(num_iter=N_STEPS - 1, lr=LR, seed=1, show_every=N_STEPS,
-              metrics_every=1)
-    res_j = JT.fit(prob_j, JT.Method("mfvi", temp=temp, sigma=sigma),
-                   layout="auto", **kw)
+              metrics_every=1, reparam=reparam)
     res_t = TT.fit(prob_t, TT.Method("mfvi", temp=temp, sigma=sigma),
                    device="cpu", **kw)
+    res_j = JT.fit(prob_j, JT.Method("mfvi", temp=temp, sigma=sigma),
+                   layout="auto" if reparam == "rt" else "nhwc", **kw)
     assert res_t.psnrs.shape == res_j.psnrs.shape == (N_STEPS, 3)
     np.testing.assert_array_equal(res_t.net_input, res_j.net_input)
     for i in range(N_STEPS):
