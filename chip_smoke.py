@@ -6,10 +6,13 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions, the build of the hand-written CUDA kernels from csrc/, and
-   each kernel's registers, shared memory and spills (``nvcc -Xptxas -v``).
+   versions, the build of the hand-written CUDA kernels from csrc/, each
+   kernel's registers, shared memory and spills (``nvcc -Xptxas -v`` of the
+   build), and the HMMA (mma.sync) instructions of every instantiation of
+   the two tensor-core kernels (``cuobjdump -sass`` of the library).
 2. Every kernel against its plain PyTorch version on the card: the VALID
-   conv (forward and dx) and its weight gradient in f32 and bf16 at every
+   conv (forward and FULL dx, each twice for the same bits) and its weight
+   gradient in f32 and bf16 at every
    conv-site shape of the 256^2 CT U-Net, the banded Radon forward and
    adjoint at 256^2 / 45 angles with the f32 and the bf16 band, the four
    fused conv + BN + LeakyReLU kernels in f32 at every fused-site shape of
@@ -33,7 +36,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. Each kernel's time at the paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
    off; timed here only, never called by the port), printed as one JSON
-   line ``{"kernels": [...]}``.
+   line ``{"kernels": [...]}``; for the two tensor-core kernels also the
+   profiler's device time of one step's calls beside cuDNN's for the same
+   calls (``device_ms``, ``library_device_ms``).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -118,18 +123,10 @@ def nvidia_smi_line() -> str:
 
 def ptxas_report() -> dict:
     """Each kernel's registers, static shared memory and spill bytes as
-    ``nvcc -Xptxas -v`` reports them: one nvcc per csrc/*.cu source, all
-    started together, objects discarded."""
+    ``nvcc -Xptxas -v`` reported them when the library was built."""
     from mfvi_dip_mia_tpu_torch.ops.kernels import build
-    procs = [(os.path.basename(src), subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o",
-         os.devnull], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)) for src in build._sources()]
     report = {}
-    for src, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{out}")
+    for src, out in build.ptxas_logs().items():
         name = None
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -152,6 +149,56 @@ def ptxas_report() -> dict:
             f"{max(r['registers'] for r in rows)}, static shared memory up "
             f"to {max(r['smem'] for r in rows)} B, spill bytes "
             f"{sum(r['spill'] for r in rows)}")
+    for name, tag in (("cf_conv_fwd", "conv_fwd_mma_kernel"),
+                      ("lrt_conv_fwd", "lrt_conv_fwd_mma_kernel")):
+        rows = [r for f, r in report.items() if tag_of(f) == tag]
+        if not rows:
+            raise AssertionError(f"ptxas reported no {tag}")
+        log(f"[1] ptxas {name} ({tag}, {len(rows)} instantiations): "
+            f"registers {min(r['registers'] for r in rows)}-"
+            f"{max(r['registers'] for r in rows)}, static shared memory "
+            f"{max(r['smem'] for r in rows)} B, spill bytes "
+            f"{sum(r['spill'] for r in rows)}")
+    return report
+
+
+def tag_of(mangled: str) -> str:
+    """The kernel template's name inside a mangled entry-function name."""
+    for tag in ("lrt_conv_fwd_mma_kernel", "conv_fwd_mma_kernel"):
+        if tag in mangled:
+            return tag
+    return ""
+
+
+def sass_mma_report() -> dict:
+    """HMMA instructions per instantiation of the tensor-core kernels in the
+    built library (``cuobjdump -sass``); raises where one has none."""
+    from mfvi_dip_mia_tpu_torch.ops.kernels import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    lib = build.library()._name
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode:
+        raise RuntimeError(f"cuobjdump -sass failed: {out.stderr[-2000:]}")
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if tag_of(m.group(1)) else None
+            if cur:
+                counts[cur] = 0
+        elif cur and re.search(r"\bHMMA\b", line):
+            counts[cur] += 1
+    report = {}
+    for tag in ("conv_fwd_mma_kernel", "lrt_conv_fwd_mma_kernel"):
+        n = [v for f, v in counts.items() if tag_of(f) == tag]
+        if not n or min(n) == 0:
+            raise AssertionError(f"{tag}: an instantiation without HMMA "
+                                 f"({n})")
+        report[tag] = dict(instantiations=len(n), hmma_min=min(n),
+                           hmma_max=max(n))
+        log(f"[1] sass {tag}: {len(n)} instantiations, HMMA (mma.sync) "
+            f"instructions {min(n)}-{max(n)} each")
     return report
 
 
@@ -169,6 +216,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """torch.profiler's device time of the kernels ``fn()`` launches, per
+    call (the host's launch rate does not enter it). A profile that caught
+    no kernel is taken again, up to three times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    raise RuntimeError("the profiler caught no device kernel")
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -263,7 +332,14 @@ def check_conv_kernels(sites, results: dict) -> None:
                 ("cf_conv_dw", "dw", tcf.conv_dw(xp, g, k, k),
                  tcf.conv_dw_plain(xp, g, k, k)),
             ]
+            # a cluster's partial tiles are summed in rank order: the same
+            # bits on every call
+            again = (tcf.conv_valid_fwd(xp, w), tcf.conv_dx(g, w))
             torch.cuda.synchronize()
+            if not (torch.equal(again[0], checks[0][2])
+                    and torch.equal(again[1], checks[1][2])):
+                raise AssertionError(f"cf_conv_fwd {dname} at xp {xps} w {ws}"
+                                     ": two calls gave different bits")
             for kname, kind, got, ref in checks:
                 if got.shape != ref.shape or got.dtype != ref.dtype:
                     raise AssertionError(
@@ -885,14 +961,14 @@ def run_den(kernels) -> dict:
 
 # the port's kernels by their CUDA function names (csrc/*.cu), each matched
 # at the start of an identifier (conv_fwd_kernel is not lrt_conv_fwd_kernel)
-KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_kernel", "cf_conv_dw": "conv_dw_",
+KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_mma_kernel", "cf_conv_dw": "conv_dw_",
                 "radon_banded_fwd": "radon_fwd_",
                 "radon_banded_adj": "radon_adj_",
                 "fused_block_fwd": "fused_fwd_kernel",
                 "fused_block_bwd_dc": "fused_bwd_dc_kernel",
                 "fused_block_bwd_dw": "fused_bwd_dw_kernel",
                 "fused_block_bwd_dx": "fused_bwd_dx_kernel",
-                "lrt_conv_fwd": "lrt_conv_fwd_kernel",
+                "lrt_conv_fwd": "lrt_conv_fwd_mma_kernel",
                 "radon_dense_fwd": "radon_dense_fwd_kernel",
                 "radon_dense_adj": "radon_dense_adj_"}
 
@@ -1013,10 +1089,15 @@ def profile_paths(steps: int, fits: dict) -> dict:
 
 def time_conv_kernels(sites, results: dict) -> None:
     """Per training step of the CT main path (bf16): every forward site and
-    every dx (one cf_conv_fwd launch each), every dw (one cf_conv_dw)."""
+    every dx (one cf_conv_fwd launch each; the dx in its FULL form on the
+    unpadded cotangent), every dw (one cf_conv_dw). Beside the CUDA-event
+    times, torch.profiler's device time of one step's calls of cf_conv_fwd
+    and of the same calls through cuDNN (``F.conv2d`` and its input
+    gradient ``conv2d_input``), so a launch-rate-bound sum does not decide
+    which is faster."""
     import torch
     import torch.nn.functional as F
-    from torch.nn.grad import conv2d_weight
+    from torch.nn.grad import conv2d_input, conv2d_weight
     from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
@@ -1026,21 +1107,32 @@ def time_conv_kernels(sites, results: dict) -> None:
                t_ops=0.0, t_bytes=0.0, calls=0, flops=0.0)
     dw = dict(fwd)
     per_site = []
+    step_kernel, step_library = [], []
+    plans = []
     for s in sites:
         xp, w, g = conv_operands(s, dt, gen)
         o_ch, i_ch, kh, kw = w.shape
-        calls = [("fwd", xp, w)]
+        shapes = {"fwd": (g.shape[1], g.shape[2], o_ch, i_ch),
+                  "dx": (xp.shape[1], xp.shape[2], i_ch, o_ch)}
+        calls = [("fwd", xp.numel() + w.numel() + g.numel(),
+                  lambda xp=xp, w=w: tcf.conv_valid_fwd(xp, w),
+                  lambda xp=xp, w=w: tcf.conv_valid_plain(xp, w),
+                  lambda xp=xp, w=w: F.conv2d(xp[None], w))]
         if s["needs_dx"]:
-            calls.append(("dx",) + tcf._dx_operands(g, w))
+            calls.append((
+                "dx", g.numel() + w.numel() + xp.numel(),
+                lambda g=g, w=w: tcf.conv_dx(g, w),
+                lambda g=g, w=w: tcf.conv_dx_plain(g, w),
+                lambda xp=xp, g=g, w=w: conv2d_input(
+                    (1,) + tuple(xp.shape), w, g[None])))
         row = dict(site=s["name"], xp=list(s["xp"]), w=list(s["w"]))
-        for tag, a, b in calls:
+        for tag, elems, fk, fp, fl in calls:
             flops = s["flops"]        # dx of a conv: the same products
-            nbytes = (a.numel() + b.numel() + b.shape[0] * (
-                a.shape[1] - kh + 1) * (a.shape[2] - kw + 1)) * item
+            nbytes = elems * item
             b_ms, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
-            t_k = time_ms(lambda: tcf.conv_valid_fwd(a, b))
-            t_p = time_ms(lambda: tcf.conv_valid_plain(a, b))
-            t_l = time_ms(lambda: F.conv2d(a[None], b))
+            t_k, t_p, t_l = time_ms(fk), time_ms(fp), time_ms(fl)
+            step_kernel.append(fk)
+            step_library.append(fl)
             for key, val in (("ms", t_k), ("plain_ms", t_p),
                              ("library_ms", t_l), ("bound_ms", b_ms)):
                 fwd[key] += val
@@ -1048,8 +1140,12 @@ def time_conv_kernels(sites, results: dict) -> None:
             fwd["t_bytes"] += nbytes / PEAK_BYTES_PER_S * 1e3
             fwd["calls"] += 1
             fwd["flops"] += flops
+            p = tcf.tile_plan(*shapes[tag], dt, kh)
+            plans.append(p)
             row[tag] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                            bound_ms=b_ms, gflop=flops / 1e9)
+                            bound_ms=b_ms, gflop=flops / 1e9,
+                            tile=list(tcf.TILES[p.tile]), split=p.split,
+                            ctas=p.ctas)
         flops = s["flops"]
         nbytes = (xp.numel() + g.numel()) * item + o_ch * i_ch * kh * kw * 4
         b_ms, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -1066,6 +1162,15 @@ def time_conv_kernels(sites, results: dict) -> None:
         row["dw"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                          gflop=flops / 1e9)
         per_site.append(row)
+    log(f"[4] cf_conv_fwd tile plans of the {len(plans)} bf16 launches: "
+        + ", ".join(f"{bm}x{bn} {sum(tcf.TILES[p.tile] == (bm, bn) for p in plans)}"
+                    for bm, bn in tcf.TILES)
+        + "; splits " + ", ".join(f"{k} {sum(p.split == k for p in plans)}"
+                                  for k in (1, 2, 4, 8))
+        + f"; blocks per launch {min(p.ctas for p in plans)}-"
+        f"{max(p.ctas for p in plans)}")
+    fwd["device_ms"] = device_ms(lambda: [f() for f in step_kernel])
+    fwd["library_device_ms"] = device_ms(lambda: [f() for f in step_library])
     for name, agg in (("cf_conv_fwd", fwd), ("cf_conv_dw", dw)):
         r = results.setdefault(name, {})
         r.update(ms=agg["ms"], plain_ms=agg["plain_ms"],
@@ -1074,10 +1179,16 @@ def time_conv_kernels(sites, results: dict) -> None:
                            else "bytes"),
                  calls_timed_per_step=agg["calls"],
                  gflop_per_step=agg["flops"] / 1e9)
+        extra = ""
+        if "device_ms" in agg:
+            r.update(device_ms=agg["device_ms"],
+                     library_device_ms=agg["library_device_ms"])
+            extra = (f"; profiler device time {agg['device_ms']:.4f} ms, "
+                     f"cuDNN's {agg['library_device_ms']:.4f} ms")
         log(f"[4] {name}: {agg['calls']} launches per step, "
             f"{agg['flops'] / 1e9:.3f} GFLOP: kernel {agg['ms']:.3f} ms, "
             f"plain {agg['plain_ms']:.3f} ms, library {agg['library_ms']:.3f}"
-            f" ms, bound {agg['bound_ms']:.4f} ms")
+            f" ms, bound {agg['bound_ms']:.4f} ms{extra}")
     results["_conv_sites"] = per_site
 
 
@@ -1216,12 +1327,14 @@ def time_lrt_kernel(sites, results: dict) -> None:
     cuDNN ``F.conv2d`` calls (on xp and on a precomputed xp^2)."""
     import torch
     import torch.nn.functional as F
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
     from mfvi_dip_mia_tpu_torch.ops.kernels import lrt_conv as tlrt
 
     gen = torch.Generator(device=DEVICE).manual_seed(10)
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_ops=0.0,
                t_bytes=0.0, calls=0, flops=0.0, nbytes=0.0)
     per_site = []
+    step_kernel, step_library = [], []
     for s in sites:
         xp, w_mu, w_var, g = lrt_operands(s, torch.float32, gen)
         xp2 = xp * xp
@@ -1234,6 +1347,12 @@ def time_lrt_kernel(sites, results: dict) -> None:
                  library_ms=time_ms(lambda: (F.conv2d(xp[None], w_mu),
                                              F.conv2d(xp2[None], w_var))),
                  bound_ms=b_ms)
+        step_kernel.append(
+            lambda xp=xp, w_mu=w_mu, w_var=w_var: tlrt.double_conv_fwd(
+                xp, w_mu, w_var))
+        step_library.append(
+            lambda xp=xp, xp2=xp2, w_mu=w_mu, w_var=w_var: (
+                F.conv2d(xp[None], w_mu), F.conv2d(xp2[None], w_var)))
         for key, val in t.items():
             agg[key] += val
         agg["t_ops"] += flops / PEAK_F32_FLOPS * 1e3
@@ -1241,9 +1360,17 @@ def time_lrt_kernel(sites, results: dict) -> None:
         agg["calls"] += 1
         agg["flops"] += flops
         agg["nbytes"] += nbytes
+        i_ch, hp, wp = s["xp"]
+        o_ch, _, k, _ = s["w"]
+        p = tcf.tile_plan(hp - k + 1, wp - k + 1, o_ch, i_ch, torch.float32,
+                          k, 2)
         per_site.append(dict(site=s["name"], xp=list(s["xp"]),
-                             w=list(s["w"]), **t))
+                             w=list(s["w"]), tile=list(tcf.TILES[p.tile]),
+                             split=p.split, ctas=p.ctas, **t))
+    dev = device_ms(lambda: [f() for f in step_kernel])
+    dev_l = device_ms(lambda: [f() for f in step_library])
     r = results.setdefault("lrt_conv_fwd", {})
+    r.update(device_ms=dev, library_device_ms=dev_l)
     r.update(ms=agg["ms"], plain_ms=agg["plain_ms"],
              library_ms=agg["library_ms"], bound_ms=agg["bound_ms"],
              bound_by=("operations" if agg["t_ops"] > agg["t_bytes"]
@@ -1255,7 +1382,8 @@ def time_lrt_kernel(sites, results: dict) -> None:
         f"{agg['flops'] / 1e9:.3f} GFLOP, {agg['nbytes'] / 1e6:.1f} MB: "
         f"kernel {agg['ms']:.3f} ms, plain {agg['plain_ms']:.3f} ms, two "
         f"cuDNN convs {agg['library_ms']:.3f} ms, bound "
-        f"{agg['bound_ms']:.4f} ms ({r['bound_by']})")
+        f"{agg['bound_ms']:.4f} ms ({r['bound_by']}); profiler device time "
+        f"{dev:.4f} ms, the two cuDNN convs' {dev_l:.4f} ms")
 
 
 def time_dense_radon(a, results: dict) -> None:
@@ -1327,6 +1455,7 @@ def main(argv=None) -> int:
     build.library()
     log(f"[1] kernels built and loaded in {build.BUILD_SECONDS:.1f} s")
     ptxas = ptxas_report()
+    sass = sass_mma_report()
 
     results: dict = {}
     # the 256^2 nets of the two main paths: ct (1 output channel) and den
@@ -1386,12 +1515,15 @@ def main(argv=None) -> int:
                               for p in ("ct", "den", "lrt_den", "dense_ct")},
             max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"],
+            **{k: r[k] for k in ("device_ms", "library_device_ms")
+               if k in r}))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, torch=torch.__version__,
                            cuda=torch.version.cuda,
                            build_seconds=build.BUILD_SECONDS, ptxas=ptxas,
+                           sass=sass,
                            kernels=line,
                            details=results, fits=fits,
                            seconds=time.perf_counter() - t_start), f,

@@ -1,5 +1,6 @@
-// Channels-first VALID convolution (batch 1, stride 1) and its all-tap weight
-// gradient for Hopper (sm_90a), f32 or bf16 storage with f32 accumulation.
+// Channels-first VALID convolution (batch 1, stride 1), its input gradient
+// and its all-tap weight gradient for Hopper (sm_90a), f32 or bf16 storage
+// with f32 accumulation.
 //
 // Replaces the two Pallas TPU kernels of mfvi_dip_mia_tpu/ops/pallas/cf_conv.py:
 //   * conv_fwd  <- _conv_call (the forward of every conv site, and the dx of
@@ -7,55 +8,47 @@
 //                  cotangent with the flipped, I/O-transposed kernel);
 //   * conv_dw   <- _dw_call (sum over row tiles of patches @ g^T).
 //
-// What bounds them on the card: at the U-Net's widths (16-132 channels, 3x3
+// What bounds them on the card: at the U-Net's widths (1-132 channels, 1-3
 // taps) the arithmetic intensity of a direct conv is far above the H100's
-// bytes-per-FLOP balance, so both are bound by arithmetic. This first version
-// runs on the CUDA cores (FFMA, f32 accumulate) rather than the tensor cores:
-//   * conv_fwd: each block owns an (output-channel tile) x (row tile of
-//     32 columns) output tile, stages a halo'd input slab and the weight tile
-//     of 8 input channels at a time in shared memory, and each thread keeps an
-//     8-channel x 4-pixel register tile (32 FMAs per 12 shared loads).
+// bytes-per-FLOP balance, so the work is bound by the tensor cores' rate; at
+// the deep sites (8^2-32^2 outputs) it is bound by how few blocks the output
+// tiles make.
+//   * conv_fwd: the tensor-core implicit GEMM of conv_mma.cuh (M = pixels, N =
+//     output channels, K = I * k^2; bf16 mma.sync, f32 as 3xTF32), its input
+//     slab staged channels-last in shared memory, two stages. Each launch
+//     takes the tile and the split of K that ops/kernels/cf_conv.py::
+//     tile_plan picks from the shapes: where the output tiles are too few to
+//     fill 132 SMs, a thread block cluster of up to 8 blocks splits K and its
+//     leader sums the partial tiles through distributed shared memory in rank
+//     order (deterministic, one launch). The dx is the same kernel with
+//     FULL = true: the unpadded cotangent with a virtual zero halo and the
+//     forward weight flipped and transposed by indexing, so nothing is padded
+//     or copied before it.
 //   * conv_dw: the H*W reduction is split across blocks (blocks run in no
 //     order, unlike the TPU's sequential grid), each block writes its partial
 //     (O, I*kh*kw) tile to an f32 scratch, and a second kernel sums the splits
-//     in a fixed order: deterministic, no atomics.
-// Both tiles live in conv_tile.cuh, shared with csrc/fused_block.cu.
+//     in a fixed order: deterministic, no atomics. FFMA, on conv_tile.cuh's
+//     dw tile, shared with csrc/fused_block.cu.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "conv_mma.cuh"
 #include "conv_tile.cuh"
 
 namespace {
 
 using namespace conv_tile;
 
-// out[o, y, x] = sum_{i, ky, kx} w[o, i, ky, kx] * x[i, y + ky, x + kx]
-// x (I, Hp, Wp), w (O, I, K, K), out (O, H, W) with H = Hp-K+1, W = Wp-K+1;
-// one (OG * 8 channels) x (32 / OG rows) x (32 columns) tile per block.
-template <typename T, int K, int OG>
-__global__ void __launch_bounds__(kThreads)
-conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ out, int I, int Hp, int Wp, int O, int H, int W) {
-  const int x0 = blockIdx.x * kTW;
-  const int y0 = blockIdx.y * Geom<OG>::TH;
-  const int o0 = blockIdx.z * Geom<OG>::OT;
-  float acc[kOPT][kPX];
-  accumulate<T, K, OG, false>(x, w, I, Hp, Wp, O, x0, y0, o0, acc);
-
-  const Lane<OG> ln;
-  const int y = y0 + ln.ty;
-  if (y >= H) return;
-#pragma unroll
-  for (int o = 0; o < kOPT; ++o) {
-    const int oc = o0 + ln.og * kOPT + o;
-    if (oc >= O) break;
-#pragma unroll
-    for (int p = 0; p < kPX; ++p) {
-      const int xx = x0 + ln.tx * kPX + p;
-      if (xx < W) out[((size_t)oc * H + y) * W + xx] = from_f<T>(acc[o][p]);
-    }
-  }
+// out[o, y, x] = sum_{i, ky, kx} wt[o, i, ky, kx] * x[i, y + ky - pad, x + kx - pad]
+// (conv_mma.cuh's tile; FULL: pad = K - 1 and wt the flipped, transposed w)
+template <typename T, int WM, int WN, int NF, bool FULL>
+__global__ void __launch_bounds__(32 * WM * WN)
+conv_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    T* __restrict__ out, int I, int Hs, int Ws, int O, int K,
+                    int Hout, int Wout) {
+  conv_mma::conv_tile_mma<T, conv_mma::Tile<WM, WN, NF>, 1, FULL>(
+      x, w, nullptr, out, nullptr, I, Hs, Ws, O, K, Hout, Wout);
 }
 
 // partial[s, o, k] = sum over split s's pixels of g[o, pix] * patch[k, pix],
@@ -98,52 +91,57 @@ conv_dw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out
   out[j] = s;
 }
 
-template <typename T, int K>
-void launch_fwd_k(const void* x, const void* w, void* out, int I, int Hp, int Wp,
-                  int O, cudaStream_t st) {
-  const int H = Hp - K + 1, W = Wp - K + 1;
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  T* ot = static_cast<T*>(out);
-  const int gx = (W + kTW - 1) / kTW;
-  if (O <= kOPT) {
-    constexpr int TH = kThreads / 1 / kRowThreads;
-    dim3 grid(gx, (H + TH - 1) / TH, (O + kOPT - 1) / kOPT);
-    conv_fwd_kernel<T, K, 1><<<grid, kThreads, 0, st>>>(xt, wt, ot, I, Hp, Wp, O, H, W);
-  } else if (O <= 2 * kOPT) {
-    constexpr int TH = kThreads / 2 / kRowThreads;
-    dim3 grid(gx, (H + TH - 1) / TH, (O + 2 * kOPT - 1) / (2 * kOPT));
-    conv_fwd_kernel<T, K, 2><<<grid, kThreads, 0, st>>>(xt, wt, ot, I, Hp, Wp, O, H, W);
-  } else {
-    constexpr int TH = kThreads / 4 / kRowThreads;
-    dim3 grid(gx, (H + TH - 1) / TH, (O + 4 * kOPT - 1) / (4 * kOPT));
-    conv_fwd_kernel<T, K, 4><<<grid, kThreads, 0, st>>>(xt, wt, ot, I, Hp, Wp, O, H, W);
-  }
+template <typename T, bool FULL>
+int launch_fwd(const void* x, const void* w, void* out, int I, int Hs, int Ws,
+               int O, int K, int tile, int split, cudaStream_t st) {
+  const int Hout = FULL ? Hs + K - 1 : Hs - K + 1;
+  const int Wout = FULL ? Ws + K - 1 : Ws - K + 1;
+  return conv_mma::with_tile(tile, [&](auto tl) {
+    using TL = decltype(tl);
+    const dim3 grid(split,
+                    ((Hout + TL::TH - 1) / TL::TH) *
+                        ((Wout + conv_mma::kTW - 1) / conv_mma::kTW),
+                    (O + TL::BN - 1) / TL::BN);
+    return conv_mma::launch(
+        conv_fwd_mma_kernel<T, TL::WM, TL::WN, TL::NF, FULL>, TL::kThreads,
+        conv_mma::smem_bytes<T, TL>(K, 1, split), grid, split, st,
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<T*>(out), I, Hs, Ws, O, K, Hout, Wout);
+  });
 }
 
 template <typename T>
-int launch_fwd(const void* x, const void* w, void* out, int I, int Hp, int Wp,
-               int O, int K, cudaStream_t st) {
-  switch (K) {
-    case 1: launch_fwd_k<T, 1>(x, w, out, I, Hp, Wp, O, st); break;
-    case 2: launch_fwd_k<T, 2>(x, w, out, I, Hp, Wp, O, st); break;
-    case 3: launch_fwd_k<T, 3>(x, w, out, I, Hp, Wp, O, st); break;
-    case 5: launch_fwd_k<T, 5>(x, w, out, I, Hp, Wp, O, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+int launch_fwd_full(const void* x, const void* w, void* out, int I, int Hs,
+                    int Ws, int O, int K, int full, int tile, int split,
+                    cudaStream_t st) {
+  return full ? launch_fwd<T, true>(x, w, out, I, Hs, Ws, O, K, tile, split, st)
+              : launch_fwd<T, false>(x, w, out, I, Hs, Ws, O, K, tile, split, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it).
+// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it). full = 0: x
+// (I, Hs, Ws), w (O, I, K, K), out (O, Hs-K+1, Ws-K+1); full = 1: x the
+// cotangent (I, Hs, Ws), w the forward weight (I, O, K, K), out the input
+// gradient (O, Hs+K-1, Ws+K-1). tile: conv_mma::with_tile's index; split:
+// the blocks of a cluster that share one output tile (1-8, at most the
+// input-channel chunks).
 int cf_conv_fwd(const void* x, const void* w, void* out, int dtype, int I,
-                int Hp, int Wp, int O, int K, void* stream) {
+                int Hs, int Ws, int O, int K, int full, int tile, int split,
+                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(x, w, out, I, Hp, Wp, O, K, st);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(x, w, out, I, Hp, Wp, O, K, st);
+  if (K < 1 || K > 5 || split < 1 || split > conv_mma::kMaxSplit)
+    return (int)cudaErrorInvalidValue;
+  const int chunk = dtype == 0 ? 8 : 16;
+  if (split > (I + chunk - 1) / chunk) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_fwd_full<float>(x, w, out, I, Hs, Ws, O, K, full, tile,
+                                  split, st);
+  if (dtype == 1)
+    return launch_fwd_full<__nv_bfloat16>(x, w, out, I, Hs, Ws, O, K, full,
+                                          tile, split, st);
   return (int)cudaErrorInvalidValue;
 }
 

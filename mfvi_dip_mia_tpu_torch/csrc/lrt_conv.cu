@@ -3,7 +3,7 @@
 //   act_mu[o, y, x]  = sum_{i, ky, kx} w_mu[o, i, ky, kx]  * xp[i, y + ky, x + kx]
 //   act_var[o, y, x] = sum_{i, ky, kx} w_var[o, i, ky, kx] * xp[i, y + ky, x + kx]^2
 // f32 or bf16 storage (xp, both weights and both outputs share it), f32
-// arithmetic: x^2 is formed in f32 from the stored value, as the TPU kernel
+// accumulation: x^2 is formed in f32 from the stored value, as the TPU kernel
 // squares the f32-cast slab.
 //
 // Replaces the Pallas TPU kernel mfvi_dip_mia_tpu/ops/pallas/lrt_conv_pallas.py
@@ -12,138 +12,57 @@
 // and feeds both contractions, with none of the structural zeros of the
 // block-diagonal conv that XLA runs otherwise (lrt_conv.py::_fused_double_conv).
 //
-// What bounds it on the card: arithmetic. Two contractions of the U-Net's
-// conv sites (16-132 channels, 3x3 taps) are far above the H100's
-// bytes-per-FLOP balance. This first version runs on the CUDA cores (FFMA, f32
-// accumulate) with the conv tile of conv_tile.cuh: each block owns an
-// (output-channel tile) x (row tile of 32 columns) output tile, stages the
-// halo'd input slab of 8 input channels once with conv_tile's loader beside
-// a w_mu and a w_var tile, and each thread keeps two 8-channel x 4-pixel
-// register tiles (64 accumulators; x^2 is formed at the point of use, so the
-// slab is not staged twice). Stride-2 sites run on parity planes prepared in
-// Python (ops/kernels/cf_conv.py::s2_planes), so the kernel needs no stride.
-// The backward runs on the VALID conv's dx and dw kernels (csrc/cf_conv.cu).
+// What bounds it on the card: the tensor cores' rate where the output tiles
+// fill the card, and the number of blocks at the deep sites (8^2-32^2
+// outputs). The kernel is conv_mma.cuh's implicit GEMM with two B operands:
+// each channel chunk's halo'd input slab is staged once, channels-last in
+// shared memory, beside a w_mu and a w_var tile, and each k-step runs the
+// A fragment against w_mu and its square against w_var (x^2 formed in f32
+// from the staged value; rounded to bf16 for the bf16 MMA). f32 runs as
+// 3xTF32 (6 MMAs per k-step), bf16 as 2. The tile and the cluster split of
+// K come from ops/kernels/cf_conv.py::tile_plan, as for cf_conv_fwd. Stride-2
+// sites run on parity planes prepared in Python (ops/kernels/cf_conv.py::
+// s2_planes), so the kernel needs no stride. The backward runs on the VALID
+// conv's dx and dw kernels (csrc/cf_conv.cu).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
-#include "conv_tile.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
-using namespace conv_tile;
-
-// xp (I, Hp, Wp), w_mu / w_var (O, I, K, K), act_mu / act_var (O, H, W) with
-// H = Hp-K+1, W = Wp-K+1; one (OG * 8 channels) x (32 / OG rows) x (32
-// columns) tile per block.
-template <typename T, int K, int OG>
-__global__ void __launch_bounds__(kThreads)
-lrt_conv_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ w_mu,
-                    const T* __restrict__ w_var, T* __restrict__ act_mu,
-                    T* __restrict__ act_var, int I, int Hp, int Wp, int O, int H,
-                    int W) {
-  constexpr int TH = Geom<OG>::TH;
-  constexpr int OT = Geom<OG>::OT;
-  constexpr int KK = K * K;
-  __shared__ __align__(16) float slab[kIC][TH + K - 1][kTW + K - 1];
-  __shared__ __align__(16) float wmu[kIC][KK][OT];
-  __shared__ __align__(16) float wvar[kIC][KK][OT];
-
-  const int x0 = blockIdx.x * kTW;
-  const int y0 = blockIdx.y * TH;
-  const int o0 = blockIdx.z * OT;
-  const Lane<OG> ln;
-  float am[kOPT][kPX], av[kOPT][kPX];
-#pragma unroll
-  for (int o = 0; o < kOPT; ++o)
-#pragma unroll
-    for (int p = 0; p < kPX; ++p) am[o][p] = av[o][p] = 0.f;
-
-  for (int i0 = 0; i0 < I; i0 += kIC) {
-    __syncthreads();
-    load_slab<T, K, OG, false>(xp, I, Hp, Wp, i0, x0, y0, slab);
-    load_weights<T, K, OG, false>(w_mu, I, O, i0, o0, wmu);
-    load_weights<T, K, OG, false>(w_var, I, O, i0, o0, wvar);
-    __syncthreads();
-    for (int ic = 0; ic < kIC; ++ic) {
-#pragma unroll
-      for (int ky = 0; ky < K; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < K; ++kx) {
-          float xv[kPX], x2[kPX];
-#pragma unroll
-          for (int p = 0; p < kPX; ++p) {
-            xv[p] = slab[ic][ln.ty + ky][ln.tx * kPX + kx + p];
-            x2[p] = xv[p] * xv[p];
-          }
-          const float* wm = &wmu[ic][ky * K + kx][ln.og * kOPT];
-          const float* wv = &wvar[ic][ky * K + kx][ln.og * kOPT];
-#pragma unroll
-          for (int o = 0; o < kOPT; ++o) {
-            const float m = wm[o], v = wv[o];
-#pragma unroll
-            for (int p = 0; p < kPX; ++p) {
-              am[o][p] = fmaf(m, xv[p], am[o][p]);
-              av[o][p] = fmaf(v, x2[p], av[o][p]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  const int y = y0 + ln.ty;
-  if (y >= H) return;
-#pragma unroll
-  for (int o = 0; o < kOPT; ++o) {
-    const int oc = o0 + ln.og * kOPT + o;
-    if (oc >= O) break;
-#pragma unroll
-    for (int p = 0; p < kPX; ++p) {
-      const int xx = x0 + ln.tx * kPX + p;
-      if (xx < W) {
-        const size_t at = ((size_t)oc * H + y) * W + xx;
-        act_mu[at] = from_f<T>(am[o][p]);
-        act_var[at] = from_f<T>(av[o][p]);
-      }
-    }
-  }
-}
-
-template <typename T, int K, int OG>
-void launch_og(const void* xp, const void* w_mu, const void* w_var, void* act_mu,
-               void* act_var, int I, int Hp, int Wp, int O, cudaStream_t st) {
-  const int H = Hp - K + 1, W = Wp - K + 1;
-  constexpr int TH = Geom<OG>::TH;
-  constexpr int OT = Geom<OG>::OT;
-  dim3 grid((W + kTW - 1) / kTW, (H + TH - 1) / TH, (O + OT - 1) / OT);
-  lrt_conv_fwd_kernel<T, K, OG><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(xp), static_cast<const T*>(w_mu),
-      static_cast<const T*>(w_var), static_cast<T*>(act_mu), static_cast<T*>(act_var),
-      I, Hp, Wp, O, H, W);
-}
-
-template <typename T, int K>
-void launch_k(const void* xp, const void* w_mu, const void* w_var, void* act_mu,
-              void* act_var, int I, int Hp, int Wp, int O, cudaStream_t st) {
-  if (O <= kOPT)
-    launch_og<T, K, 1>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, st);
-  else if (O <= 2 * kOPT)
-    launch_og<T, K, 2>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, st);
-  else
-    launch_og<T, K, 4>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, st);
+// act_mu = conv(xp, w_mu), act_var = conv(xp^2, w_var): xp (I, Hp, Wp),
+// w_mu / w_var (O, I, K, K), act_mu / act_var (O, H, W), H = Hp-K+1,
+// W = Wp-K+1
+template <typename T, int WM, int WN, int NF>
+__global__ void __launch_bounds__(32 * WM * WN)
+lrt_conv_fwd_mma_kernel(const T* __restrict__ xp, const T* __restrict__ w_mu,
+                        const T* __restrict__ w_var, T* __restrict__ act_mu,
+                        T* __restrict__ act_var, int I, int Hp, int Wp, int O,
+                        int K, int H, int W) {
+  conv_mma::conv_tile_mma<T, conv_mma::Tile<WM, WN, NF>, 2, false>(
+      xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, K, H, W);
 }
 
 template <typename T>
 int launch(const void* xp, const void* w_mu, const void* w_var, void* act_mu,
-           void* act_var, int I, int Hp, int Wp, int O, int K, cudaStream_t st) {
-  switch (K) {
-    case 1: launch_k<T, 1>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, st); break;
-    case 2: launch_k<T, 2>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, st); break;
-    case 3: launch_k<T, 3>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+           void* act_var, int I, int Hp, int Wp, int O, int K, int tile,
+           int split, cudaStream_t st) {
+  const int H = Hp - K + 1, W = Wp - K + 1;
+  return conv_mma::with_tile(tile, [&](auto tl) {
+    using TL = decltype(tl);
+    const dim3 grid(split,
+                    ((H + TL::TH - 1) / TL::TH) *
+                        ((W + conv_mma::kTW - 1) / conv_mma::kTW),
+                    (O + TL::BN - 1) / TL::BN);
+    return conv_mma::launch(
+        lrt_conv_fwd_mma_kernel<T, TL::WM, TL::WN, TL::NF>, TL::kThreads,
+        conv_mma::smem_bytes<T, TL>(K, 2, split), grid, split, st,
+        static_cast<const T*>(xp), static_cast<const T*>(w_mu),
+        static_cast<const T*>(w_var), static_cast<T*>(act_mu),
+        static_cast<T*>(act_var), I, Hp, Wp, O, K, H, W);
+  });
 }
 
 }  // namespace
@@ -152,15 +71,21 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (xp, w_mu, w_var, act_mu and act_var share
 // it). xp (I, Hp, Wp); w_mu, w_var (O, I, K, K); act_mu, act_var (O, Hp-K+1,
-// Wp-K+1).
+// Wp-K+1). tile and split as cf_conv_fwd's.
 int lrt_conv_fwd(const void* xp, const void* w_mu, const void* w_var, void* act_mu,
                  void* act_var, int dtype, int I, int Hp, int Wp, int O, int K,
-                 void* stream) {
+                 int tile, int split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K < 1 || K > 3 || split < 1 || split > conv_mma::kMaxSplit)
+    return (int)cudaErrorInvalidValue;
+  const int chunk = dtype == 0 ? 8 : 16;
+  if (split > (I + chunk - 1) / chunk) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, K, st);
+    return launch<float>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, K,
+                         tile, split, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp, O, K, st);
+    return launch<__nv_bfloat16>(xp, w_mu, w_var, act_mu, act_var, I, Hp, Wp,
+                                 O, K, tile, split, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,9 @@ Every source is compiled by ``nvcc`` for ``sm_90a`` at first use, one
 ``nvcc`` per source started together, and linked into one shared library
 with a plain C interface that ``ctypes`` loads. The library lives under
 ``build/kernels/<hash of the sources>/`` at the repository root, so a checkout
-builds it once and rebuilds only when a source changes.
+builds it once and rebuilds only when a source changes. Each source's
+``nvcc -Xptxas -v`` report (registers, shared memory, spills per kernel)
+is kept beside the library as ``<source>.ptxas.log``.
 
 Each kernel's Python wrapper owns a :class:`Kernel` record whose ``launches``
 counter it increments where it launches the kernel (and nowhere else), so a
@@ -39,7 +41,7 @@ _F = ctypes.c_float
 # C entry points of csrc/*.cu: name -> argtypes (every entry returns the
 # launch's cudaError_t as an int)
 _SIGNATURES = {
-    "cf_conv_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "cf_conv_fwd": [_P] * 3 + [_I] * 9 + [_P],
     "cf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "radon_banded_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
@@ -48,7 +50,7 @@ _SIGNATURES = {
     "fused_block_bwd_dc": [_P] * 9 + [_I] * 2 + [_F] * 3 + [_P],
     "fused_block_bwd_dw": [_P] * 4 + [_I] * 7 + [_P],
     "fused_block_bwd_dx": [_P] * 3 + [_I] * 5 + [_P],
-    "lrt_conv_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    "lrt_conv_fwd": [_P] * 5 + [_I] * 8 + [_P],
     "radon_dense_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "radon_dense_adj": [_P] * 4 + [_I] * 5 + [_P],
 }
@@ -99,12 +101,14 @@ def _build(out_dir: str) -> None:
         procs = []
         for src in _sources():
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", obj]
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        for cmd, _, proc in procs:
+        for cmd, obj, proc in procs:
             out, _ = proc.communicate()
             _raise_on_failure(cmd, proc.returncode, out)
+            with open(obj[:-len(".o")] + ".ptxas.log", "wb") as f:
+                f.write(out)
         lib = os.path.join(tmp, LIB_NAME)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
                *[obj for _, obj, _ in procs]]
@@ -146,6 +150,18 @@ def library() -> ctypes.CDLL:
         BUILD_SECONDS = time.perf_counter() - t0
         _LIB = lib
         return lib
+
+
+def ptxas_logs() -> dict:
+    """{source file name: its ``nvcc -Xptxas -v`` report} of the built
+    library."""
+    lib_dir = os.path.dirname(library()._name)
+    logs = {}
+    for f in sorted(os.listdir(lib_dir)):
+        if f.endswith(".ptxas.log"):
+            with open(os.path.join(lib_dir, f)) as fh:
+                logs[f[:-len(".ptxas.log")]] = fh.read()
+    return logs
 
 
 def stream_of(t: torch.Tensor) -> int:

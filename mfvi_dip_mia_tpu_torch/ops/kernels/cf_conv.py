@@ -6,15 +6,19 @@ Counterpart of ``mfvi_dip_mia_tpu/ops/pallas/cf_conv.py``. Two kernels
 * ``cf_conv_fwd`` replaces ``_conv_call``: a VALID stride-1 conv, batch 1,
   square k in {1, 2, 3, 5}, (I, Hp, Wp) x (O, I, k, k) -> (O, H, W), f32 or
   bf16 storage with f32 accumulation, output in the input's dtype. The
-  backward's dx runs on the same kernel: a full correlation of the
-  (k-1)-zero-padded cotangent with the flipped, I/O-transposed weight.
+  backward's dx runs on the same kernel in its FULL form: a full correlation
+  of the unpadded cotangent, read with a virtual (k-1) zero halo, with the
+  forward weight flipped and I/O-transposed by indexing.
 * ``cf_conv_dw`` replaces ``_dw_call``: the all-tap weight gradient
   dw[o, i, ky, kx] = sum_{y,x} g[o, y, x] * xp[i, y + ky, x + kx] in one pass
   over input and cotangent, f32.
 
 Bound on the card: arithmetic (the sites' FLOPs per byte are far above the
-H100's balance). The first version accumulates with FFMA on the CUDA cores
-in register tiles; see the source note in csrc/cf_conv.cu.
+H100's balance), and at the deep sites the number of blocks. ``cf_conv_fwd``
+is a tensor-core implicit GEMM (csrc/conv_mma.cuh: bf16 mma.sync, f32 as
+3xTF32) whose tile and cluster split of K ``tile_plan`` picks per launch, so
+that every site launches about one block per SM or more; ``cf_conv_dw``
+accumulates with FFMA on the CUDA cores. See the source notes in csrc/.
 
 Every conv site of the U-Net goes through ``conv2d_cf``: stride 2 runs as
 space-to-depth parity planes plus one stride-1 VALID conv (``_conv_s2_planes``
@@ -30,6 +34,8 @@ for a tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +50,110 @@ DW = build.Kernel("cf_conv_dw", "mfvi_dip_mia_tpu_torch/csrc/cf_conv.cu",
 _DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_SIZES = (1, 2, 3, 5)
+
+
+# -- the tile plan of the tensor-core kernels (csrc/conv_mma.cuh) -------------
+
+SMS = 132                 # the H100's streaming multiprocessors
+MAX_SPLIT = 8             # blocks of a cluster (the portable maximum)
+TILE_W = 16               # output columns of a tile row (one m16 fragment)
+# (M pixels, N channels) of conv_mma::with_tile's tiles, by index
+TILES = ((128, 64), (64, 64), (128, 32), (64, 32), (256, 16), (128, 16),
+         (64, 16))
+CHUNK_BYTES = 32          # input channels per K chunk: 16 bf16 or 8 f32
+# The plan's cost model (constants fitted to sweep_conv_plans.py's device
+# times; see its --fit). An SM that runs k blocks of a launch does k times
+# a block's warp instructions -- per chunk of its busiest rank, a staged
+# 32-byte row (slab position or weight row) and a (16 pixels x 8 channels x
+# tap) product in bf16 (mma.sync + ldmatrix) or as 3xTF32 (three MMAs and
+# the operand splits); per block the leader's reads of the other ranks'
+# partial values -- issued by at most 4 warps at once
+# (its schedulers), and waits out a chunk's copies once per chunk of each
+# round of co-resident blocks.
+_CHUNK_LATENCY = 100.0
+_ROW_COST = 1.0
+_MMA_COST = {2: 3.0, 4: 1.0}
+_REMOTE_COST = 4.0
+_SMEM_PER_SM = 232448
+_REGS_PER_SM = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """One launch of the implicit GEMM: output tiles of ``rows`` x TILE_W
+    pixels x ``bn`` channels on a (split, m_tiles, n_tiles) grid; the
+    ``split`` blocks of a cluster share an output tile and take K chunks
+    rank, rank + split, ... of ``chunks``."""
+    tile: int
+    split: int
+    rows: int
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    chunks: int
+
+    @property
+    def ctas(self) -> int:
+        return self.split * self.m_tiles * self.n_tiles
+
+    def chunks_of(self, rank: int) -> range:
+        return range(rank, self.chunks, self.split)
+
+
+def chunk_channels(dtype: torch.dtype) -> int:
+    return CHUNK_BYTES // dtype.itemsize
+
+
+def _plan(tile: int, split: int, h_out: int, w_out: int, n: int,
+          chunks: int) -> TilePlan:
+    bm, bn = TILES[tile]
+    rows = bm // TILE_W
+    return TilePlan(tile, split, rows, bn,
+                    -(-h_out // rows) * -(-w_out // TILE_W), -(-n // bn),
+                    chunks)
+
+
+def _cost(p: TilePlan, k: int, n_weights: int, itemsize: int) -> float:
+    """Estimated time of the launch in the cost model's units."""
+    bm = p.rows * TILE_W
+    nf = 4 if p.bn >= 32 else 2
+    warps = (bm // 32) * (p.bn // (8 * nf))
+    rows = ((p.rows + k - 1) * (TILE_W + k - 1) + n_weights * p.bn * k * k)
+    mma = n_weights * (bm // 16) * (p.bn // 8) * k * k
+    stage = rows * CHUNK_BYTES
+    ring = 2 if itemsize == 2 else max(2, min(4, 100 * 1024 // stage))
+    smem = max(ring * stage, n_weights * bm * p.bn * 4 if p.split > 1 else 0)
+    regs = 128 if nf == 4 or n_weights == 2 else 96
+    per_sm = max(1, min(2048 // (32 * warps), 32, _SMEM_PER_SM // smem,
+                        _REGS_PER_SM // (regs * 32 * warps)))
+    busiest = -(-p.chunks // p.split)
+    block = (busiest * (_ROW_COST * rows + _MMA_COST[itemsize] * mma)
+             + _REMOTE_COST * n_weights * bm * p.bn / 32 * (p.split - 1))
+    k_sm = -(-p.ctas // SMS)
+    issue = min(4, warps * min(k_sm, per_sm))
+    return (k_sm * block / issue
+            + -(-k_sm // per_sm) * busiest * _CHUNK_LATENCY)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(h_out: int, w_out: int, n: int, i: int, dtype: torch.dtype,
+              k: int = 3, n_weights: int = 1) -> TilePlan:
+    """The tile and the split of K of one launch: output (n, h_out, w_out)
+    from i input channels, k x k taps, ``n_weights`` contractions (2 for the
+    LRT double conv). Of the plans that launch at least min(132, the
+    smallest tile's blocks) blocks, the one the cost model rates fastest:
+    larger tiles stage fewer rows per product, a cluster split of K fills
+    the card at the deep sites. Tiles wider than the channels (beyond 16)
+    are not taken. Cached: a step asks for the same few shapes every time."""
+    chunks = -(-i // chunk_channels(dtype))
+    smallest = min(range(len(TILES)), key=lambda t: TILES[t][0] * TILES[t][1])
+    floor = min(SMS, _plan(smallest, 1, h_out, w_out, n, chunks).ctas)
+    plans = [_plan(t, s, h_out, w_out, n, chunks)
+             for t, (_, bn) in enumerate(TILES) if bn <= max(16, n)
+             for s in (1, 2, 4, 8) if s <= min(MAX_SPLIT, chunks)]
+    return min((p for p in plans if p.ctas >= floor),
+               key=lambda p: (_cost(p, k, n_weights, dtype.itemsize),
+                              p.split))
 
 
 def _check_shapes(xp: torch.Tensor, w: torch.Tensor) -> tuple[int, int]:
@@ -90,13 +200,20 @@ def conv_valid_fwd(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     o_ch = w.shape[0]
     out = torch.empty((o_ch, hp - kh + 1, wp - kw + 1), dtype=xp.dtype,
                       device=xp.device)
+    _launch_fwd(xp, w, out, i_ch, o_ch, kh, full=False)
+    return out
+
+
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
+                i_ch: int, o_ch: int, k: int, full: bool) -> None:
+    plan = tile_plan(out.shape[1], out.shape[2], o_ch, i_ch, x.dtype, k)
     lib = build.library()
-    err = lib.cf_conv_fwd(xp.data_ptr(), w.data_ptr(), out.data_ptr(),
-                          _DTYPE_CODE[xp.dtype], i_ch, hp, wp, o_ch, kh,
-                          ctypes.c_void_p(build.stream_of(xp)))
+    err = lib.cf_conv_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                          _DTYPE_CODE[x.dtype], i_ch, x.shape[1], x.shape[2],
+                          o_ch, k, int(full), plan.tile, plan.split,
+                          ctypes.c_void_p(build.stream_of(x)))
     FWD.launches += 1
     build.check(err, FWD.name)
-    return out
 
 
 # -- kernel 2: the weight gradient ---------------------------------------------
@@ -157,16 +274,34 @@ def conv_dw(xp: torch.Tensor, g: torch.Tensor, kh: int,
 def _dx_operands(g: torch.Tensor, w: torch.Tensor):
     """The input gradient of the VALID conv is a full correlation: the VALID
     conv of the cotangent zero-padded by (kh-1, kw-1) with the flipped,
-    I/O-transposed weight (cf_conv.py::_bwd). Row and column pads are
-    separate, so the kernel's square-tap assumption lives in one place."""
+    I/O-transposed weight (cf_conv.py::_bwd), as the plain version forms it.
+    Row and column pads are separate, so the square-tap assumption lives in
+    the kernel's wrapper alone."""
     kh, kw = w.shape[2], w.shape[3]
     gp = F.pad(g, (kw - 1, kw - 1, kh - 1, kh - 1))
     return gp, w.flip(2, 3).transpose(0, 1).contiguous()
 
 
 def conv_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Input gradient of the VALID conv on the ``cf_conv_fwd`` kernel."""
-    return conv_valid_fwd(*_dx_operands(g, w))
+    """Input gradient of the VALID conv: g (O, H, W), w (O, I, k, k) ->
+    (I, H+k-1, W+k-1). CUDA tensors launch ``cf_conv_fwd``'s FULL form on g
+    and w as they are (no padded or flipped copy); CPU tensors take the
+    plain version."""
+    if not g.is_cuda:
+        return conv_dx_plain(g, w)
+    build.require_cuda(g, "cf_conv_fwd g", _DTYPES)
+    build.require_cuda(w, "cf_conv_fwd w", (g.dtype,))
+    o_ch, i_ch, kh, kw = w.shape
+    if g.dim() != 3 or g.shape[0] != o_ch:
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match w "
+                         f"{tuple(w.shape)}")
+    if kh != kw or kh not in _KERNEL_SIZES:
+        raise ValueError(f"square kernel in {_KERNEL_SIZES} expected, got "
+                         f"{kh}x{kw}")
+    out = torch.empty((i_ch, g.shape[1] + kh - 1, g.shape[2] + kw - 1),
+                      dtype=g.dtype, device=g.device)
+    _launch_fwd(g, w, out, o_ch, i_ch, kh, full=True)
+    return out
 
 
 def conv_dx_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

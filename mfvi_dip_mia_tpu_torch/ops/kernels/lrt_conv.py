@@ -12,8 +12,11 @@ forward of a conv site needs two convolutions over the same input patches
 One kernel (``csrc/lrt_conv.cu``), ``lrt_conv_fwd``, replaces
 ``_double_conv_fwd``: both VALID stride-1 contractions from one read of the
 padded input, batch 1, square k in {1, 2, 3}, f32 or bf16 storage with f32
-arithmetic, outputs in the input's dtype. Bound on the card: arithmetic (see
-the source note). Its backward is the TPU module's XLA formulas
+accumulation, outputs in the input's dtype: the tensor-core implicit GEMM of
+csrc/conv_mma.cuh with a w_mu and a w_var operand (f32 as 3xTF32), on the
+tile and cluster split of K that ``cf_conv.tile_plan`` picks. Bound on the
+card: arithmetic, and at the deep sites the number of blocks (see the source
+note). Its backward is the TPU module's XLA formulas
 (lrt_conv_pallas.py::_vjp_bwd) on the VALID conv's dx and dw kernels
 (ops/kernels/cf_conv.py).
 
@@ -92,11 +95,12 @@ def double_conv_fwd(xp: torch.Tensor, w_mu: torch.Tensor,
     act_mu = torch.empty((o, hp - k + 1, wp - k + 1), dtype=xp.dtype,
                          device=xp.device)
     act_var = torch.empty_like(act_mu)
+    plan = tcf.tile_plan(hp - k + 1, wp - k + 1, o, c, xp.dtype, k, 2)
     lib = build.library()
     err = lib.lrt_conv_fwd(xp.data_ptr(), w_mu.data_ptr(), w_var.data_ptr(),
                            act_mu.data_ptr(), act_var.data_ptr(),
-                           _DTYPE_CODE[xp.dtype], c, hp, wp, o, k,
-                           ctypes.c_void_p(build.stream_of(xp)))
+                           _DTYPE_CODE[xp.dtype], c, hp, wp, o, k, plan.tile,
+                           plan.split, ctypes.c_void_p(build.stream_of(xp)))
     FWD.launches += 1
     build.check(err, FWD.name)
     return act_mu, act_var

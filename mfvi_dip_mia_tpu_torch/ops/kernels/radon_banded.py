@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from . import build
+from ...utils.device import resolve_device
 
 FWD = build.Kernel(
     "radon_banded_fwd", "mfvi_dip_mia_tpu_torch/csrc/radon_banded.cu",
@@ -162,9 +163,11 @@ def prepare_banded_numpy(theta_deg, h: int, w: int, itemsize: int = 4):
 
 def prepare_banded_direct(theta_deg, h: int, w: int,
                           dtype=torch.float32,
-                          device="cpu") -> BandedRadonState:
-    """Device-resident band state (radon_banded.py::prepare_banded_direct);
-    a bf16 band is the f32 band rounded to nearest even."""
+                          device=None) -> BandedRadonState:
+    """Device-resident band state (radon_banded.py::prepare_banded_direct)
+    on ``device``, the card unless the caller asks for the CPU; a bf16 band
+    is the f32 band rounded to nearest even."""
+    device = resolve_device(device)
     itemsize = torch.empty((), dtype=dtype).element_size()
     blocks, jlo, patch, tchunk = prepare_banded_numpy(
         theta_deg, h, w, itemsize)

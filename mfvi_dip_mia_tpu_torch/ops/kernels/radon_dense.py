@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from . import build
+from ...utils.device import resolve_device
 
 FWD = build.Kernel(
     "radon_dense_fwd", "mfvi_dip_mia_tpu_torch/csrc/radon_dense.cu",
@@ -42,11 +43,13 @@ def _chunk_rows(a: torch.Tensor) -> int:
     return max(1, _CHUNK_BYTES // (4 * a.shape[1]))
 
 
-def prepare_matrix_bf16(a_f32, device="cpu") -> torch.Tensor:
-    """The f32 matrix (numpy or tensor) cast to bf16 on ``device``, rounded
-    to nearest even as ``jnp.astype`` rounds (radon_kernel.py::
-    prepare_matrix_bf16 without its tile padding), a row chunk at a time so
-    the f32 matrix never sits on the card whole."""
+def prepare_matrix_bf16(a_f32, device=None) -> torch.Tensor:
+    """The f32 matrix (numpy or tensor) cast to bf16 on ``device`` (the card
+    unless the caller asks for the CPU), rounded to nearest even as
+    ``jnp.astype`` rounds (radon_kernel.py::prepare_matrix_bf16 without its
+    tile padding), a row chunk at a time so the f32 matrix never sits on the
+    card whole."""
+    device = resolve_device(device)
     a = torch.as_tensor(a_f32)
     out = torch.empty(a.shape, dtype=torch.bfloat16, device=device)
     step = _chunk_rows(a)

@@ -31,6 +31,7 @@ import torch
 
 from .kernels import radon_banded as rb
 from .kernels import radon_dense as rd
+from ..utils.device import resolve_device
 
 MODES = ("banded", "banded-bf16", "dense-bf16", "matmul", "gather")
 
@@ -133,18 +134,20 @@ def dense_matrix_bf16(theta_deg, h: int, w: int, device) -> torch.Tensor:
 class FastRadonTransform:
     """Static-config Radon operator: ``op(image) -> sinogram`` with image
     (B, C, H, W), H == W, and sinogram (B, C, T, W); ``theta`` in degrees.
-    The operator's state (band or matrix) is built once, on ``device``."""
+    The operator's state (band or matrix) is built once, on ``device``: the
+    card unless the caller asks for the CPU (``device="cpu"``); without a
+    card the default raises."""
 
     MATMUL_BUDGET_BYTES = 4 * 1024 ** 3
 
-    def __init__(self, image_size, theta, mode: str = "auto", device="cpu"):
+    def __init__(self, image_size, theta, mode: str = "auto", device=None):
         h, w = int(image_size[-2]), int(image_size[-1])
         if h != w:
             raise ValueError("Radon operator expects square images")
         self.theta_deg = np.asarray(theta, np.float32)
         self.h, self.w = h, w
         self.n_angles = len(self.theta_deg)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if mode == "auto":
             banded_ok = (w >= rb.auto_jwin(rb.PATCH) and h % rb.PATCH == 0)
             mode = ("banded-bf16" if self.device.type == "cuda" and banded_ok

@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Time every tile plan of the tensor-core conv kernels at the U-Net's sites.
+
+    python3 sweep_conv_plans.py [--out plans.json] [--check]
+    python3 sweep_conv_plans.py --fit plans.json
+
+On one NVIDIA GPU: for every launch of a 256^2 5-scale step (chip_smoke.py's
+conv sites) -- ``cf_conv_fwd`` forward and FULL dx in bf16 (the CT path) and
+f32 (den, the LRT backward's dx) and ``lrt_conv_fwd`` in f32 (path A) -- the
+profiler's device time of each (tile, split of K) the kernels can launch,
+beside the plan ``ops/kernels/cf_conv.py::tile_plan`` picks. Its output is
+what the plan's cost model is fitted to; the port never reads it. With
+``--check`` it first holds both kernels against their plain versions at every
+site shape (chip_smoke.py's phase-2 checks). Prints one JSON summary line.
+
+``--fit`` (no card needed) reads such a file and grid-searches the cost
+model's constants (``_CHUNK_LATENCY``, ``_ROW_COST``, ``_MMA_COST``,
+``_REMOTE_COST`` in ops/kernels/cf_conv.py) for the ones whose picks sum to
+the least measured device time; it prints them beside the sums of the
+current constants' picks and of the best plan of every launch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def candidates(tcf, h, w, n, i, dtype):
+    chunks = -(-i // tcf.chunk_channels(dtype))
+    return [tcf._plan(t, s, h, w, n, chunks)
+            for t, (_, bn) in enumerate(tcf.TILES) if bn <= max(16, n)
+            for s in (1, 2, 4, 8) if s <= min(tcf.MAX_SPLIT, chunks)]
+
+
+def fit(path: str) -> dict:
+    """The cost constants whose picks take the least measured time."""
+    import itertools
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+
+    with open(path) as f:
+        rows = json.load(f)["rows"]
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    keep = {k: getattr(tcf, k) for k in ("_CHUNK_LATENCY", "_ROW_COST",
+                                         "_MMA_COST", "_REMOTE_COST")}
+
+    def total(consts) -> float:
+        (tcf._CHUNK_LATENCY, tcf._ROW_COST, mma_bf16, mma_f32,
+         tcf._REMOTE_COST) = consts
+        tcf._MMA_COST = {2: mma_bf16, 4: mma_f32}
+        tcf.tile_plan.cache_clear()
+        t = 0.0
+        for r in rows:
+            p = tcf.tile_plan(r["h"], r["w"], r["n"], r["i"],
+                              dtypes[r["dtype"]], r["k"], r["n_weights"])
+            t += next(c["ms"] or float("inf") for c in r["times"]
+                      if (c["tile"], c["split"]) == (p.tile, p.split))
+        return t
+
+    try:
+        current = total((keep["_CHUNK_LATENCY"], keep["_ROW_COST"],
+                         keep["_MMA_COST"][2], keep["_MMA_COST"][4],
+                         keep["_REMOTE_COST"]))
+        grid = itertools.product((30.0, 100.0, 300.0, 1000.0, 3000.0),
+                                 (1.0,), (0.3, 1.0, 3.0), (1.0, 3.0, 10.0),
+                                 (0.0, 1.0, 4.0, 16.0))
+        best = min(grid, key=total)
+        fitted = total(best)
+    finally:
+        for k, v in keep.items():
+            setattr(tcf, k, v)
+        tcf.tile_plan.cache_clear()
+    # a profile that caught no kernel (0 ms) is no measurement
+    out = dict(current_ms=current, fitted_ms=fitted,
+               best_plans_ms=sum(min(c["ms"] for c in r["times"] if c["ms"])
+                                 for r in rows),
+               constants=dict(zip(("_CHUNK_LATENCY", "_ROW_COST",
+                                   "_MMA_COST_bf16",
+                                   "_MMA_COST_f32", "_REMOTE_COST"),
+                                  best)))
+    print(json.dumps(out))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--fit", default=None,
+                    help="fit the cost model to this sweep's output")
+    args = ap.parse_args(argv)
+    if args.fit:
+        fit(args.fit)
+        return 0
+
+    import torch
+    if not torch.cuda.is_available():
+        print("sweep_conv_plans: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from mfvi_dip_mia_tpu_torch.nn import build_skip_net
+    from mfvi_dip_mia_tpu_torch.ops.kernels import build
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+    from mfvi_dip_mia_tpu_torch.ops.kernels import lrt_conv as tlrt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = cs.nvidia_smi_line()
+    cs.log(smi)
+    build.library()
+    t0 = time.perf_counter()
+    nets = {n: build_skip_net(16, n_channels=n, pad="reflection",
+                              skip_n33d=[16, 32, 64, 128, 128],
+                              skip_n33u=[16, 32, 64, 128, 128], skip_n11=4,
+                              num_scales=5, upsample_mode="bilinear")
+            for n in (1, 2)}
+    sites = cs.conv_sites(nets[1], cs.SIZE)
+    l_sites = cs.conv_sites(nets[2], cs.SIZE)
+    if args.check:
+        results = {}
+        cs.check_conv_kernels(sites, results)
+        cs.check_lrt_kernel(l_sites, results)
+
+    chosen = tcf.tile_plan
+    forced = {}
+    tcf.tile_plan = lambda *a, **kw: forced.get("plan") or chosen(*a, **kw)
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(12)
+    rows = []
+    try:
+        for kind, dtype, dname, group in (
+                ("conv", torch.bfloat16, "bf16", sites),
+                ("conv", torch.float32, "f32", sites),
+                ("lrt", torch.float32, "f32", l_sites)):
+            for s in group:
+                i, hp, wp = s["xp"]
+                o, _, k, _ = s["w"]
+                if kind == "lrt":
+                    xp, w_mu, w_var, _ = cs.lrt_operands(s, dtype, gen)
+                    calls = [("fwd", hp - k + 1, wp - k + 1, o, i, 2,
+                              lambda: tlrt.double_conv_fwd(xp, w_mu, w_var))]
+                else:
+                    xp, w, g = cs.conv_operands(s, dtype, gen)
+                    calls = [("fwd", hp - k + 1, wp - k + 1, o, i, 1,
+                              lambda xp=xp, w=w: tcf.conv_valid_fwd(xp, w))]
+                    if s["needs_dx"]:
+                        calls.append(("dx", hp, wp, i, o, 1,
+                                      lambda g=g, w=w: tcf.conv_dx(g, w)))
+                for tag, h, wd, n, ci, nw, fn in calls:
+                    pick = chosen(h, wd, n, ci, dtype, k, nw)
+                    times = []
+                    for p in candidates(tcf, h, wd, n, ci, dtype):
+                        forced["plan"] = p
+                        times.append(dict(tile=p.tile, split=p.split,
+                                          ctas=p.ctas,
+                                          ms=cs.device_ms(fn, reps=5)))
+                    forced.clear()
+                    best = min((t for t in times if t["ms"] > 0),
+                               key=lambda t: t["ms"])
+                    mine = next(t for t in times if t["tile"] == pick.tile
+                                and t["split"] == pick.split)
+                    rows.append(dict(kind=kind, dtype=dname, site=s["name"],
+                                     call=tag, h=h, w=wd, n=n, i=ci, k=k,
+                                     n_weights=nw, picked=mine, best=best,
+                                     times=times))
+                    cs.log(f"{kind} {dname} {s['name']:16s} {tag}: picked "
+                           f"{tcf.TILES[pick.tile]} s{pick.split} "
+                           f"{mine['ms'] * 1e3:7.1f} us, best "
+                           f"{tcf.TILES[best['tile']]} s{best['split']} "
+                           f"{best['ms'] * 1e3:7.1f} us")
+    finally:
+        tcf.tile_plan = chosen
+    summary = {}
+    for kind, dname in (("conv", "bf16"), ("conv", "f32"), ("lrt", "f32")):
+        rs = [r for r in rows if (r["kind"], r["dtype"]) == (kind, dname)]
+        summary[f"{kind}_{dname}"] = dict(
+            picked_ms=sum(r["picked"]["ms"] for r in rs),
+            best_ms=sum(r["best"]["ms"] for r in rs), launches=len(rs))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(card=smi, rows=rows, summary=summary,
+                           seconds=time.perf_counter() - t0), f, indent=1)
+    print(json.dumps(dict(card=smi, summary=summary)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

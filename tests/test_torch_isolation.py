@@ -21,6 +21,7 @@ from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
 from mfvi_dip_mia_tpu_torch.ops.kernels import lrt_conv as tlrt
 from mfvi_dip_mia_tpu_torch.ops.kernels import radon_banded as rb
 from mfvi_dip_mia_tpu_torch.ops.kernels import radon_dense as rd
+from mfvi_dip_mia_tpu_torch.ops.radon import FastRadonTransform
 import mfvi_dip_mia_tpu_torch.tasks.problems as TP
 import mfvi_dip_mia_tpu_torch.tasks.trainer as TT
 
@@ -106,6 +107,13 @@ def test_entry_points_default_to_the_card():
         TP.build_problem("den", "mfvi", 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TT.fit(None, TT.Method("mfvi"), num_iter=1, lr=1e-3)
+    theta = np.arange(0.0, 180.0, 30.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FastRadonTransform((1, 1, 32, 32), theta)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rb.prepare_banded_direct(theta, 32, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rd.prepare_matrix_bf16(np.zeros((4, 8), np.float32))
 
 
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
@@ -117,7 +125,8 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     assert torch.equal(tcf.conv_valid_fwd(xp, w), tcf.conv_valid_plain(xp, w))
     assert torch.equal(tcf.conv_dw(xp, g, 3, 3), tcf.conv_dw_plain(xp, g, 3, 3))
     assert torch.equal(tcf.conv_dx(g, w), tcf.conv_dx_plain(g, w))
-    st = rb.prepare_banded_direct(np.arange(0.0, 180.0, 30.0), 32, 32)
+    st = rb.prepare_banded_direct(np.arange(0.0, 180.0, 30.0), 32, 32,
+                                  device="cpu")
     v = torch.from_numpy(rng.standard_normal((1, 32 * 32)).astype(np.float32))
     y = torch.from_numpy(rng.standard_normal(
         (st.t_pad * 32, 1)).astype(np.float32))

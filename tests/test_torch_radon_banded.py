@@ -26,7 +26,8 @@ REL = 1e-5
 @pytest.fixture(scope="module")
 def states():
     return {dt: (jrb.prepare_banded_direct(THETA, S, S, dtype=jdt),
-                 trb.prepare_banded_direct(THETA, S, S, dtype=dt))
+                 trb.prepare_banded_direct(THETA, S, S, dtype=dt,
+                                           device="cpu"))
             for dt, jdt in ((torch.float32, jnp.float32),
                             (torch.bfloat16, jnp.bfloat16))}
 
@@ -112,8 +113,10 @@ def test_adjoint_dot_product_identity(states, dtype):
 
 def test_banded_operator_matches_dense_matrix(img):
     """ops/radon.py: the banded and matmul modes are one operator."""
-    ob = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="banded")
-    om = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="matmul")
+    ob = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="banded",
+                                 device="cpu")
+    om = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="matmul",
+                                 device="cpu")
     x = _nchw(img)
     sb, sm = ob(x), om(x)
     assert sb.shape == sm.shape == (1, 1, len(THETA), S)
@@ -121,5 +124,6 @@ def test_banded_operator_matches_dense_matrix(img):
 
 
 def test_auto_mode_picks_the_dense_matrix_on_the_cpu():
-    op = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="auto")
+    op = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="auto",
+                                 device="cpu")
     assert op.mode == "matmul"

@@ -119,7 +119,8 @@ def test_plain_kernels_over_row_chunks(matrices, monkeypatch):
                                            ("gather", "gather")])
 def test_operator_modes_and_adjoint_match_jax(mode_t, mode_j, img):
     op_j = jradon.FastRadonTransform((1, S, S, 1), THETA, mode=mode_j)
-    op_t = tradon.FastRadonTransform((1, 1, S, S), THETA, mode=mode_t)
+    op_t = tradon.FastRadonTransform((1, 1, S, S), THETA, mode=mode_t,
+                                     device="cpu")
     assert op_t.mode == mode_t
     _close(op_t(_nchw(img)).numpy().transpose(0, 2, 3, 1), op_j(
         jnp.asarray(img)))
@@ -133,8 +134,10 @@ def test_gather_mode_is_the_dense_matrix(img):
     """The gather and the f32 matmul modes are one operator (the JAX
     package's test_matmul_mode_matches_gather, here in the port)."""
     x = _nchw(img)
-    og = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="gather")
-    om = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="matmul")
+    og = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="gather",
+                                 device="cpu")
+    om = tradon.FastRadonTransform((1, 1, S, S), THETA, mode="matmul",
+                                 device="cpu")
     _close(og(x).numpy(), om(x).numpy())
 
 
