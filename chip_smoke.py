@@ -9,14 +9,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    versions, the build of the hand-written CUDA kernels from csrc/, each
    kernel's registers, shared memory and spills (``nvcc -Xptxas -v`` of the
    build), and the HMMA (mma.sync) instructions of every instantiation of
-   the two tensor-core kernels (``cuobjdump -sass`` of the library).
+   the four tensor-core kernels (``cuobjdump -sass`` of the library; each
+   must have some).
 2. Every kernel against its plain PyTorch version on the card: the VALID
-   conv (forward and FULL dx, each twice for the same bits) and its weight
-   gradient in f32 and bf16 at every
-   conv-site shape of the 256^2 CT U-Net, the banded Radon forward and
+   conv (forward and FULL dx) and its weight gradient, each twice for the
+   same bits, in f32 and bf16 at every conv-site shape of the 256^2 CT and
+   den U-Nets and four odd shapes, the banded Radon forward and
    adjoint at 256^2 / 45 angles with the f32 and the bf16 band, the four
    fused conv + BN + LeakyReLU kernels in f32 at every fused-site shape of
-   the 256^2 den U-Net (out, stats, dconv, dgamma, dbeta, dw, dx), the LRT
+   the 256^2 den U-Net (out, stats -- twice for the same bits --, dconv,
+   dgamma, dbeta, dw, dx), the LRT
    double conv in f32 and bf16 at every conv-site shape of the 256^2 den
    U-Net (act_mu, act_var; its backward in f32 at a quarter of them), and
    the dense bf16-matrix Radon forward and adjoint at 256^2 / 45 angles.
@@ -36,9 +38,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. Each kernel's time at the paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
    off; timed here only, never called by the port), printed as one JSON
-   line ``{"kernels": [...]}``; for the two tensor-core kernels also the
-   profiler's device time of one step's calls beside cuDNN's for the same
-   calls (``device_ms``, ``library_device_ms``).
+   line ``{"kernels": [...]}``; for every kernel also the profiler's device
+   time of one step's calls beside the library's for the same calls
+   (``device_ms``, ``library_device_ms``; for the fused forward the cuDNN
+   conv + batch_norm + leaky_relu chain, for the fused dc none).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -149,8 +152,7 @@ def ptxas_report() -> dict:
             f"{max(r['registers'] for r in rows)}, static shared memory up "
             f"to {max(r['smem'] for r in rows)} B, spill bytes "
             f"{sum(r['spill'] for r in rows)}")
-    for name, tag in (("cf_conv_fwd", "conv_fwd_mma_kernel"),
-                      ("lrt_conv_fwd", "lrt_conv_fwd_mma_kernel")):
+    for name, tag in MMA_KERNELS:
         rows = [r for f, r in report.items() if tag_of(f) == tag]
         if not rows:
             raise AssertionError(f"ptxas reported no {tag}")
@@ -159,12 +161,24 @@ def ptxas_report() -> dict:
             f"{max(r['registers'] for r in rows)}, static shared memory "
             f"{max(r['smem'] for r in rows)} B, spill bytes "
             f"{sum(r['spill'] for r in rows)}")
+        for f, r in report.items():
+            if tag_of(f) == tag and r["spill"]:
+                log(f"    spills {r['spill']} B, {r['registers']} registers:"
+                    f" {f}")
     return report
+
+
+# the tensor-core kernels (mma.sync): the port's kernel, its CUDA template
+# (lrt_conv_fwd's first: conv_fwd_mma_kernel is a part of its name)
+MMA_KERNELS = (("lrt_conv_fwd", "lrt_conv_fwd_mma_kernel"),
+               ("cf_conv_fwd", "conv_fwd_mma_kernel"),
+               ("cf_conv_dw", "conv_dw_mma_kernel"),
+               ("fused_block_fwd", "fused_fwd_mma_kernel"))
 
 
 def tag_of(mangled: str) -> str:
     """The kernel template's name inside a mangled entry-function name."""
-    for tag in ("lrt_conv_fwd_mma_kernel", "conv_fwd_mma_kernel"):
+    for _, tag in MMA_KERNELS:
         if tag in mangled:
             return tag
     return ""
@@ -190,7 +204,7 @@ def sass_mma_report() -> dict:
         elif cur and re.search(r"\bHMMA\b", line):
             counts[cur] += 1
     report = {}
-    for tag in ("conv_fwd_mma_kernel", "lrt_conv_fwd_mma_kernel"):
+    for _, tag in MMA_KERNELS:
         n = [v for f, v in counts.items() if tag_of(f) == tag]
         if not n or min(n) == 0:
             raise AssertionError(f"{tag}: an instantiation without HMMA "
@@ -309,6 +323,16 @@ def conv_operands(site: dict, dtype, gen):
 
 # -- phase 2: kernels against their plain versions ----------------------------
 
+# Shapes beyond the nets' sites, so that every branch of the conv kernels
+# runs on the card: widths that are no multiple of 8 (the dw's element-wise
+# copy of g), k = 5 (the dw's one row of taps per block), ragged channel
+# tiles: (xp, w)
+EXTRA_CONV_SHAPES = (((20, 37, 29), (12, 20, 3, 3)),
+                     ((9, 23, 21), (5, 9, 5, 5)),
+                     ((40, 19, 50), (70, 40, 2, 2)),
+                     ((3, 64, 64), (33, 3, 1, 1)))
+
+
 def check_conv_kernels(sites, results: dict) -> None:
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
@@ -317,6 +341,8 @@ def check_conv_kernels(sites, results: dict) -> None:
     shapes = {}
     for s in sites:
         shapes.setdefault((s["xp"], s["w"]), s)
+    for xps, ws in EXTRA_CONV_SHAPES:
+        shapes[(xps, ws)] = dict(name="extra", xp=xps, w=ws, needs_dx=True)
     log(f"[2] conv kernels at {len(shapes)} distinct shapes of "
         f"{len(sites)} conv sites")
     for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -332,14 +358,16 @@ def check_conv_kernels(sites, results: dict) -> None:
                 ("cf_conv_dw", "dw", tcf.conv_dw(xp, g, k, k),
                  tcf.conv_dw_plain(xp, g, k, k)),
             ]
-            # a cluster's partial tiles are summed in rank order: the same
-            # bits on every call
-            again = (tcf.conv_valid_fwd(xp, w), tcf.conv_dx(g, w))
+            # a cluster's partial tiles are summed in rank order, the dw's
+            # groups of clusters in index order: the same bits on every call
+            again = (tcf.conv_valid_fwd(xp, w), tcf.conv_dx(g, w),
+                     tcf.conv_dw(xp, g, k, k))
             torch.cuda.synchronize()
-            if not (torch.equal(again[0], checks[0][2])
-                    and torch.equal(again[1], checks[1][2])):
-                raise AssertionError(f"cf_conv_fwd {dname} at xp {xps} w {ws}"
-                                     ": two calls gave different bits")
+            for (kname, _, first, _), second in zip(checks, again):
+                if not torch.equal(first, second):
+                    raise AssertionError(f"{kname} {dname} at xp {xps} w "
+                                         f"{ws}: two calls gave different "
+                                         "bits")
             for kname, kind, got, ref in checks:
                 if got.shape != ref.shape or got.dtype != ref.dtype:
                     raise AssertionError(
@@ -456,6 +484,12 @@ def check_fused_kernels(sites, results: dict) -> None:
         k = s["k"]
         out, stats = tfb.fwd(xp, wk, gamma, beta)
         out_p, stats_p = tfb.fwd_plain(xp, wk, gamma, beta)
+        # fixed-order channel sums: the same bits on every call
+        out2, stats2 = tfb.fwd(xp, wk, gamma, beta)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, out2) and torch.equal(stats, stats2)):
+            raise AssertionError(f"fused_block_fwd at {shape}: two calls "
+                                 "gave different bits")
         dc, dgam, dbet = tfb.bwd_dc(g, out_p, stats_p, gamma, beta)
         dc_p, dgam_p, dbet_p = tfb.bwd_dc_plain(g, out_p, stats_p, gamma,
                                                 beta)
@@ -961,10 +995,11 @@ def run_den(kernels) -> dict:
 
 # the port's kernels by their CUDA function names (csrc/*.cu), each matched
 # at the start of an identifier (conv_fwd_kernel is not lrt_conv_fwd_kernel)
-KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_mma_kernel", "cf_conv_dw": "conv_dw_",
+KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_mma_kernel",
+                "cf_conv_dw": "conv_dw_mma_kernel",
                 "radon_banded_fwd": "radon_fwd_",
                 "radon_banded_adj": "radon_adj_",
-                "fused_block_fwd": "fused_fwd_kernel",
+                "fused_block_fwd": "fused_fwd_mma_kernel",
                 "fused_block_bwd_dc": "fused_bwd_dc_kernel",
                 "fused_block_bwd_dw": "fused_bwd_dw_kernel",
                 "fused_block_bwd_dx": "fused_bwd_dx_kernel",
@@ -1108,7 +1143,8 @@ def time_conv_kernels(sites, results: dict) -> None:
     dw = dict(fwd)
     per_site = []
     step_kernel, step_library = [], []
-    plans = []
+    step_dw, step_dw_library = [], []
+    plans, dw_plans = [], []
     for s in sites:
         xp, w, g = conv_operands(s, dt, gen)
         o_ch, i_ch, kh, kw = w.shape
@@ -1149,9 +1185,15 @@ def time_conv_kernels(sites, results: dict) -> None:
         flops = s["flops"]
         nbytes = (xp.numel() + g.numel()) * item + o_ch * i_ch * kh * kw * 4
         b_ms, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        t_k = time_ms(lambda: tcf.conv_dw(xp, g, kh, kw))
+        fk = lambda xp=xp, g=g, kh=kh: tcf.conv_dw(xp, g, kh, kh)
+        fl = lambda xp=xp, g=g, w=w: conv2d_weight(xp[None], w.shape, g[None])
+        t_k = time_ms(fk)
         t_p = time_ms(lambda: tcf.conv_dw_plain(xp, g, kh, kw))
-        t_l = time_ms(lambda: conv2d_weight(xp[None], w.shape, g[None]))
+        t_l = time_ms(fl)
+        step_dw.append(fk)
+        step_dw_library.append(fl)
+        dwp = tcf.dw_plan(g.shape[1], g.shape[2], o_ch, i_ch, dt, kh)
+        dw_plans.append(dwp)
         for key, val in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
                          ("bound_ms", b_ms)):
             dw[key] += val
@@ -1160,7 +1202,9 @@ def time_conv_kernels(sites, results: dict) -> None:
         dw["calls"] += 1
         dw["flops"] += flops
         row["dw"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                         gflop=flops / 1e9)
+                         gflop=flops / 1e9, tile=list(tcf.DW_TILES[dwp.tile]),
+                         cluster=dwp.cluster, groups=dwp.groups,
+                         ctas=dwp.ctas)
         per_site.append(row)
     log(f"[4] cf_conv_fwd tile plans of the {len(plans)} bf16 launches: "
         + ", ".join(f"{bm}x{bn} {sum(tcf.TILES[p.tile] == (bm, bn) for p in plans)}"
@@ -1169,8 +1213,20 @@ def time_conv_kernels(sites, results: dict) -> None:
                                   for k in (1, 2, 4, 8))
         + f"; blocks per launch {min(p.ctas for p in plans)}-"
         f"{max(p.ctas for p in plans)}")
+    log(f"[4] cf_conv_dw plans of the {len(dw_plans)} bf16 launches: tiles "
+        + ", ".join(f"{'x'.join(map(str, t))} "
+                    f"{sum(tcf.DW_TILES[p.tile] == t for p in dw_plans)}"
+                    for t in tcf.DW_TILES)
+        + "; splits " + ", ".join(
+            f"{n} {sum(p.split == n for p in dw_plans)}"
+            for n in sorted({p.split for p in dw_plans}))
+        + f"; blocks per launch {min(p.ctas for p in dw_plans)}-"
+        f"{max(p.ctas for p in dw_plans)}")
     fwd["device_ms"] = device_ms(lambda: [f() for f in step_kernel])
     fwd["library_device_ms"] = device_ms(lambda: [f() for f in step_library])
+    dw["device_ms"] = device_ms(lambda: [f() for f in step_dw])
+    dw["library_device_ms"] = device_ms(
+        lambda: [f() for f in step_dw_library])
     for name, agg in (("cf_conv_fwd", fwd), ("cf_conv_dw", dw)):
         r = results.setdefault(name, {})
         r.update(ms=agg["ms"], plain_ms=agg["plain_ms"],
@@ -1207,7 +1263,11 @@ def time_fused_kernels(sites, results: dict) -> None:
                    bound_ms=0.0, t_ops=0.0, t_bytes=0.0, calls=0, flops=0.0,
                    nbytes=0.0) for n in names}
     per_site = []
-    for s in sites:
+    steps = {n: ([], []) for n in names}   # one step's kernel / library calls
+
+    def site_calls(s):
+        """(name, flops, bytes, kernel, plain, library, chain) of each fused
+        kernel at one site, on operands bound to the closures."""
         xp, wk, gamma, beta, g = fused_operands(s, gen)
         ci, co, h, w, k = (s[n] for n in ("ci", "co", "h", "w", "k"))
         out, stats = tfb.fwd_plain(xp, wk, gamma, beta)
@@ -1236,6 +1296,11 @@ def time_fused_kernels(sites, results: dict) -> None:
                 lambda: tfb.bwd_dx(dc, wk), lambda: tfb.bwd_dx_plain(dc, wk),
                 lambda: conv2d_input((1,) + tuple(xp.shape), wk, dc[None]),
                 None))
+        return calls
+
+    for s in sites:
+        ci, co, h, w, k = (s[n] for n in ("ci", "co", "h", "w", "k"))
+        calls = site_calls(s)
         row = dict(site=s["name"], shape=[ci, co, h, w, k])
         for name, flops, nbytes, fk, fp, fl, fc in calls:
             b_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
@@ -1245,6 +1310,9 @@ def time_fused_kernels(sites, results: dict) -> None:
                      chain_ms=time_ms(fc) if fc else 0.0, bound_ms=b_ms)
             for key, val in t.items():
                 a[key] += val
+            steps[name][0].append(fk)
+            if fl or fc:
+                steps[name][1].append(fl or fc)
             a["t_ops"] += flops / PEAK_F32_FLOPS * 1e3
             a["t_bytes"] += nbytes / PEAK_BYTES_PER_S * 1e3
             a["calls"] += 1
@@ -1262,11 +1330,22 @@ def time_fused_kernels(sites, results: dict) -> None:
                            else "bytes"),
                  calls_timed_per_step=a["calls"],
                  gflop_per_step=a["flops"] / 1e9, mb_per_step=a["nbytes"] / 1e6)
-        extra = ""
+        # the profiler's device time of one step's calls, and of the same
+        # calls through the library (for the forward, the cuDNN conv +
+        # batch_norm + leaky_relu chain; the dc kernel has none)
+        kern, libs = steps[name]
+        r["device_ms"] = device_ms(lambda: [f() for f in kern])
+        r["library_device_ms"] = (device_ms(lambda: [f() for f in libs])
+                                  if libs else None)
+        extra = f"; profiler device time {r['device_ms']:.4f} ms"
+        if libs:
+            extra += f", the library's {r['library_device_ms']:.4f} ms"
         if name == "fused_block_fwd":
             r["cudnn_conv_bn_lrelu_chain_ms"] = a["chain_ms"]
+            r["library_device_ms_is_a_chain"] = True
             extra = (f", cuDNN conv + batch_norm + leaky_relu chain "
-                     f"{a['chain_ms']:.3f} ms")
+                     f"{a['chain_ms']:.3f} ms" + extra + " (a chain of "
+                     "three calls)")
         log(f"[4] {name}: {a['calls']} launches per den step, "
             f"{a['flops'] / 1e9:.3f} GFLOP, {a['nbytes'] / 1e6:.1f} MB: kernel "
             f"{a['ms']:.3f} ms, plain {a['plain_ms']:.3f} ms, library "
@@ -1314,7 +1393,11 @@ def time_radon_kernels(states, dense_bf16, results: dict) -> None:
             r[f"bound_ms_{dname}"] = b_ms
             r["library_ms"] = t_l
             if dname == "bf16":       # the main path's band
-                r.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+                r.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                         device_ms=device_ms(fk),
+                         library_device_ms=device_ms(fl))
+                log(f"    profiler device time {r['device_ms']:.4f} ms, the "
+                    f"dense f32 mv's {r['library_device_ms']:.4f} ms")
     del dense
     torch.cuda.empty_cache()
 
@@ -1409,13 +1492,16 @@ def time_dense_radon(a, results: dict) -> None:
              lambda: rd.radon_dense_adj_plain(a, y),
              lambda: torch.mv(a.T, y16))):
         t_k, t_p, t_l = time_ms(fk), time_ms(fp, reps=5), time_ms(fl)
+        d_k, d_l = device_ms(fk), device_ms(fl)
         log(f"[4] {kname} ({nbytes / 1e9:.3f} GB): kernel {t_k:.4f} ms, "
             f"plain {t_p:.4f} ms, cuBLAS bf16 mv {t_l:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), {a.numel() * 2 / (t_k * 1e-3) / 1e9:.0f}"
-            f" GB/s of matrix")
+            f" GB/s of matrix; profiler device time {d_k:.4f} ms, cuBLAS's "
+            f"{d_l:.4f} ms")
         results.setdefault(kname, {}).update(
             ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-            bound_by=b_by, gb=nbytes / 1e9)
+            bound_by=b_by, gb=nbytes / 1e9, device_ms=d_k,
+            library_device_ms=d_l)
 
 
 def main(argv=None) -> int:
@@ -1471,7 +1557,10 @@ def main(argv=None) -> int:
     # every LRT site of the den net, as the kernel sees it (stride-2 sites
     # on parity planes): the conv sites' geometry
     l_sites = conv_sites(nets[2], SIZE)
-    check_conv_kernels(sites, results)
+    # the dw runs at every conv site of the CT net (bf16), of the den net
+    # (f32, the non-fused sites) and of path A (f32, 2 per site): every
+    # distinct shape of both nets, in both dtypes
+    check_conv_kernels(sites + l_sites, results)
     states = check_radon_kernels(results)
     check_fused_kernels(f_sites, results)
     check_lrt_kernel(l_sites, results)

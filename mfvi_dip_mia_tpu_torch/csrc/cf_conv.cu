@@ -24,21 +24,23 @@
 //     FULL = true: the unpadded cotangent with a virtual zero halo and the
 //     forward weight flipped and transposed by indexing, so nothing is padded
 //     or copied before it.
-//   * conv_dw: the H*W reduction is split across blocks (blocks run in no
-//     order, unlike the TPU's sequential grid), each block writes its partial
-//     (O, I*kh*kw) tile to an f32 scratch, and a second kernel sums the splits
-//     in a fixed order: deterministic, no atomics. FFMA, on conv_tile.cuh's
-//     dw tile, shared with csrc/fused_block.cu.
+//   * conv_dw: the tensor-core GEMM of conv_mma.cuh's dw tile (M = output
+//     channels, N = input channels x taps, the reduction over pixels), on
+//     the forward's channels-last slab: each tap's B operand is the slab
+//     shifted by the tap. The pixel reduction is split across blocks
+//     (blocks run in no order, unlike the TPU's sequential grid): a cluster
+//     of up to 8 is summed by its leader through distributed shared memory,
+//     and where more splits are needed the last leader to arrive sums the
+//     clusters' partial tiles, each in a fixed order; one launch,
+//     deterministic, no float atomics. ops/kernels/cf_conv.py::dw_plan picks
+//     the tile and the split per launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "conv_mma.cuh"
-#include "conv_tile.cuh"
 
 namespace {
-
-using namespace conv_tile;
 
 // out[o, y, x] = sum_{i, ky, kx} wt[o, i, ky, kx] * x[i, y + ky - pad, x + kx - pad]
 // (conv_mma.cuh's tile; FULL: pad = K - 1 and wt the flipped, transposed w)
@@ -51,44 +53,17 @@ conv_fwd_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
       x, w, nullptr, out, nullptr, I, Hs, Ws, O, K, Hout, Wout);
 }
 
-// partial[s, o, k] = sum over split s's pixels of g[o, pix] * patch[k, pix],
-// k = (i * K + ky) * K + kx, patch[k, (y, x)] = xp[i, y + ky, x + kx].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv_dw_partial_kernel(const T* __restrict__ xp, const T* __restrict__ g,
-                       float* __restrict__ partial, int I, int Hp, int Wp,
-                       int O, int K, int H, int W, int pix_per_split) {
-  const int Kt = I * K * K;
-  const int s = blockIdx.x;
-  const int k0 = blockIdx.y * kDwT;
-  const int o0 = blockIdx.z * kDwT;
-  const int p_begin = s * pix_per_split;
-  const int p_end = min(H * W, p_begin + pix_per_split);
-  float acc[2][2];
-  dw_tile<T>(xp, g, I, Hp, Wp, O, K, p_begin, p_end, k0, o0, acc);
-
-  const int to = threadIdx.x / 16, tk = threadIdx.x % 16;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int oc = o0 + to * 2 + a;
-    if (oc >= O) continue;
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int kc = k0 + tk * 2 + b;
-      if (kc < Kt) partial[((size_t)s * O + oc) * Kt + kc] = acc[a][b];
-    }
-  }
-}
-
-// out[j] = sum_s partial[s, j] in split order (deterministic).
-__global__ void __launch_bounds__(kThreads)
-conv_dw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                      int n, int n_split) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < n_split; ++k) s += partial[(size_t)k * n + j];
-  out[j] = s;
+// dw[o, i, ky, kx] = sum_{y, x} g[o, y, x] * xp[i, y + ky, x + kx]
+// (conv_mma.cuh's dw tile): xp (I, Hp, Wp), g (O, Hp-K+1, Wp-K+1), dw
+// (O, I, K, K) f32
+template <typename T, int WM, int WN, int WK, int K, int KYB>
+__global__ void __launch_bounds__(32 * WM * WN * WK)
+conv_dw_mma_kernel(const T* __restrict__ xp, const T* __restrict__ g,
+                   float* __restrict__ dw, float* __restrict__ partial,
+                   int* __restrict__ ticket, int I, int Hp, int Wp, int O,
+                   int cluster, int vec) {
+  conv_mma::dw_tile_mma<T, conv_mma::DwTile<WM, WN, WK>, K, KYB>(
+      xp, g, dw, partial, ticket, I, Hp, Wp, O, cluster, vec != 0);
 }
 
 template <typename T, bool FULL>
@@ -118,6 +93,43 @@ int launch_fwd_full(const void* x, const void* w, void* out, int I, int Hs,
               : launch_fwd<T, false>(x, w, out, I, Hs, Ws, O, K, tile, split, st);
 }
 
+template <typename T, int K, int KYB>
+int launch_dw(const void* xp, const void* g, float* partial, int* ticket,
+              float* out, int I, int Hp, int Wp, int O, int tile, int cluster,
+              int groups, cudaStream_t st) {
+  const int W = Wp - K + 1;
+  const int vec = reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                  (W * (int)sizeof(T)) % 16 == 0;
+  return conv_mma::with_dw_tile<K == 5>(tile, [&](auto tl) {
+    using TL = decltype(tl);
+    const int tiles = ((O + TL::BO - 1) / TL::BO) *
+                      ((I + TL::BC - 1) / TL::BC) * (K / KYB);
+    return conv_mma::launch(
+        conv_dw_mma_kernel<T, TL::WM, TL::WN, TL::WK, K, KYB>, TL::kThreads,
+        conv_mma::dw_smem_bytes<T, TL>(K, KYB, cluster),
+        dim3(cluster * groups, tiles, 1), cluster, st,
+        static_cast<const T*>(xp), static_cast<const T*>(g), out, partial,
+        ticket, I, Hp, Wp, O, cluster, vec);
+  });
+}
+
+template <typename T>
+int launch_dw_k(const void* xp, const void* g, float* partial, int* ticket,
+                float* out, int I, int Hp, int Wp, int O, int K, int tile,
+                int cluster, int groups, cudaStream_t st) {
+  switch (K) {
+    case 1: return launch_dw<T, 1, 1>(xp, g, partial, ticket, out, I, Hp, Wp,
+                                      O, tile, cluster, groups, st);
+    case 2: return launch_dw<T, 2, 2>(xp, g, partial, ticket, out, I, Hp, Wp,
+                                      O, tile, cluster, groups, st);
+    case 3: return launch_dw<T, 3, 3>(xp, g, partial, ticket, out, I, Hp, Wp,
+                                      O, tile, cluster, groups, st);
+    case 5: return launch_dw<T, 5, 1>(xp, g, partial, ticket, out, I, Hp, Wp,
+                                      O, tile, cluster, groups, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -145,32 +157,25 @@ int cf_conv_fwd(const void* x, const void* w, void* out, int dtype, int I,
   return (int)cudaErrorInvalidValue;
 }
 
-// xp (I, Hp, Wp) and g (O, Hp-K+1, Wp-K+1) in dtype; partial (n_split, O,
-// I*K*K) f32 scratch; out (O, I*K*K) f32.
-int cf_conv_dw(const void* xp, const void* g, float* partial, float* out,
-               int dtype, int I, int Hp, int Wp, int O, int K, int n_split,
-               int pix_per_split, void* stream) {
+// xp (I, Hp, Wp) and g (O, Hp-K+1, Wp-K+1) in dtype -> out (O, I, K, K)
+// f32, K in {1, 2, 3, 5}. tile: conv_mma::with_dw_tile's index (0 for K = 5);
+// the pixel tiles split over cluster * groups blocks per output tile
+// (cluster 1-8). partial: groups * (output tiles) * BO * BC * K * K floats
+// of scratch (unread when groups == 1); ticket: one int per output tile,
+// zero, and left zero.
+int cf_conv_dw(const void* xp, const void* g, float* partial, int* ticket,
+               float* out, int dtype, int I, int Hp, int Wp, int O, int K,
+               int tile, int cluster, int groups, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int H = Hp - K + 1, W = Wp - K + 1;
-  const int Kt = I * K * K;
-  dim3 grid(n_split, (Kt + kDwT - 1) / kDwT, (O + kDwT - 1) / kDwT);
-  if (dtype == 0) {
-    conv_dw_partial_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(xp), static_cast<const float*>(g), partial,
-        I, Hp, Wp, O, K, H, W, pix_per_split);
-  } else if (dtype == 1) {
-    conv_dw_partial_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(xp), static_cast<const __nv_bfloat16*>(g),
-        partial, I, Hp, Wp, O, K, H, W, pix_per_split);
-  } else {
+  if (cluster < 1 || cluster > conv_mma::kMaxSplit || groups < 1)
     return (int)cudaErrorInvalidValue;
-  }
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int n = O * Kt;
-  conv_dw_reduce_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      partial, out, n, n_split);
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch_dw_k<float>(xp, g, partial, ticket, out, I, Hp, Wp, O, K,
+                              tile, cluster, groups, st);
+  if (dtype == 1)
+    return launch_dw_k<__nv_bfloat16>(xp, g, partial, ticket, out, I, Hp, Wp,
+                                      O, K, tile, cluster, groups, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

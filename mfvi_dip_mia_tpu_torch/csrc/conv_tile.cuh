@@ -1,8 +1,9 @@
-// Device code shared by the port's direct convolutions (csrc/cf_conv.cu and
-// csrc/fused_block.cu): the register-tiled FFMA tile of a VALID stride-1
-// conv, the split-reduction tile of its weight gradient, and deterministic
-// warp reductions. See the source notes of the two .cu files for what bounds
-// the kernels built from these tiles.
+// Device code of the fused block's FFMA kernels (csrc/fused_block.cu): the
+// register-tiled FFMA tile of a VALID stride-1 conv (its dx), the
+// split-reduction tile of its weight gradient, and deterministic warp
+// reductions (also its forward's). The tensor-core tiles are in
+// conv_mma.cuh. See fused_block.cu's source notes for what bounds the
+// kernels built from these tiles.
 
 #pragma once
 

@@ -22,12 +22,21 @@
 //
 // What bounds them on the card: the conv (forward, dw, dx) is arithmetic;
 // the BN and LeakyReLU passes move (Co, H, W) f32 a few times and are bound
-// by bytes. This first version runs the conv on the CUDA cores (FFMA), with
-// the register tile of csrc/cf_conv.cu (conv_tile.cuh). One launch per
-// site and pass matters more than kernel time at these sizes: the training
-// step is bound by the host's launch rate.
-//   * fwd: exact two-pass biased variance over H*W (not the shifted one-pass
-//     moments of the unfused chain), stats = [mu, inv] per channel.
+// by bytes. One launch per site and pass matters more than kernel time at
+// these sizes: the training step is bound by the host's launch rate.
+//   * fwd: pass 1 runs the conv on the tensor cores, on conv_mma.cuh's
+//     implicit-GEMM tile in 3xTF32 (the 128 x 16 tile of ops/kernels/
+//     fused_block.py::FWD_TILE, no split of K: the cooperative grid walks
+//     the tiles), its epilogue storing the tile and summing it per channel
+//     in a fixed order. The deep sites (8^2-32^2) have few tiles, each
+//     walking all of K = Ci * k^2 in order: they take the most time.
+//     Passes 2 and 3 walk (channel, 2048-pixel chunk) items: the exact
+//     two-pass biased variance over H*W (not the shifted one-pass moments of
+//     the unfused chain), stats = [mu, inv] per channel, then normalize +
+//     LeakyReLU in place. The launch is sized to the co-resident blocks at
+//     the tile's real dynamic shared memory.
+//   * dc, dw and dx run on the CUDA cores (FFMA), with the register tiles of
+//     conv_tile.cuh.
 //   * bwd_dc: xhat recomputed from the block OUTPUT (LeakyReLU inverted by
 //     sign, a safe reciprocal of gamma), two passes with one grid.sync().
 //   * bwd_dw: split reduction over pixels into f32 partials, grid.sync(), and
@@ -39,6 +48,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "conv_mma.cuh"
 #include "conv_tile.cuh"
 
 namespace cg = cooperative_groups;
@@ -49,164 +59,136 @@ using namespace conv_tile;
 
 constexpr int kWarps = kThreads / 32;
 
-// (row tile x column tile x channel tile) work items of a conv tile
-template <int OG>
-struct Items {
-  int tiles_x, n_sp, n_items;
-  __device__ __forceinline__ Items(int H, int W, int O) {
-    tiles_x = (W + kTW - 1) / kTW;
-    n_sp = tiles_x * ((H + Geom<OG>::TH - 1) / Geom<OG>::TH);
-    n_items = n_sp * ((O + Geom<OG>::OT - 1) / Geom<OG>::OT);
-  }
-  __device__ __forceinline__ void decode(int item, int& sp, int& x0, int& y0,
-                                         int& o0) const {
-    sp = item % n_sp;
-    o0 = (item / n_sp) * Geom<OG>::OT;
-    x0 = (sp % tiles_x) * kTW;
-    y0 = (sp / tiles_x) * Geom<OG>::TH;
-  }
-};
-
-// The tile's per-channel sum of v (this thread's kOPT channels) to
-// part[sp * O + oc], in a fixed order: a warp shuffle tree, then the group's
-// warps in order.
-template <int OG>
-__device__ __forceinline__ void tile_channel_sum(const float (&v)[kOPT],
-                                                 float* part, int sp, int o0,
-                                                 int O) {
-  constexpr int WPG = Geom<OG>::PT / 32;  // warps per output-channel group
-  __shared__ float red[kWarps][kOPT];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 0; o < kOPT; ++o) {
-    const float s = warp_sum(v[o]);
-    if (lane == 0) red[warp][o] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < Geom<OG>::OT) {
-    const int grp = threadIdx.x / kOPT, o = threadIdx.x % kOPT;
-    float s = 0.f;
-    for (int k = 0; k < WPG; ++k) s += red[grp * WPG + k][o];
-    const int oc = o0 + threadIdx.x;
-    if (oc < O) part[(size_t)sp * O + oc] = s;
-  }
-  __syncthreads();
-}
-
-// dst[c] = sum over the n_sp spatial tiles of part[t * O + o0 + c] for the
-// tile's OT channels (warp w takes channels w, w + 8, ...).
-template <int OG>
-__device__ __forceinline__ void channel_totals(const float* part, float* dst,
-                                               int n_sp, int o0, int O) {
-  const int warp = threadIdx.x >> 5;
-  for (int c = warp; c < Geom<OG>::OT; c += kWarps) {
-    float s = 0.f;
-    if (o0 + c < O) s = warp_sum_strided(part + o0 + c, n_sp, O);
-    if ((threadIdx.x & 31) == 0) dst[c] = s;
-  }
-  __syncthreads();
-}
+constexpr int kFwdPix = 2048;  // pixels of one BN work item of the forward
 
 // out (O, H, W) <- lrelu(bn(conv(xp, w))), stats (O, 2) <- [mu, inv];
-// xp (I, H+K-1, W+K-1) the padded input, w (O, I, K, K); part_sum / part_sq
-// scratch of n_sp * O floats each.
-template <int K, int OG>
-__global__ void __launch_bounds__(kThreads)
-fused_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w,
-                 const float* __restrict__ gamma, const float* __restrict__ beta,
-                 float* out, float* stats, float* part_sum, float* part_sq,
-                 int I, int H, int W, int O, float inv_hw, float slope,
-                 float eps) {
-  constexpr int OT = Geom<OG>::OT;
-  __shared__ float mu_s[OT], inv_s[OT];
+// xp (I, H+K-1, W+K-1) the padded input, w (O, I, K, K); part_sum: m_tiles
+// * O floats, part_sq: O * ceil(H*W / kFwdPix) floats of scratch.
+template <class TL>
+__global__ void __launch_bounds__(TL::kThreads)
+fused_fwd_mma_kernel(const float* __restrict__ xp,
+                     const float* __restrict__ w,
+                     const float* __restrict__ gamma,
+                     const float* __restrict__ beta, float* out, float* stats,
+                     float* part_sum, float* part_sq, int I, int H, int W,
+                     int O, int K, float inv_hw, float slope, float eps) {
+  constexpr int THREADS = TL::kThreads, NWARP = THREADS / 32;
+  __shared__ float red[TL::WM][TL::BN];
+  __shared__ float wsum[NWARP];
+  __shared__ float tot[2];
   cg::grid_group grid = cg::this_grid();
-  const Items<OG> it(H, W, O);
-  const Lane<OG> ln;
-  int sp, x0, y0, o0;
+  const int m_tiles = ((H + TL::TH - 1) / TL::TH) *
+                      ((W + conv_mma::kTW - 1) / conv_mma::kTW);
+  const int n_items = m_tiles * ((O + TL::BN - 1) / TL::BN);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // pass 1: the conv tile into out, its per-channel sums into part_sum
-  for (int item = blockIdx.x; item < it.n_items; item += gridDim.x) {
-    it.decode(item, sp, x0, y0, o0);
-    float acc[kOPT][kPX];
-    accumulate<float, K, OG, false>(xp, w, I, H + K - 1, W + K - 1, O, x0, y0,
-                                    o0, acc);
-    const int y = y0 + ln.ty;
-    float v[kOPT];
+  // pass 1: the conv tile (3xTF32 on the tensor cores) into out, its
+  // per-channel sums into part_sum[my * O + oc]: each thread's pixels in
+  // (mf, column half) order, the 8 lanes of a channel pair by a shuffle
+  // tree (lane g = 0's result), then the tile's WM warp rows in order
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int my = item % m_tiles, nz = item / m_tiles;
+    conv_mma::conv_tile_mma_at<float, TL, 1, false>(
+        xp, w, nullptr, I, H + K - 1, W + K - 1, O, K, H, W,
+        conv_mma::AtTile{(unsigned)my, (unsigned)nz},
+        [&](const float (&acc)[1][conv_mma::kMF][TL::NF][4], int y0, int x0,
+            int n0, int warp_m, int warp_n, int ln) {
+          const int g = ln >> 2, t = ln & 3;
 #pragma unroll
-    for (int o = 0; o < kOPT; ++o) {
-      v[o] = 0.f;
-      const int oc = o0 + ln.og * kOPT + o;
+          for (int nf = 0; nf < TL::NF; ++nf)
 #pragma unroll
-      for (int p = 0; p < kPX; ++p) {
-        const int xx = x0 + ln.tx * kPX + p;
-        if (oc < O && y < H && xx < W) {
-          out[((size_t)oc * H + y) * W + xx] = acc[o][p];
-          v[o] += acc[o][p];
-        }
-      }
-    }
-    tile_channel_sum<OG>(v, part_sum, sp, o0, O);
+            for (int c2 = 0; c2 < 2; ++c2) {
+              const int n = warp_n * TL::NF * 8 + nf * 8 + 2 * t + c2;
+              const int oc = n0 + n;
+              float v = 0.f;
+#pragma unroll
+              for (int mf = 0; mf < conv_mma::kMF; ++mf) {
+                const int y = y0 + conv_mma::kMF * warp_m + mf;
+#pragma unroll
+                for (int eh = 0; eh < 2; ++eh) {
+                  const int xx = x0 + g + eh * 8;
+                  if (oc < O && y < H && xx < W) {
+                    const float a = acc[0][mf][nf][eh * 2 + c2];
+                    out[((size_t)oc * H + y) * W + xx] = a;
+                    v += a;
+                  }
+                }
+              }
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1)
+                v += __shfl_xor_sync(0xffffffffu, v, off);
+              if (g == 0) red[warp_m][n] = v;
+            }
+          __syncthreads();
+          if (threadIdx.x < TL::BN && n0 + threadIdx.x < O) {
+            float v = 0.f;
+            for (int r = 0; r < TL::WM; ++r) v += red[r][threadIdx.x];
+            part_sum[(size_t)my * O + n0 + threadIdx.x] = v;
+          }
+          __syncthreads();
+        });
   }
   grid.sync();
 
-  // pass 2: the centred sums of squares (exact two-pass variance)
-  for (int item = blockIdx.x; item < it.n_items; item += gridDim.x) {
-    it.decode(item, sp, x0, y0, o0);
-    channel_totals<OG>(part_sum, mu_s, it.n_sp, o0, O);
-    const int y = y0 + ln.ty;
-    float v[kOPT];
-#pragma unroll
-    for (int o = 0; o < kOPT; ++o) {
-      v[o] = 0.f;
-      const int oc = o0 + ln.og * kOPT + o;
-      const float mu = mu_s[ln.og * kOPT + o] * inv_hw;
-#pragma unroll
-      for (int p = 0; p < kPX; ++p) {
-        const int xx = x0 + ln.tx * kPX + p;
-        if (oc < O && y < H && xx < W) {
-          const float d = out[((size_t)oc * H + y) * W + xx] - mu;
-          v[o] += d * d;
-        }
-      }
+  // BN work items: (channel c, chunk of kFwdPix pixels); a channel's mean
+  // is the sum of its m_tiles tile sums in one fixed order (warp 0), the
+  // same bits in every block
+  const int HW = H * W;
+  const int n_chunks = (HW + kFwdPix - 1) / kFwdPix;
+  const int n_bn = O * n_chunks;
+  auto totals = [&](int c, bool with_var) {
+    if (warp == 0) {
+      const float s = warp_sum_strided(part_sum + c, m_tiles, O);
+      if (lane == 0) tot[0] = s;
+    } else if (warp == 1 && with_var) {
+      const float s = warp_sum_strided(part_sq + (size_t)c * n_chunks,
+                                       n_chunks, 1);
+      if (lane == 0) tot[1] = s;
     }
-    tile_channel_sum<OG>(v, part_sq, sp, o0, O);
+    __syncthreads();
+  };
+
+  // pass 2: the centred sums of squares (exact two-pass variance), per
+  // chunk: the threads' strided sums, the warp trees, the warps in order
+  for (int item = blockIdx.x; item < n_bn; item += gridDim.x) {
+    const int c = item / n_chunks, ch = item % n_chunks;
+    totals(c, false);
+    const float mu = tot[0] * inv_hw;
+    const int p_end = min(HW, (ch + 1) * kFwdPix);
+    float v = 0.f;
+    for (int p = ch * kFwdPix + threadIdx.x; p < p_end; p += THREADS) {
+      const float d = out[(size_t)c * HW + p] - mu;
+      v += d * d;
+    }
+    v = warp_sum(v);
+    if (lane == 0) wsum[warp] = v;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int k = 0; k < NWARP; ++k) s += wsum[k];
+      part_sq[(size_t)c * n_chunks + ch] = s;
+    }
+    __syncthreads();
   }
   grid.sync();
 
   // pass 3: stats, then normalize + LeakyReLU in place
-  for (int item = blockIdx.x; item < it.n_items; item += gridDim.x) {
-    it.decode(item, sp, x0, y0, o0);
-    channel_totals<OG>(part_sum, mu_s, it.n_sp, o0, O);
-    channel_totals<OG>(part_sq, inv_s, it.n_sp, o0, O);
-    if (threadIdx.x < OT) {
-      const float mu = mu_s[threadIdx.x] * inv_hw;
-      const float var = inv_s[threadIdx.x] * inv_hw;
-      const float inv = 1.f / sqrtf(var + eps);
-      mu_s[threadIdx.x] = mu;
-      inv_s[threadIdx.x] = inv;
-      const int oc = o0 + threadIdx.x;
-      if (sp == 0 && oc < O) {
-        stats[oc * 2] = mu;
-        stats[oc * 2 + 1] = inv;
-      }
+  for (int item = blockIdx.x; item < n_bn; item += gridDim.x) {
+    const int c = item / n_chunks, ch = item % n_chunks;
+    totals(c, true);
+    const float mu = tot[0] * inv_hw;
+    const float var = tot[1] * inv_hw;
+    const float inv = 1.f / sqrtf(var + eps);
+    if (ch == 0 && threadIdx.x == 0) {
+      stats[c * 2] = mu;
+      stats[c * 2 + 1] = inv;
     }
-    __syncthreads();
-    const int y = y0 + ln.ty;
-#pragma unroll
-    for (int o = 0; o < kOPT; ++o) {
-      const int oc = o0 + ln.og * kOPT + o;
-      if (oc >= O || y >= H) continue;
-      const float mu = mu_s[ln.og * kOPT + o], inv = inv_s[ln.og * kOPT + o];
-      const float ga = gamma[oc], be = beta[oc];
-#pragma unroll
-      for (int p = 0; p < kPX; ++p) {
-        const int xx = x0 + ln.tx * kPX + p;
-        if (xx < W) {
-          float* q = &out[((size_t)oc * H + y) * W + xx];
-          const float yv = (*q - mu) * inv * ga + be;
-          *q = yv > 0.f ? yv : slope * yv;
-        }
-      }
+    const float ga = gamma[c], be = beta[c];
+    const int p_end = min(HW, (ch + 1) * kFwdPix);
+    for (int p = ch * kFwdPix + threadIdx.x; p < p_end; p += THREADS) {
+      float* q = &out[(size_t)c * HW + p];
+      const float yv = (*q - mu) * inv * ga + be;
+      *q = yv > 0.f ? yv : slope * yv;
     }
     __syncthreads();
   }
@@ -375,21 +357,29 @@ fused_bwd_dx_kernel(const float* __restrict__ dc, const float* __restrict__ w,
   }
 }
 
-// The co-resident block count of a cooperative kernel on the current device,
-// cached per kernel (the kernels of one signature share a pointer type, so
-// the cache is keyed by the pointer).
-int max_coop_blocks(const void* kern) {
-  static const void* keys[32];
-  static int vals[32];
+// The co-resident block count of a cooperative kernel of `threads` threads
+// and `smem` bytes of dynamic shared memory on the current device, cached
+// per (kernel, smem). The kernel's dynamic shared memory limit is raised to
+// `smem` first, as its launch needs.
+int max_coop_blocks(const void* kern, int threads, int smem) {
+  static const void* keys[64];
+  static int smems[64], vals[64];
   static int n = 0;
   for (int i = 0; i < n; ++i)
-    if (keys[i] == kern) return vals[i];
+    if (keys[i] == kern && smems[i] == smem) return vals[i];
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0);
-  if (n < 32) {
+  if (smem > conv_mma::kOptInSmem &&
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem) != cudaSuccess)
+    return 0;
+  if (n < 64) {
     keys[n] = kern;
+    smems[n] = smem;
     vals[n++] = per_sm * sms;
   }
   return per_sm * sms;
@@ -397,42 +387,37 @@ int max_coop_blocks(const void* kern) {
 
 // A cooperative launch on min(items, co-resident blocks) blocks.
 template <typename Kern>
-int launch_coop(Kern kern, int n_items, void** args, cudaStream_t st) {
-  const int max_blocks = max_coop_blocks(reinterpret_cast<const void*>(kern));
+int launch_coop(Kern kern, int n_items, void** args, cudaStream_t st,
+                int threads = kThreads, int smem = 0) {
+  const void* fn = reinterpret_cast<const void*>(kern);
+  const int max_blocks = max_coop_blocks(fn, threads, smem);
   if (max_blocks <= 0 || n_items <= 0) return (int)cudaErrorInvalidConfiguration;
   const int blocks = n_items < max_blocks ? n_items : max_blocks;
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kern), dim3(blocks), dim3(kThreads), args, 0,
-      st);
+      fn, dim3(blocks), dim3(threads), args, smem, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int K, int OG>
-int fwd_k(const float* xp, const float* w, const float* gamma,
-          const float* beta, float* out, float* stats, float* part_sum,
-          float* part_sq, int I, int H, int W, int O, float inv_hw, float slope,
-          float eps, cudaStream_t st) {
-  const int tiles = ((W + kTW - 1) / kTW) * ((H + Geom<OG>::TH - 1) / Geom<OG>::TH);
-  const int n_items = tiles * ((O + Geom<OG>::OT - 1) / Geom<OG>::OT);
-  void* args[] = {&xp, &w, &gamma, &beta, &out, &stats, &part_sum, &part_sq,
-                  &I, &H, &W, &O, &inv_hw, &slope, &eps};
-  return launch_coop(fused_fwd_kernel<K, OG>, n_items, args, st);
-}
-
-template <int K>
-int fwd_og(const float* xp, const float* w, const float* gamma,
-           const float* beta, float* out, float* stats, float* part_sum,
-           float* part_sq, int I, int H, int W, int O, float inv_hw,
-           float slope, float eps, cudaStream_t st) {
-  if (O <= kOPT)
-    return fwd_k<K, 1>(xp, w, gamma, beta, out, stats, part_sum, part_sq, I, H,
-                       W, O, inv_hw, slope, eps, st);
-  if (O <= 2 * kOPT)
-    return fwd_k<K, 2>(xp, w, gamma, beta, out, stats, part_sum, part_sq, I, H,
-                       W, O, inv_hw, slope, eps, st);
-  return fwd_k<K, 4>(xp, w, gamma, beta, out, stats, part_sum, part_sq, I, H,
-                     W, O, inv_hw, slope, eps, st);
+// the forward on conv_mma's tile `tile` (conv_mma::with_tile's index; the
+// grid walks the tiles, so no cluster split)
+int fwd_tile(const float* xp, const float* w, const float* gamma,
+             const float* beta, float* out, float* stats, float* part_sum,
+             float* part_sq, int I, int H, int W, int O, int K, int tile,
+             float inv_hw, float slope, float eps, cudaStream_t st) {
+  return conv_mma::with_tile(tile, [&](auto tl) {
+    using TL = decltype(tl);
+    const int m_tiles = ((H + TL::TH - 1) / TL::TH) *
+                        ((W + conv_mma::kTW - 1) / conv_mma::kTW);
+    const int conv_items = m_tiles * ((O + TL::BN - 1) / TL::BN);
+    const int bn_items = O * ((H * W + kFwdPix - 1) / kFwdPix);
+    void* args[] = {&xp, &w, &gamma, &beta, &out, &stats, &part_sum,
+                    &part_sq, &I, &H, &W, &O, &K, &inv_hw, &slope, &eps};
+    return launch_coop(fused_fwd_mma_kernel<TL>,
+                       conv_items > bn_items ? conv_items : bn_items, args,
+                       st, TL::kThreads,
+                       conv_mma::smem_bytes<float, TL>(K, 1, 1));
+  });
 }
 
 template <int K, int OG>
@@ -458,21 +443,18 @@ int dx_og(const float* dc, const float* w, float* dx, int O, int H, int W,
 extern "C" {
 
 // xp (I, H+K-1, W+K-1), w (O, I, K, K), gamma / beta (O,) -> out (O, H, W),
-// stats (O, 2); part_sum / part_sq: >= n_sp * O floats each, n_sp the
-// number of (row, column) tiles, at most ceil(H/8) * ceil(W/32).
+// stats (O, 2); tile: conv_mma::with_tile's index; part_sum: m_tiles * O
+// floats (m_tiles the tile's (row, column) tiles of H x W), part_sq: O *
+// ceil(H*W / 2048) floats.
 int fused_block_fwd(const float* xp, const float* w, const float* gamma,
                     const float* beta, float* out, float* stats,
                     float* part_sum, float* part_sq, int I, int H, int W,
-                    int O, int K, float inv_hw, float slope, float eps,
-                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K == 1)
-    return fwd_og<1>(xp, w, gamma, beta, out, stats, part_sum, part_sq, I, H,
-                     W, O, inv_hw, slope, eps, st);
-  if (K == 3)
-    return fwd_og<3>(xp, w, gamma, beta, out, stats, part_sum, part_sq, I, H,
-                     W, O, inv_hw, slope, eps, st);
-  return (int)cudaErrorInvalidValue;
+                    int O, int K, int tile, float inv_hw, float slope,
+                    float eps, void* stream) {
+  if (K != 1 && K != 3) return (int)cudaErrorInvalidValue;
+  return fwd_tile(xp, w, gamma, beta, out, stats, part_sum, part_sq, I, H, W,
+                  O, K, tile, inv_hw, slope, eps,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // g, out (O, H*W), stats (O, 2), gamma / beta (O,) -> dc (O, H*W), dgamma,

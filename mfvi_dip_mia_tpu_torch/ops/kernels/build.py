@@ -42,11 +42,11 @@ _F = ctypes.c_float
 # launch's cudaError_t as an int)
 _SIGNATURES = {
     "cf_conv_fwd": [_P] * 3 + [_I] * 9 + [_P],
-    "cf_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cf_conv_dw": [_P] * 5 + [_I] * 9 + [_P],
     "radon_banded_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "radon_banded_adj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fused_block_fwd": [_P] * 8 + [_I] * 5 + [_F] * 3 + [_P],
+    "fused_block_fwd": [_P] * 8 + [_I] * 6 + [_F] * 3 + [_P],
     "fused_block_bwd_dc": [_P] * 9 + [_I] * 2 + [_F] * 3 + [_P],
     "fused_block_bwd_dw": [_P] * 4 + [_I] * 7 + [_P],
     "fused_block_bwd_dx": [_P] * 3 + [_I] * 5 + [_P],

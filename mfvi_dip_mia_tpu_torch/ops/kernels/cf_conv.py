@@ -14,11 +14,13 @@ Counterpart of ``mfvi_dip_mia_tpu/ops/pallas/cf_conv.py``. Two kernels
   over input and cotangent, f32.
 
 Bound on the card: arithmetic (the sites' FLOPs per byte are far above the
-H100's balance), and at the deep sites the number of blocks. ``cf_conv_fwd``
-is a tensor-core implicit GEMM (csrc/conv_mma.cuh: bf16 mma.sync, f32 as
-3xTF32) whose tile and cluster split of K ``tile_plan`` picks per launch, so
-that every site launches about one block per SM or more; ``cf_conv_dw``
-accumulates with FFMA on the CUDA cores. See the source notes in csrc/.
+H100's balance), and at the deep sites the number of blocks. Both kernels
+are tensor-core GEMMs on csrc/conv_mma.cuh (bf16 mma.sync, f32 as 3xTF32)
+over the input staged channels-last in shared memory: ``cf_conv_fwd`` an
+implicit GEMM whose tile and cluster split of K ``tile_plan`` picks per
+launch, ``cf_conv_dw`` a GEMM over pixels whose tile and split of the
+pixels ``dw_plan`` picks, so that every site launches about one block per SM
+or more. See the source notes in csrc/.
 
 Every conv site of the U-Net goes through ``conv2d_cf``: stride 2 runs as
 space-to-depth parity planes plus one stride-1 VALID conv (``_conv_s2_planes``
@@ -156,6 +158,137 @@ def tile_plan(h_out: int, w_out: int, n: int, i: int, dtype: torch.dtype,
                               p.split))
 
 
+# -- the plan of the tensor-core weight gradient (conv_mma.cuh's dw tile) -----
+
+DW_ROWS = 8               # pixel rows of a dw pixel tile (x TILE_W columns)
+# (WM, WN, WK) warps of conv_mma::with_dw_tile's tiles, by index: BO = 16 WM
+# output channels x BC = 16 WN input channels, WK warps sharing the rows.
+# Of six tiles up to 64 x 32 that sweep_conv_plans.py --dw timed, the fitted
+# plan took only these two at the nets' sites.
+DW_TILES = ((1, 1, 4), (2, 1, 2))
+# splits of the pixel tiles: a cluster of min(8, split) blocks, and
+# split / 8 groups of clusters beyond 8
+DW_SPLITS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+# The dw plan's cost model (constants fitted to sweep_conv_plans.py --dw's
+# device times; see its --fit), in the shape of tile_plan's: per pixel
+# tile of a block's busiest split, a staged 32-byte row and a (16 output
+# channels x 8 channels x 16 pixels x tap) product (bf16: one mma.sync and
+# its share of ldmatrix; f32: six TF32 MMAs, their operand splits and
+# 32-bit B loads); per block the leader's reads of the other ranks' sums
+# (32 floats each); a pixel tile's copies waited out once per round of
+# co-resident blocks; and, on the critical path, the last leader's reads of
+# every group's sum (one round trip to L2 per group).
+_DW_LATENCY = 300.0
+_DW_MMA_COST = {2: 0.3, 4: 1.0}
+_DW_GLOBAL_COST = 300.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """One launch of the weight gradient: output tiles of ``bo`` output x
+    ``bc`` input channels x ``tap_rows`` rows of taps on a (split, tiles)
+    grid; the split = cluster x groups blocks of an output tile take pixel
+    tiles s, s + split, ... of ``pixel_tiles`` (DW_ROWS x TILE_W each)."""
+    tile: int
+    cluster: int
+    groups: int
+    bo: int
+    bc: int
+    tap_rows: int
+    o_tiles: int
+    c_tiles: int
+    tap_groups: int
+    pixel_tiles: int
+
+    @property
+    def split(self) -> int:
+        return self.cluster * self.groups
+
+    @property
+    def tiles(self) -> int:
+        return self.o_tiles * self.c_tiles * self.tap_groups
+
+    @property
+    def ctas(self) -> int:
+        return self.split * self.tiles
+
+    def pixel_tiles_of(self, s: int) -> range:
+        return range(s, self.pixel_tiles, self.split)
+
+    def partial_floats(self, k: int) -> int:
+        """The second level's scratch: one sum per group and output tile."""
+        if self.groups == 1:
+            return 0
+        return self.tiles * self.groups * self.bo * self.bc * self.tap_rows * k
+
+
+def _dw_plan(tile: int, cluster: int, groups: int, h: int, w: int, o: int,
+             i: int, k: int) -> DwPlan:
+    wm, wn, _ = DW_TILES[tile]
+    rows = k if k <= 3 else 1
+    return DwPlan(tile, cluster, groups, 16 * wm, 16 * wn, rows,
+                  -(-o // (16 * wm)), -(-i // (16 * wn)), k // rows,
+                  -(-h // DW_ROWS) * -(-w // TILE_W))
+
+
+def _dw_cost(p: DwPlan, k: int, itemsize: int) -> float:
+    """Estimated time of the launch in the cost model's units."""
+    wm, wn, wk = DW_TILES[p.tile]
+    warps = wm * wn * wk
+    taps = p.tap_rows * k
+    rows = (p.bc * itemsize // CHUNK_BYTES * (DW_ROWS + p.tap_rows - 1)
+            * (TILE_W + k - 1) + DW_ROWS * p.bo * itemsize // 2)
+    mma = DW_ROWS * taps * (p.bo // 16) * (p.bc // 8)
+    stage = rows * CHUNK_BYTES
+    ring = 2 if itemsize == 2 else max(2, min(4, 100 * 1024 // stage))
+    values = p.bo * p.bc * taps
+    red = max(wk - 1, 1 if p.cluster > 1 else 0) * values * 4
+    smem = max(ring * stage, red)
+    regs = 40 + 8 * taps + (16 if itemsize == 4 else 0)
+    per_sm = max(1, min(2048 // (32 * warps), 32, _SMEM_PER_SM // smem,
+                        _REGS_PER_SM // (regs * 32 * warps)))
+    ppb = -(-p.pixel_tiles // p.split)
+    block = (ppb * (_ROW_COST * rows + _DW_MMA_COST[itemsize] * mma)
+             + _REMOTE_COST * values / 32 * (p.cluster - 1))
+    k_sm = -(-p.ctas // SMS)
+    issue = min(4, warps * min(k_sm, per_sm))
+    tail = _DW_GLOBAL_COST * p.groups if p.groups > 1 else 0.0
+    return (k_sm * block / issue + -(-k_sm // per_sm) * ppb * _DW_LATENCY
+            + tail)
+
+
+def dw_candidates(h: int, w: int, o: int, i: int, k: int) -> list[DwPlan]:
+    """The plans dw_plan chooses among: the tiles no wider than the channels
+    (beyond 16; tile 0 alone for k = 5) at every split up to the pixel
+    tiles."""
+    n_pt = -(-h // DW_ROWS) * -(-w // TILE_W)
+    tiles = [0] if k == 5 else [
+        t for t, (wm, wn, _) in enumerate(DW_TILES)
+        if 16 * wm <= max(16, -(-o // 16) * 16)
+        and 16 * wn <= max(16, -(-i // 16) * 16)]
+    return [_dw_plan(t, min(MAX_SPLIT, s), max(1, s // MAX_SPLIT), h, w, o,
+                     i, k)
+            for t in tiles for s in DW_SPLITS if s <= n_pt]
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(h: int, w: int, o: int, i: int, dtype: torch.dtype,
+            k: int = 3) -> DwPlan:
+    """The tile and the split of one weight-gradient launch: cotangent
+    (o, h, w), i input channels, k x k taps. Of the plans that launch at
+    least min(132, the most blocks the smallest tile can have) blocks, the
+    one the cost model rates fastest: larger tiles stage fewer rows per
+    product; splitting the pixels fills the card, by a cluster (at most 8,
+    summed through distributed shared memory) and then by groups of 8-block
+    clusters (summed by the last to arrive). Tiles wider than the channels
+    (beyond 16) are not taken; k = 5 runs tile 0, one row of taps per
+    block. Cached."""
+    plans = dw_candidates(h, w, o, i, k)
+    floor = min(SMS, max(p.ctas for p in plans if p.tile == 0))
+    return min((p for p in plans if p.ctas >= floor),
+               key=lambda p: (_dw_cost(p, k, dtype.itemsize), p.split))
+
+
 def _check_shapes(xp: torch.Tensor, w: torch.Tensor) -> tuple[int, int]:
     if xp.dim() != 3 or w.dim() != 4:
         raise ValueError(f"expected xp (I, Hp, Wp) and w (O, I, kh, kw), got "
@@ -227,20 +360,25 @@ def conv_dw_plain(xp: torch.Tensor, g: torch.Tensor, kh: int,
     return dw.reshape(o_ch, xp.shape[0], kh, kw)
 
 
-def _dw_splits(hw: int, n_tiles: int) -> tuple[int, int]:
-    """Split the H*W reduction so the grid holds ~4 blocks per SM of the
-    H100's 132, in whole 64-pixel chunks. Returns (n_split, pix_per_split)."""
-    want = max(1, -(-528 // n_tiles))
-    per = -(-hw // want)
-    per = -(-per // 64) * 64
-    return -(-hw // per), per
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The dw kernel's ticket counters on ``device``: zero, and left zero by
+    every launch (the last block of an output tile resets its counter), so
+    one buffer serves every launch on the device's stream."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(4096, n), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def conv_dw(xp: torch.Tensor, g: torch.Tensor, kh: int,
             kw: int) -> torch.Tensor:
     """Weight gradient of the VALID conv: xp (I, Hp, Wp), g (O, H, W) ->
-    (O, I, kh, kw) f32. CUDA tensors launch ``cf_conv_dw``; CPU tensors take
-    the plain version."""
+    (O, I, kh, kw) f32. CUDA tensors launch ``cf_conv_dw`` (one launch);
+    CPU tensors take the plain version."""
     if not xp.is_cuda:
         return conv_dw_plain(xp, g, kh, kw)
     build.require_cuda(xp, "cf_conv_dw xp", _DTYPES)
@@ -252,17 +390,17 @@ def conv_dw(xp: torch.Tensor, g: torch.Tensor, kh: int,
     if (h, wd) != (hp - kh + 1, wp - kw + 1):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match xp "
                          f"{tuple(xp.shape)} and a {kh}x{kw} kernel")
-    k_tot = i_ch * kh * kw
-    n_tiles = -(-k_tot // 32) * -(-o_ch // 32)
-    n_split, per = _dw_splits(h * wd, n_tiles)
-    partial = torch.empty((n_split, o_ch, k_tot), dtype=torch.float32,
-                          device=xp.device)
+    plan = dw_plan(h, wd, o_ch, i_ch, xp.dtype, kh)
     out = torch.empty((o_ch, i_ch, kh, kw), dtype=torch.float32,
                       device=xp.device)
+    partial = (torch.empty(plan.partial_floats(kh), dtype=torch.float32,
+                           device=xp.device) if plan.groups > 1 else out)
+    ticket = _tickets(xp.device, plan.tiles)
     lib = build.library()
     err = lib.cf_conv_dw(xp.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                         out.data_ptr(), _DTYPE_CODE[xp.dtype], i_ch, hp, wp,
-                         o_ch, kh, n_split, per,
+                         ticket.data_ptr(), out.data_ptr(),
+                         _DTYPE_CODE[xp.dtype], i_ch, hp, wp, o_ch, kh,
+                         plan.tile, plan.cluster, plan.groups,
                          ctypes.c_void_p(build.stream_of(xp)))
     DW.launches += 1
     build.check(err, DW.name)

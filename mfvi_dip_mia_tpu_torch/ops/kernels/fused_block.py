@@ -4,8 +4,10 @@ kernels (counterpart of ``mfvi_dip_mia_tpu/ops/pallas/fused_block.py``).
 Four kernels (``csrc/fused_block.cu``), f32 only, as the TPU block is:
 
 * ``fused_block_fwd`` replaces ``_fwd_call``: a VALID conv of the padded
-  input (k in {1, 3}), BatchNorm over H*W with the exact two-pass biased
-  variance, LeakyReLU with ``y > 0``; returns (out, stats = [mu, inv]).
+  input (k in {1, 3}) on the tensor cores (csrc/conv_mma.cuh's tile, 3xTF32,
+  ``FWD_TILE``), BatchNorm over H*W with the exact two-pass
+  biased variance, LeakyReLU with ``y > 0``; returns (out, stats = [mu,
+  inv]).
 * ``fused_block_bwd_dc`` replaces ``_bwd_dc_call``: dconv, dgamma and dbeta
   with xhat recomputed from the block output (LeakyReLU inverted by sign, a
   safe reciprocal of gamma), so the conv output is never stored.
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .cf_conv import _dw_splits
+from .cf_conv import TilePlan, _plan, chunk_channels
 
 _SRC = "mfvi_dip_mia_tpu_torch/csrc/fused_block.cu"
 _TPU = "mfvi_dip_mia_tpu/ops/pallas/fused_block.py"
@@ -49,6 +51,7 @@ EPS = 1e-5
 KERNEL_SIZES = (1, 3)
 _F32 = (torch.float32,)
 _DC_PIX = 2048          # pixels of one bwd_dc work item (csrc kDcPix)
+_FWD_PIX = 2048         # pixels of one forward BN work item (csrc kFwdPix)
 
 
 def supported(x: torch.Tensor, k: int) -> bool:
@@ -77,6 +80,21 @@ def _lib_stream(t: torch.Tensor):
 
 
 # -- kernel 1: forward ---------------------------------------------------------
+
+# The forward's conv tile: 128 pixels x 16 channels (cf_conv.py::TILES[5]).
+# sweep_conv_plans.py --dw timed every tile at the 20 fused sites of the
+# 256^2 den net: 128x16 was the fastest at 16 of them and within 1 % of the
+# best tile per site in sum. The cooperative grid walks the tiles, so there
+# is no split of K.
+FWD_TILE = 5
+
+
+def fwd_plan(h: int, w: int, co: int, ci: int, k: int) -> TilePlan:
+    """The conv tile of the forward at an (h, w) output of co channels from
+    ci input channels (k x k taps: the tile does not depend on it)."""
+    return _plan(FWD_TILE, 1, h, w, co, -(-ci // chunk_channels(
+        torch.float32)))
+
 
 def fwd_plain(xp, w, gamma, beta, slope=SLOPE, eps=EPS):
     """Plain version of ``fused_block_fwd``: (out (Co, H, W), stats (Co, 2))."""
@@ -107,13 +125,17 @@ def fwd(xp, w, gamma, beta, slope=SLOPE, eps=EPS):
     h, wd = hp - k + 1, wp - k + 1
     out = torch.empty((co, h, wd), dtype=torch.float32, device=xp.device)
     stats = torch.empty((co, 2), dtype=torch.float32, device=xp.device)
-    n_sp = -(-h // 8) * -(-wd // 32)        # the most (row, column) tiles
-    part = torch.empty((2, n_sp * co), dtype=torch.float32, device=xp.device)
+    plan = fwd_plan(h, wd, co, ci, k)
+    # per-tile channel sums of the conv, then per-chunk centred squares
+    part_sum = plan.m_tiles * co
+    part = torch.empty(part_sum + co * -(-(h * wd) // _FWD_PIX),
+                       dtype=torch.float32, device=xp.device)
     lib, st = _lib_stream(xp)
     err = lib.fused_block_fwd(
         xp.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), stats.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), ci, h, wd, co, k, 1.0 / (h * wd), slope, eps, st)
+        out.data_ptr(), stats.data_ptr(), part.data_ptr(),
+        part[part_sum:].data_ptr(), ci, h, wd, co, k, plan.tile,
+        1.0 / (h * wd), slope, eps, st)
     FWD.launches += 1
     build.check(err, FWD.name)
     return out, stats
@@ -165,6 +187,15 @@ def bwd_dc(g, out, stats, gamma, beta, slope=SLOPE):
 
 
 # -- kernel 3: the weight gradient -------------------------------------------------
+
+def _dw_splits(hw: int, n_tiles: int) -> tuple[int, int]:
+    """Split the H*W reduction so the grid holds ~4 blocks per SM of the
+    H100's 132, in whole 64-pixel chunks. Returns (n_split, pix_per_split)."""
+    want = max(1, -(-528 // n_tiles))
+    per = -(-hw // want)
+    per = -(-per // 64) * 64
+    return -(-hw // per), per
+
 
 def bwd_dw_plain(dc, xp, k):
     """Plain version of ``fused_block_bwd_dw``: (Co, Ci, k, k)."""

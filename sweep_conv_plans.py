@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """Time every tile plan of the tensor-core conv kernels at the U-Net's sites.
 
-    python3 sweep_conv_plans.py [--out plans.json] [--check]
+    python3 sweep_conv_plans.py [--out plans.json] [--check] [--dw]
     python3 sweep_conv_plans.py --fit plans.json
 
 On one NVIDIA GPU: for every launch of a 256^2 5-scale step (chip_smoke.py's
 conv sites) -- ``cf_conv_fwd`` forward and FULL dx in bf16 (the CT path) and
 f32 (den, the LRT backward's dx) and ``lrt_conv_fwd`` in f32 (path A) -- the
 profiler's device time of each (tile, split of K) the kernels can launch,
-beside the plan ``ops/kernels/cf_conv.py::tile_plan`` picks. Its output is
-what the plan's cost model is fitted to; the port never reads it. With
-``--check`` it first holds both kernels against their plain versions at every
-site shape (chip_smoke.py's phase-2 checks). Prints one JSON summary line.
+beside the plan ``ops/kernels/cf_conv.py::tile_plan`` picks. With ``--dw``
+instead: ``cf_conv_dw`` at every distinct conv-site shape of the CT and den
+nets in bf16 and f32, at each (tile, split of the pixels) of
+``dw_candidates``, beside ``dw_plan``'s pick; and ``fused_block_fwd`` at the
+den net's 20 fused sites with each conv tile (no split of K), beside
+``fused_block.py::fwd_plan``'s pick. Its output is what the plans' cost
+models are fitted to; the port never reads it. With ``--check`` it first
+holds the kernels it times against their plain versions at every site shape
+(chip_smoke.py's phase-2 checks). Prints one JSON summary line.
 
 ``--fit`` (no card needed) reads such a file and grid-searches the cost
-model's constants (``_CHUNK_LATENCY``, ``_ROW_COST``, ``_MMA_COST``,
-``_REMOTE_COST`` in ops/kernels/cf_conv.py) for the ones whose picks sum to
-the least measured device time; it prints them beside the sums of the
-current constants' picks and of the best plan of every launch.
+model's constants -- for the conv and LRT rows ``_CHUNK_LATENCY``,
+``_ROW_COST``, ``_MMA_COST``, ``_REMOTE_COST``; for the dw rows
+``_DW_LATENCY``, ``_DW_MMA_COST``, ``_DW_GLOBAL_COST``
+(ops/kernels/cf_conv.py) -- for the ones whose picks sum to the least
+measured device time; it prints them beside the sums of the current
+constants' picks and of the best plan of every launch.
 """
 
 from __future__ import annotations
@@ -37,12 +44,74 @@ def candidates(tcf, h, w, n, i, dtype):
 
 def fit(path: str) -> dict:
     """The cost constants whose picks take the least measured time."""
+    with open(path) as f:
+        rows = json.load(f)["rows"]
+    out = {}
+    conv = [r for r in rows if r["kind"] in ("conv", "lrt")]
+    if conv:
+        out["conv"] = fit_conv(conv)
+    dw = [r for r in rows if r["kind"] == "dw"]
+    if dw:
+        out["dw"] = fit_dw(dw)
+    fused = [r for r in rows if r["kind"] == "fused"]
+    if fused:
+        out["fused"] = dict(picked_ms=sum(r["picked"]["ms"] for r in fused),
+                            best_ms=sum(r["best"]["ms"] for r in fused))
+    print(json.dumps(out))
+    return out
+
+
+def fit_dw(rows) -> dict:
+    """The dw plan's constants whose picks take the least measured time."""
     import itertools
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
 
-    with open(path) as f:
-        rows = json.load(f)["rows"]
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    names = ("_DW_LATENCY", "_DW_MMA_COST", "_DW_GLOBAL_COST")
+    keep = {k: getattr(tcf, k) for k in names}
+
+    def total(consts) -> float:
+        lat, mma_bf16, mma_f32, glob = consts
+        tcf._DW_LATENCY, tcf._DW_GLOBAL_COST = lat, glob
+        tcf._DW_MMA_COST = {2: mma_bf16, 4: mma_f32}
+        tcf.dw_plan.cache_clear()
+        t = 0.0
+        for r in rows:
+            p = tcf.dw_plan(r["h"], r["w"], r["n"], r["i"],
+                            dtypes[r["dtype"]], r["k"])
+            t += next((c["ms"] or float("inf") for c in r["times"]
+                       if (c["tile"], c["split"]) == (p.tile, p.split)),
+                      float("inf"))
+        return t
+
+    try:
+        current = total((keep["_DW_LATENCY"], keep["_DW_MMA_COST"][2],
+                         keep["_DW_MMA_COST"][4], keep["_DW_GLOBAL_COST"]))
+        grid = itertools.product((10.0, 30.0, 100.0, 300.0, 1000.0),
+                                 (0.03, 0.1, 0.3, 1.0, 3.0),
+                                 (0.1, 0.3, 1.0, 3.0, 10.0),
+                                 (10.0, 30.0, 100.0, 300.0, 1000.0))
+        best = min(grid, key=total)
+        fitted = total(best)
+    finally:
+        for k, v in keep.items():
+            setattr(tcf, k, v)
+        tcf.dw_plan.cache_clear()
+    return dict(current_ms=current, fitted_ms=fitted,
+                best_plans_ms=sum(min(c["ms"] for c in r["times"] if c["ms"])
+                                  for r in rows),
+                constants=dict(zip(("_DW_LATENCY", "_DW_MMA_COST_bf16",
+                                    "_DW_MMA_COST_f32", "_DW_GLOBAL_COST"),
+                                   best)))
+
+
+def fit_conv(rows) -> dict:
+    """tile_plan's constants whose picks take the least measured time."""
+    import itertools
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     keep = {k: getattr(tcf, k) for k in ("_CHUNK_LATENCY", "_ROW_COST",
                                          "_MMA_COST", "_REMOTE_COST")}
@@ -74,21 +143,21 @@ def fit(path: str) -> dict:
             setattr(tcf, k, v)
         tcf.tile_plan.cache_clear()
     # a profile that caught no kernel (0 ms) is no measurement
-    out = dict(current_ms=current, fitted_ms=fitted,
-               best_plans_ms=sum(min(c["ms"] for c in r["times"] if c["ms"])
-                                 for r in rows),
-               constants=dict(zip(("_CHUNK_LATENCY", "_ROW_COST",
-                                   "_MMA_COST_bf16",
-                                   "_MMA_COST_f32", "_REMOTE_COST"),
-                                  best)))
-    print(json.dumps(out))
-    return out
+    return dict(current_ms=current, fitted_ms=fitted,
+                best_plans_ms=sum(min(c["ms"] for c in r["times"] if c["ms"])
+                                  for r in rows),
+                constants=dict(zip(("_CHUNK_LATENCY", "_ROW_COST",
+                                    "_MMA_COST_bf16",
+                                    "_MMA_COST_f32", "_REMOTE_COST"),
+                                   best)))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--dw", action="store_true",
+                    help="time the dw plans and the fused forward's tiles")
     ap.add_argument("--fit", default=None,
                     help="fit the cost model to this sweep's output")
     args = ap.parse_args(argv)
@@ -119,6 +188,11 @@ def main(argv=None) -> int:
             for n in (1, 2)}
     sites = cs.conv_sites(nets[1], cs.SIZE)
     l_sites = cs.conv_sites(nets[2], cs.SIZE)
+    if args.dw:
+        rows = sweep_dw(cs, sites + l_sites, cs.fused_sites(nets[2], cs.SIZE),
+                        args.check)
+        return report(cs, smi, rows, (("dw", "bf16"), ("dw", "f32"),
+                                      ("fused", "f32")), args.out, t0)
     if args.check:
         results = {}
         cs.check_conv_kernels(sites, results)
@@ -172,18 +246,96 @@ def main(argv=None) -> int:
                            f"{best['ms'] * 1e3:7.1f} us")
     finally:
         tcf.tile_plan = chosen
+    return report(cs, smi, rows, (("conv", "bf16"), ("conv", "f32"),
+                                  ("lrt", "f32")), args.out, t0)
+
+
+def report(cs, smi, rows, groups, out, t0) -> int:
     summary = {}
-    for kind, dname in (("conv", "bf16"), ("conv", "f32"), ("lrt", "f32")):
+    for kind, dname in groups:
         rs = [r for r in rows if (r["kind"], r["dtype"]) == (kind, dname)]
         summary[f"{kind}_{dname}"] = dict(
             picked_ms=sum(r["picked"]["ms"] for r in rs),
             best_ms=sum(r["best"]["ms"] for r in rs), launches=len(rs))
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             json.dump(dict(card=smi, rows=rows, summary=summary,
                            seconds=time.perf_counter() - t0), f, indent=1)
     print(json.dumps(dict(card=smi, summary=summary)))
     return 0
+
+
+def timed_row(cs, kind, dname, name, h, w, n, i, k, plans, pick, force,
+              fn) -> dict:
+    """The device time of ``fn`` under each plan (``force(plan)`` makes the
+    wrapper take it), beside ``pick``'s."""
+    times = []
+    for p in plans:
+        with force(p):
+            times.append(dict(tile=p.tile, split=p.split, ctas=p.ctas,
+                              ms=cs.device_ms(fn, reps=5)))
+    best = min((t for t in times if t["ms"] > 0), key=lambda t: t["ms"])
+    mine = next(t for t in times
+                if (t["tile"], t["split"]) == (pick.tile, pick.split))
+    cs.log(f"{kind} {dname} {name:16s}: picked tile {pick.tile} "
+           f"s{pick.split} {mine['ms'] * 1e3:7.1f} us, best tile "
+           f"{best['tile']} s{best['split']} {best['ms'] * 1e3:7.1f} us")
+    return dict(kind=kind, dtype=dname, site=name, h=h, w=w, n=n, i=i, k=k,
+                picked=mine, best=best, times=times)
+
+
+def sweep_dw(cs, conv_sites, fused_sites, check: bool) -> list:
+    """cf_conv_dw at every distinct conv-site shape in bf16 and f32 under
+    each of dw_candidates' plans; fused_block_fwd at every fused site with
+    each conv tile (no split of K)."""
+    import contextlib
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
+
+    if check:
+        results = {}
+        cs.check_conv_kernels(conv_sites, results)
+        cs.check_fused_kernels(fused_sites, results)
+
+    @contextlib.contextmanager
+    def forced(module, attr, plan):
+        chosen = getattr(module, attr)
+        setattr(module, attr, lambda *a, **kw: plan)
+        try:
+            yield
+        finally:
+            setattr(module, attr, chosen)
+
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(13)
+    shapes = {}
+    for s in conv_sites:
+        shapes.setdefault((s["xp"], s["w"]), s)
+    rows = []
+    for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for s in shapes.values():
+            xp, w, g = cs.conv_operands(s, dtype, gen)
+            o, i, k, _ = w.shape
+            h, wd = g.shape[1], g.shape[2]
+            rows.append(timed_row(
+                cs, "dw", dname, s["name"], h, wd, o, i, k,
+                tcf.dw_candidates(h, wd, o, i, k),
+                tcf.dw_plan(h, wd, o, i, dtype, k),
+                lambda p: forced(tcf, "dw_plan", p),
+                lambda xp=xp, g=g, k=k: tcf.conv_dw(xp, g, k, k)))
+    for s in fused_sites:
+        xp, wk, gamma, beta, _ = cs.fused_operands(s, gen)
+        h, wd, co, ci, k = (s[n] for n in ("h", "w", "co", "ci", "k"))
+        chunks = -(-ci // tcf.chunk_channels(torch.float32))
+        plans = [tcf._plan(t, 1, h, wd, co, chunks)
+                 for t, (_, bn) in enumerate(tcf.TILES) if bn <= max(16, co)]
+        rows.append(timed_row(
+            cs, "fused", "f32", s["name"], h, wd, co, ci, k, plans,
+            tfb.fwd_plan(h, wd, co, ci, k),
+            lambda p: forced(tfb, "fwd_plan", p),
+            lambda xp=xp, wk=wk, gamma=gamma, beta=beta: tfb.fwd(
+                xp, wk, gamma, beta)))
+    return rows
 
 
 if __name__ == "__main__":
