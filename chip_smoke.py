@@ -9,7 +9,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    versions, the build of the hand-written CUDA kernels from csrc/, each
    kernel's registers, shared memory and spills (``nvcc -Xptxas -v`` of the
    build), and the HMMA (mma.sync) instructions of every instantiation of
-   the four tensor-core kernels (``cuobjdump -sass`` of the library; each
+   the six tensor-core kernels (``cuobjdump -sass`` of the library; each
    must have some).
 2. Every kernel against its plain PyTorch version on the card: the VALID
    conv (forward and FULL dx) and its weight gradient, each twice for the
@@ -17,8 +17,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    den U-Nets and four odd shapes, the banded Radon forward and
    adjoint at 256^2 / 45 angles with the f32 and the bf16 band, the four
    fused conv + BN + LeakyReLU kernels in f32 at every fused-site shape of
-   the 256^2 den U-Net (out, stats -- twice for the same bits --, dconv,
-   dgamma, dbeta, dw, dx), the LRT
+   the 256^2 den U-Net and four odd shapes (out, stats, dw and dx each
+   twice for the same bits; dconv, dgamma, dbeta), the LRT
    double conv in f32 and bf16 at every conv-site shape of the 256^2 den
    U-Net (act_mu, act_var; its backward in f32 at a quarter of them), and
    the dense bf16-matrix Radon forward and adjoint at 256^2 / 45 angles.
@@ -34,7 +34,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``fit(..., reparam="lrt")`` (100 warm-up and 200 timed iterations) and
    its 25-sample LRT posterior summary; path B, the CT configuration with
    ``radon_mode="dense-bf16"`` (100 + 200 iterations). Launch counters are
-   zeroed just before each path and read just after it.
+   zeroed just before each path and read just after it. Last, the
+   reproducibility of a fit: the den f32, CT bf16 and path-A fits, each
+   run twice at seed 1 for 60 iterations, must give equal bits in every
+   metric row and in the final parameters.
 4. Each kernel's time at the paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
    off; timed here only, never called by the port), printed as one JSON
@@ -173,7 +176,9 @@ def ptxas_report() -> dict:
 MMA_KERNELS = (("lrt_conv_fwd", "lrt_conv_fwd_mma_kernel"),
                ("cf_conv_fwd", "conv_fwd_mma_kernel"),
                ("cf_conv_dw", "conv_dw_mma_kernel"),
-               ("fused_block_fwd", "fused_fwd_mma_kernel"))
+               ("fused_block_fwd", "fused_fwd_mma_kernel"),
+               ("fused_block_bwd_dw", "fused_bwd_dw_mma_kernel"),
+               ("fused_block_bwd_dx", "fused_bwd_dx_mma_kernel"))
 
 
 def tag_of(mangled: str) -> str:
@@ -232,26 +237,36 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 5) -> float:
+def device_ms(fn, reps: int = 5, tries: int = 6) -> float:
     """torch.profiler's device time of the kernels ``fn()`` launches, per
-    call (the host's launch rate does not enter it). A profile that caught
-    no kernel is taken again, up to three times."""
+    call (the host's launch rate does not enter it). On the card a profile
+    now and then catches none or only a part of the kernels (seen after
+    many profiles in one process), so it is taken until two profiles catch
+    the same number of kernels, at most ``tries`` times; the one with the
+    most kernels is kept."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    seen = {}                       # kernels caught -> device us
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA)
-        if us > 0:
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+        n = sum(ev.count for ev in evs)
+        us = sum(ev.self_device_time_total for ev in evs)
+        if n and n in seen:
             return us / 1e3 / reps
-    raise RuntimeError("the profiler caught no device kernel")
+        seen[n] = us
+    n = max(seen)
+    if not n:
+        raise RuntimeError("the profiler caught no device kernel")
+    return seen[n] / 1e3 / reps
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -465,10 +480,18 @@ def fused_operands(site: dict, gen):
     return xp, wk, gamma, beta, g
 
 
+# Fused-block shapes beyond the den net's sites, (Ci, Co, H, W, k): ragged
+# channel tiles (36 / 68 / 132), Co = 4, an 8^2 site, widths that are no
+# multiple of 4 (the dw's element-wise copy of dconv)
+EXTRA_FUSED_SHAPES = ((36, 68, 20, 27, 3), (68, 4, 33, 17, 3),
+                      (16, 36, 8, 8, 3), (132, 36, 12, 40, 1))
+
+
 def check_fused_kernels(sites, results: dict) -> None:
     """Each fused kernel against its plain version at every distinct
-    fused-site shape; the backward kernels take the plain forward's out and
-    stats and the plain dconv, so each is held alone."""
+    fused-site shape and at EXTRA_FUSED_SHAPES; the backward kernels take
+    the plain forward's out and stats and the plain dconv, so each is held
+    alone. The forward, dw and dx are called twice for the same bits."""
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
 
@@ -476,8 +499,10 @@ def check_fused_kernels(sites, results: dict) -> None:
     shapes = {}
     for s in sites:
         shapes.setdefault(tuple(s[n] for n in ("ci", "co", "h", "w", "k")), s)
+    for shape in EXTRA_FUSED_SHAPES:
+        shapes[shape] = dict(zip(("ci", "co", "h", "w", "k"), shape))
     log(f"[2] fused-block kernels at {len(shapes)} distinct shapes of "
-        f"{len(sites)} fused sites")
+        f"{len(sites)} fused sites and {len(EXTRA_FUSED_SHAPES)} odd shapes")
     worst = {}
     for shape, s in shapes.items():
         xp, wk, gamma, beta, g = fused_operands(s, gen)
@@ -493,6 +518,16 @@ def check_fused_kernels(sites, results: dict) -> None:
         dc, dgam, dbet = tfb.bwd_dc(g, out_p, stats_p, gamma, beta)
         dc_p, dgam_p, dbet_p = tfb.bwd_dc_plain(g, out_p, stats_p, gamma,
                                                 beta)
+        dw, dx = tfb.bwd_dw(dc_p, xp, k), tfb.bwd_dx(dc_p, wk)
+        # a cluster's partial tiles are summed in rank order, the dw's
+        # groups of clusters in index order: the same bits on every call
+        for kname, first, second in (
+                ("fused_block_bwd_dw", dw, tfb.bwd_dw(dc_p, xp, k)),
+                ("fused_block_bwd_dx", dx, tfb.bwd_dx(dc_p, wk))):
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                raise AssertionError(f"{kname} at {shape}: two calls gave "
+                                     "different bits")
         checks = [
             ("fused_block_fwd", "out", out, out_p),
             ("fused_block_fwd", "mu", stats[:, 0], stats_p[:, 0]),
@@ -500,10 +535,8 @@ def check_fused_kernels(sites, results: dict) -> None:
             ("fused_block_bwd_dc", "dconv", dc, dc_p),
             ("fused_block_bwd_dc", "dgamma", dgam, dgam_p),
             ("fused_block_bwd_dc", "dbeta", dbet, dbet_p),
-            ("fused_block_bwd_dw", "dw", tfb.bwd_dw(dc_p, xp, k),
-             tfb.bwd_dw_plain(dc_p, xp, k)),
-            ("fused_block_bwd_dx", "dx", tfb.bwd_dx(dc_p, wk),
-             tfb.bwd_dx_plain(dc_p, wk)),
+            ("fused_block_bwd_dw", "dw", dw, tfb.bwd_dw_plain(dc_p, xp, k)),
+            ("fused_block_bwd_dx", "dx", dx, tfb.bwd_dx_plain(dc_p, wk)),
         ]
         torch.cuda.synchronize()
         for kname, what, got, ref in checks:
@@ -753,17 +786,77 @@ def hold_launches(path: str, launches: dict, expected: set) -> None:
                 f"launches of {sorted(expected)} only)")
 
 
-def run_fits(results: dict) -> dict:
-    import numpy as np
-    from mfvi_dip_mia_tpu_torch.ops import kernels
+def use_bench_images() -> None:
+    """bench.py's images: the synthetic CT slice and x-ray at SIZE^2."""
     import mfvi_dip_mia_tpu_torch.tasks.data as D
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
-    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
-
-    # bench.py's images: the synthetic CT slice and x-ray at SIZE^2
     P.D.get_img_ct = lambda img: (D.synthetic_ct(img, SIZE), (SIZE, SIZE))
     P.D.get_image_denoising = lambda img: (D.synthetic_xray(img, SIZE),
                                            (SIZE, SIZE))
+
+
+REPRO_ITERS = 60
+METRIC_ROWS = ("mse_corrupted", "mse_gt", "psnrs", "ssims")
+
+
+def reproducibility() -> dict:
+    """The den f32 fit, the CT bf16 fit and path A's LRT den f32 fit, each
+    run twice in this process through ``fit`` at seed 1 for REPRO_ITERS
+    iterations (metric rows every iteration): whether the two runs' metric
+    rows and final parameters are equal bit for bit, and the first
+    iteration whose row differs. The caller decides what a difference
+    means (chip_smoke.py raises)."""
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+
+    use_bench_images()
+    den = Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
+    ct = Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
+    out = {}
+    for label, task, method, dtype, kw in (
+            ("den f32", "den", den, "f32", {}),
+            ("ct bf16", "ct", ct, "bf16", {}),
+            ("path A, LRT den f32", "den", den, "f32", dict(reparam="lrt"))):
+        problem = P.build_problem(task, "mfvi", 0, input_depth=16,
+                                  device=DEVICE)
+        a, b = (fit(problem, method, num_iter=REPRO_ITERS - 1, lr=1e-3,
+                    seed=1, show_every=REPRO_ITERS, metrics_every=1,
+                    compute_dtype=dtype, collect_snapshots=False,
+                    device=DEVICE, **kw) for _ in range(2))
+        differ = np.zeros(a.executed, bool)
+        for f in METRIC_ROWS:
+            ra, rb = getattr(a, f), getattr(b, f)
+            differ |= ~((ra == rb) | (np.isnan(ra) & np.isnan(rb))).reshape(
+                a.executed, -1).all(axis=1)
+        leaves = [k for k in a.params
+                  if not np.array_equal(a.params[k], b.params[k],
+                                        equal_nan=True)]
+        first = int(np.argmax(differ)) if differ.any() else None
+        out[label] = dict(iterations=a.executed, rows_equal=not differ.any(),
+                          first_row_differing=first,
+                          params_equal=not leaves,
+                          leaves_differing=len(leaves),
+                          leaves=len(a.params),
+                          final_psnr=[a.final_psnr, b.final_psnr])
+        log(f"[3] reproducibility, {label}: two {a.executed}-iteration fits "
+            f"at seed 1: metric rows "
+            + ("equal" if first is None else
+               f"differ from iteration {first}")
+            + ", final parameters "
+            + ("equal" if not leaves else
+               f"differ in {len(leaves)} of {len(a.params)} leaves")
+            + f" (final PSNR {a.final_psnr!r} / {b.final_psnr!r} dB)")
+    return out
+
+
+def run_fits(results: dict) -> dict:
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+
+    use_bench_images()
     out = {}
 
     problem = P.build_problem("ct", "mfvi", 0, input_depth=16,
@@ -1001,8 +1094,8 @@ KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_mma_kernel",
                 "radon_banded_adj": "radon_adj_",
                 "fused_block_fwd": "fused_fwd_mma_kernel",
                 "fused_block_bwd_dc": "fused_bwd_dc_kernel",
-                "fused_block_bwd_dw": "fused_bwd_dw_kernel",
-                "fused_block_bwd_dx": "fused_bwd_dx_kernel",
+                "fused_block_bwd_dw": "fused_bwd_dw_mma_kernel",
+                "fused_block_bwd_dx": "fused_bwd_dx_mma_kernel",
                 "lrt_conv_fwd": "lrt_conv_fwd_mma_kernel",
                 "radon_dense_fwd": "radon_dense_fwd_kernel",
                 "radon_dense_adj": "radon_dense_adj_"}
@@ -1572,6 +1665,12 @@ def main(argv=None) -> int:
                  ("lrt_den", "den", 2, "lrt"))}
     fits = run_fits(results)
     fits["step_vs_cpu"] = steps
+    fits["reproducibility"] = reproducibility()
+    unequal = [k for k, r in fits["reproducibility"].items()
+               if not (r["rows_equal"] and r["params_equal"])]
+    if unequal:
+        raise AssertionError(f"two fits at one seed gave different bits: "
+                             f"{unequal}")
 
     time_conv_kernels(sites, results)
     time_radon_kernels(states, dense, results)

@@ -2,9 +2,9 @@
 // shared by csrc/cf_conv.cu (cf_conv_fwd: the forward and the FULL input
 // gradient), csrc/lrt_conv.cu (lrt_conv_fwd: two contractions of one input
 // stream) and csrc/fused_block.cu (fused_block_fwd's conv, through the
-// epilogue hook of conv_tile_mma_at); and, at the end of this file, the
-// tile of the conv's weight gradient (cf_conv_dw) on the same staging. The
-// FFMA tiles of conv_tile.cuh stay for the fused block's backward kernels.
+// epilogue hook of conv_tile_mma_at, and fused_block_bwd_dx, the FULL
+// form); and, at the end of this file, the tile of the conv's weight
+// gradient (cf_conv_dw, fused_block_bwd_dw) on the same staging.
 //
 // The GEMM: M = output pixels (Hout * Wout), N = output channels, K = I * k^2,
 // walked as (input-channel chunk, ky, kx, channel within the chunk).

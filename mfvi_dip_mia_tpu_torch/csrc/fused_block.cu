@@ -20,9 +20,10 @@
 // conv output is written once and re-read from the 50 MB L2 (4 MB at most
 // here). No float atomics: every reduction is deterministic.
 //
-// What bounds them on the card: the conv (forward, dw, dx) is arithmetic;
-// the BN and LeakyReLU passes move (Co, H, W) f32 a few times and are bound
-// by bytes. One launch per site and pass matters more than kernel time at
+// What bounds them on the card: the conv (forward, dw, dx) is arithmetic,
+// and all three run on conv_mma.cuh's tensor-core tiles in 3xTF32; the BN
+// and LeakyReLU passes move (Co, H, W) f32 a few times and are bound by
+// bytes. One launch per site and pass matters more than kernel time at
 // these sizes: the training step is bound by the host's launch rate.
 //   * fwd: pass 1 runs the conv on the tensor cores, on conv_mma.cuh's
 //     implicit-GEMM tile in 3xTF32 (the 128 x 16 tile of ops/kernels/
@@ -35,15 +36,23 @@
 //     the unfused chain), stats = [mu, inv] per channel, then normalize +
 //     LeakyReLU in place. The launch is sized to the co-resident blocks at
 //     the tile's real dynamic shared memory.
-//   * dc, dw and dx run on the CUDA cores (FFMA), with the register tiles of
-//     conv_tile.cuh.
-//   * bwd_dc: xhat recomputed from the block OUTPUT (LeakyReLU inverted by
-//     sign, a safe reciprocal of gamma), two passes with one grid.sync().
-//   * bwd_dw: split reduction over pixels into f32 partials, grid.sync(), and
-//     a fixed-order sum of the splits, in one cooperative launch.
-//   * bwd_dx: the full correlation of dconv with the flipped, I/O-transposed
-//     kernel; the (k-1) zero halo is applied by bounds on the unpadded dconv
-//     and the flip by indexing, so nothing is padded or copied first.
+//   * bwd_dc: on the CUDA cores; xhat recomputed from the block OUTPUT
+//     (LeakyReLU inverted by sign, a safe reciprocal of gamma), two passes
+//     with one grid.sync().
+//   * bwd_dw: conv_mma.cuh's dw tile (M = output channels, N = input
+//     channels x taps, the reduction over pixels on xp's channels-last
+//     slab), the pixels split over a cluster summed through distributed
+//     shared memory in rank order, then over groups of clusters summed by
+//     the last leader to arrive; the tile and split of ops/kernels/
+//     cf_conv.py::dw_plan. One ordinary launch, deterministic, no scratch
+//     unless there are groups.
+//   * bwd_dx: conv_mma.cuh's FULL tile, the full correlation of dconv with
+//     the flipped, I/O-transposed kernel; the (k-1) zero halo is applied by
+//     bounds on the unpadded dconv and the flip by indexing, so nothing is
+//     padded or copied first. A cluster of `split` blocks splits K where
+//     the output tiles are few; the tile and split of ops/kernels/
+//     cf_conv.py::tile_plan. Its own kernel name, not cf_conv_fwd's, so its
+//     launches and its profile rows are its own.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -283,78 +292,30 @@ fused_bwd_dc_kernel(const float* __restrict__ g, const float* __restrict__ out,
   }
 }
 
-// dw (O, I*K*K) = sum over pixels of dc (O, H, W) x patches of xp
-// (I, H+K-1, W+K-1); items (split, patch-row tile, channel tile) write
-// partials (n_split, O, I*K*K), summed over splits in order after grid.sync.
-__global__ void __launch_bounds__(kThreads)
-fused_bwd_dw_kernel(const float* __restrict__ xp, const float* __restrict__ dc,
-                    float* part, float* dw, int I, int H, int W, int O, int K,
-                    int n_split, int pix_per_split) {
-  cg::grid_group grid = cg::this_grid();
-  const int Kt = I * K * K;
-  const int k_tiles = (Kt + kDwT - 1) / kDwT;
-  const int o_tiles = (O + kDwT - 1) / kDwT;
-  const int n_items = n_split * k_tiles * o_tiles;
-  const int to = threadIdx.x / 16, tk = threadIdx.x % 16;
-
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int s = item % n_split;
-    const int k0 = ((item / n_split) % k_tiles) * kDwT;
-    const int o0 = (item / (n_split * k_tiles)) * kDwT;
-    const int p_begin = s * pix_per_split;
-    const int p_end = min(H * W, p_begin + pix_per_split);
-    float acc[2][2];
-    dw_tile<float>(xp, dc, I, H + K - 1, W + K - 1, O, K, p_begin, p_end, k0,
-                   o0, acc);
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int oc = o0 + to * 2 + a;
-      if (oc >= O) continue;
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int kc = k0 + tk * 2 + b;
-        if (kc < Kt) part[((size_t)s * O + oc) * Kt + kc] = acc[a][b];
-      }
-    }
-  }
-  grid.sync();
-
-  const int n = O * Kt;
-  for (int j = blockIdx.x * kThreads + threadIdx.x; j < n;
-       j += gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int k = 0; k < n_split; ++k) s += part[(size_t)k * n + j];
-    dw[j] = s;
-  }
+// dw (O, I, K, K) = sum over pixels of dc (O, H, W) x the patches of xp
+// (I, H+K-1, W+K-1): conv_mma.cuh's dw tile in 3xTF32, all K rows of taps
+// per block. partial / ticket as conv_mma::dw_tile_mma takes them.
+template <int WM, int WN, int WK, int K, int KYB>
+__global__ void __launch_bounds__(32 * WM * WN * WK)
+fused_bwd_dw_mma_kernel(const float* __restrict__ xp,
+                        const float* __restrict__ dc, float* __restrict__ dw,
+                        float* __restrict__ partial, int* __restrict__ ticket,
+                        int I, int Hp, int Wp, int O, int cluster, int vec) {
+  conv_mma::dw_tile_mma<float, conv_mma::DwTile<WM, WN, WK>, K, KYB>(
+      xp, dc, dw, partial, ticket, I, Hp, Wp, O, cluster, vec != 0);
 }
 
 // dx (I, H+K-1, W+K-1) of the padded input from dc (O, H, W) and w
 // (O, I, K, K): dx[i, y, x] = sum_{o, ky, kx} dc[o, y-K+1+ky, x-K+1+kx] *
-// w[o, i, K-1-ky, K-1-kx], dc zero outside its extent.
-template <int K, int OG>
-__global__ void __launch_bounds__(kThreads)
-fused_bwd_dx_kernel(const float* __restrict__ dc, const float* __restrict__ w,
-                    float* __restrict__ dx, int O, int H, int W, int I) {
-  const int Ho = H + K - 1, Wo = W + K - 1;
-  const int x0 = blockIdx.x * kTW;
-  const int y0 = blockIdx.y * Geom<OG>::TH;
-  const int i0 = blockIdx.z * Geom<OG>::OT;
-  float acc[kOPT][kPX];
-  accumulate<float, K, OG, true>(dc, w, O, H, W, I, x0, y0, i0, acc);
-
-  const Lane<OG> ln;
-  const int y = y0 + ln.ty;
-  if (y >= Ho) return;
-#pragma unroll
-  for (int o = 0; o < kOPT; ++o) {
-    const int ic = i0 + ln.og * kOPT + o;
-    if (ic >= I) break;
-#pragma unroll
-    for (int p = 0; p < kPX; ++p) {
-      const int xx = x0 + ln.tx * kPX + p;
-      if (xx < Wo) dx[((size_t)ic * Ho + y) * Wo + xx] = acc[o][p];
-    }
-  }
+// w[o, i, K-1-ky, K-1-kx], dc zero outside its extent -- conv_mma.cuh's
+// FULL tile in 3xTF32 on dc and w as stored.
+template <int WM, int WN, int NF>
+__global__ void __launch_bounds__(32 * WM * WN)
+fused_bwd_dx_mma_kernel(const float* __restrict__ dc,
+                        const float* __restrict__ w, float* __restrict__ dx,
+                        int O, int H, int W, int I, int K) {
+  conv_mma::conv_tile_mma<float, conv_mma::Tile<WM, WN, NF>, 1, true>(
+      dc, w, nullptr, dx, nullptr, O, H, W, I, K, H + K - 1, W + K - 1);
 }
 
 // The co-resident block count of a cooperative kernel of `threads` threads
@@ -420,22 +381,37 @@ int fwd_tile(const float* xp, const float* w, const float* gamma,
   });
 }
 
-template <int K, int OG>
-int dx_k(const float* dc, const float* w, float* dx, int O, int H, int W,
-         int I, cudaStream_t st) {
-  const int Ho = H + K - 1, Wo = W + K - 1;
-  dim3 grid((Wo + kTW - 1) / kTW, (Ho + Geom<OG>::TH - 1) / Geom<OG>::TH,
-            (I + Geom<OG>::OT - 1) / Geom<OG>::OT);
-  fused_bwd_dx_kernel<K, OG><<<grid, kThreads, 0, st>>>(dc, w, dx, O, H, W, I);
-  return (int)cudaGetLastError();
+int dx_tile(const float* dc, const float* w, float* dx, int O, int H, int W,
+            int I, int K, int tile, int split, cudaStream_t st) {
+  const int Hout = H + K - 1, Wout = W + K - 1;
+  return conv_mma::with_tile(tile, [&](auto tl) {
+    using TL = decltype(tl);
+    const dim3 grid(split,
+                    ((Hout + TL::TH - 1) / TL::TH) *
+                        ((Wout + conv_mma::kTW - 1) / conv_mma::kTW),
+                    (I + TL::BN - 1) / TL::BN);
+    return conv_mma::launch(
+        fused_bwd_dx_mma_kernel<TL::WM, TL::WN, TL::NF>, TL::kThreads,
+        conv_mma::smem_bytes<float, TL>(K, 1, split), grid, split, st, dc, w,
+        dx, O, H, W, I, K);
+  });
 }
 
 template <int K>
-int dx_og(const float* dc, const float* w, float* dx, int O, int H, int W,
-          int I, cudaStream_t st) {
-  if (I <= kOPT) return dx_k<K, 1>(dc, w, dx, O, H, W, I, st);
-  if (I <= 2 * kOPT) return dx_k<K, 2>(dc, w, dx, O, H, W, I, st);
-  return dx_k<K, 4>(dc, w, dx, O, H, W, I, st);
+int dw_k(const float* xp, const float* dc, float* partial, int* ticket,
+         float* dw, int I, int H, int W, int O, int tile, int cluster,
+         int groups, cudaStream_t st) {
+  const int vec = reinterpret_cast<uintptr_t>(dc) % 16 == 0 &&
+                  (W * (int)sizeof(float)) % 16 == 0;
+  return conv_mma::with_dw_tile<false>(tile, [&](auto tl) {
+    using TL = decltype(tl);
+    const int tiles = ((O + TL::BO - 1) / TL::BO) * ((I + TL::BC - 1) / TL::BC);
+    return conv_mma::launch(
+        fused_bwd_dw_mma_kernel<TL::WM, TL::WN, TL::WK, K, K>, TL::kThreads,
+        conv_mma::dw_smem_bytes<float, TL>(K, K, cluster),
+        dim3(cluster * groups, tiles, 1), cluster, st, xp, dc, dw, partial,
+        ticket, I, H + K - 1, W + K - 1, O, cluster, vec);
+  });
 }
 
 }  // namespace
@@ -471,26 +447,38 @@ int fused_block_bwd_dc(const float* g, const float* out, const float* stats,
   return launch_coop(fused_bwd_dc_kernel, n_items, args, st);
 }
 
-// xp (I, H+K-1, W+K-1), dc (O, H, W) -> dw (O, I*K*K); part: n_split * O *
-// I*K*K floats, split s covering pixels [s * pix_per_split, ...).
-int fused_block_bwd_dw(const float* xp, const float* dc, float* part, float* dw,
-                       int I, int H, int W, int O, int K, int n_split,
-                       int pix_per_split, void* stream) {
+// xp (I, H+K-1, W+K-1), dc (O, H, W) -> dw (O, I, K, K), K in {1, 3}.
+// tile: conv_mma::with_dw_tile's index; the pixel tiles split over cluster
+// * groups blocks per output tile (cluster 1-8). partial: groups * (output
+// tiles) * BO * BC * K * K floats of scratch (unread when groups == 1);
+// ticket: one int per output tile, zero, and left zero.
+int fused_block_bwd_dw(const float* xp, const float* dc, float* partial,
+                       int* ticket, float* dw, int I, int H, int W, int O,
+                       int K, int tile, int cluster, int groups,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_items = n_split * ((I * K * K + kDwT - 1) / kDwT) *
-                      ((O + kDwT - 1) / kDwT);
-  void* args[] = {&xp, &dc, &part, &dw, &I, &H, &W, &O, &K, &n_split,
-                  &pix_per_split};
-  return launch_coop(fused_bwd_dw_kernel, n_items, args, st);
+  if (cluster < 1 || cluster > conv_mma::kMaxSplit || groups < 1)
+    return (int)cudaErrorInvalidValue;
+  if (K == 1)
+    return dw_k<1>(xp, dc, partial, ticket, dw, I, H, W, O, tile, cluster,
+                   groups, st);
+  if (K == 3)
+    return dw_k<3>(xp, dc, partial, ticket, dw, I, H, W, O, tile, cluster,
+                   groups, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// dc (O, H, W), w (O, I, K, K) -> dx (I, H+K-1, W+K-1)
-int fused_block_bwd_dx(const float* dc, const float* w, float* dx, int O, int H,
-                       int W, int I, int K, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K == 1) return dx_og<1>(dc, w, dx, O, H, W, I, st);
-  if (K == 3) return dx_og<3>(dc, w, dx, O, H, W, I, st);
-  return (int)cudaErrorInvalidValue;
+// dc (O, H, W), w (O, I, K, K) -> dx (I, H+K-1, W+K-1), K in {1, 3}. tile:
+// conv_mma::with_tile's index; split: the blocks of a cluster that share
+// one output tile (1-8, at most the chunks of 8 of the O channels).
+int fused_block_bwd_dx(const float* dc, const float* w, float* dx, int O,
+                       int H, int W, int I, int K, int tile, int split,
+                       void* stream) {
+  if ((K != 1 && K != 3) || split < 1 || split > conv_mma::kMaxSplit ||
+      split > (O + 7) / 8)
+    return (int)cudaErrorInvalidValue;
+  return dx_tile(dc, w, dx, O, H, W, I, K, tile, split,
+                 static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -42,6 +42,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import pad
 from . import build
 
 FWD = build.Kernel("cf_conv_fwd", "mfvi_dip_mia_tpu_torch/csrc/cf_conv.cu",
@@ -517,14 +518,15 @@ def conv2d_cf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
               pad_mode: str = "zero") -> torch.Tensor:
     """Batch-1 NCHW conv with torch cross-correlation semantics on the VALID
     kernel: x (1, I, H, W), w (O, I, k, k) -> (1, O, H', W').
-    ``pad_mode='reflection'`` is torch ReflectionPad2d, applied outside the
-    kernel as in the JAX default (its merged one-pad path is off)."""
+    ``pad_mode='reflection'`` is torch ReflectionPad2d (``ops/pad.py``, with
+    a deterministic adjoint), applied outside the kernel as in the JAX
+    default (its merged one-pad path is off); else zeros."""
     if x.dim() != 4 or x.shape[0] != 1:
         raise ValueError(f"batch-1 NCHW input expected, got {tuple(x.shape)}")
     xs = x[0]
     if padding:
-        mode = "reflect" if pad_mode == "reflection" else "constant"
-        xs = F.pad(xs[None], (padding,) * 4, mode=mode)[0]
+        xs = (pad.reflection_pad(xs, padding) if pad_mode == "reflection"
+              else F.pad(xs, (padding,) * 4))
     kh = w.shape[2]
     if stride == 1:
         out = conv_valid(xs, w)

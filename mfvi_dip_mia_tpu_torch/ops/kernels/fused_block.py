@@ -11,10 +11,13 @@ Four kernels (``csrc/fused_block.cu``), f32 only, as the TPU block is:
 * ``fused_block_bwd_dc`` replaces ``_bwd_dc_call``: dconv, dgamma and dbeta
   with xhat recomputed from the block output (LeakyReLU inverted by sign, a
   safe reciprocal of gamma), so the conv output is never stored.
-* ``fused_block_bwd_dw`` replaces ``_bwd_dw_call``: the weight gradient.
+* ``fused_block_bwd_dw`` replaces ``_bwd_dw_call``: the weight gradient, on
+  csrc/conv_mma.cuh's dw tile (3xTF32, the pixels split over a cluster and
+  groups of clusters, ``dw_plan``), as ``cf_conv_dw`` in f32.
 * ``fused_block_bwd_dx`` replaces ``_bwd_dx_call``: the gradient of the
   padded input, a full correlation of dconv with the flipped, I/O-transposed
-  kernel; the zero halo is applied by bounds in the kernel.
+  kernel, on conv_mma.cuh's FULL tile (3xTF32, ``dx_plan``): the zero halo
+  is applied by bounds in the kernel and the flip by indexing.
 
 Layouts are the port's: the padded input xp (Ci, H+k-1, W+k-1) and OIHW
 kernels, where the TPU kernel took a lane-aligned (Ci, H+8, Wp) input and a
@@ -36,8 +39,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from .. import pad
 from . import build
-from .cf_conv import TilePlan, _plan, chunk_channels
+from . import cf_conv as tcf
+from .cf_conv import DwPlan, TilePlan, _plan, chunk_channels
 
 _SRC = "mfvi_dip_mia_tpu_torch/csrc/fused_block.cu"
 _TPU = "mfvi_dip_mia_tpu/ops/pallas/fused_block.py"
@@ -188,13 +193,11 @@ def bwd_dc(g, out, stats, gamma, beta, slope=SLOPE):
 
 # -- kernel 3: the weight gradient -------------------------------------------------
 
-def _dw_splits(hw: int, n_tiles: int) -> tuple[int, int]:
-    """Split the H*W reduction so the grid holds ~4 blocks per SM of the
-    H100's 132, in whole 64-pixel chunks. Returns (n_split, pix_per_split)."""
-    want = max(1, -(-528 // n_tiles))
-    per = -(-hw // want)
-    per = -(-per // 64) * 64
-    return -(-hw // per), per
+def dw_plan(h: int, w: int, co: int, ci: int, k: int) -> DwPlan:
+    """The dw tile and pixel split of ``fused_block_bwd_dw`` at an (h, w)
+    dconv of co channels and ci input channels: ``cf_conv_dw``'s f32 plan,
+    whose tile it runs."""
+    return tcf.dw_plan(h, w, co, ci, torch.float32, k)
 
 
 def bwd_dw_plain(dc, xp, k):
@@ -206,7 +209,8 @@ def bwd_dw_plain(dc, xp, k):
 
 def bwd_dw(dc, xp, k):
     """Weight gradient from dconv (Co, H, W) and the padded input xp
-    (Ci, H+k-1, W+k-1). CUDA tensors launch ``fused_block_bwd_dw``."""
+    (Ci, H+k-1, W+k-1). CUDA tensors launch ``fused_block_bwd_dw`` (one
+    launch on the tensor cores, the plan of ``dw_plan``)."""
     ci, hp, wp = xp.shape
     co, h, wd = dc.shape
     if k not in KERNEL_SIZES or (h, wd) != (hp - k + 1, wp - k + 1):
@@ -216,21 +220,29 @@ def bwd_dw(dc, xp, k):
         return bwd_dw_plain(dc, xp, k)
     build.require_cuda(xp, "fused_block_bwd_dw xp", _F32)
     build.require_cuda(dc, "fused_block_bwd_dw dc", _F32)
-    k_tot = ci * k * k
-    n_split, per = _dw_splits(h * wd, -(-k_tot // 32) * -(-co // 32))
-    part = torch.empty((n_split, co, k_tot), dtype=torch.float32,
-                       device=xp.device)
+    plan = dw_plan(h, wd, co, ci, k)
     dw = torch.empty((co, ci, k, k), dtype=torch.float32, device=xp.device)
+    partial = (torch.empty(plan.partial_floats(k), dtype=torch.float32,
+                           device=xp.device) if plan.groups > 1 else dw)
+    ticket = tcf._tickets(xp.device, plan.tiles)
     lib, st = _lib_stream(xp)
-    err = lib.fused_block_bwd_dw(xp.data_ptr(), dc.data_ptr(), part.data_ptr(),
-                                 dw.data_ptr(), ci, h, wd, co, k, n_split, per,
-                                 st)
+    err = lib.fused_block_bwd_dw(xp.data_ptr(), dc.data_ptr(),
+                                 partial.data_ptr(), ticket.data_ptr(),
+                                 dw.data_ptr(), ci, h, wd, co, k, plan.tile,
+                                 plan.cluster, plan.groups, st)
     DW.launches += 1
     build.check(err, DW.name)
     return dw
 
 
 # -- kernel 4: the input gradient ----------------------------------------------------
+
+def dx_plan(h: int, w: int, co: int, ci: int, k: int) -> TilePlan:
+    """The tile and split of K of ``fused_block_bwd_dx`` at an (h, w) dconv
+    of co channels: the FULL conv's plan, an (h+k-1, w+k-1) output of ci
+    channels from co, as ``cf_conv.conv_dx`` launches it."""
+    return tcf.tile_plan(h + k - 1, w + k - 1, ci, co, torch.float32, k)
+
 
 def bwd_dx_plain(dc, w):
     """Plain version of ``fused_block_bwd_dx``: the (k-1)-zero-padded dconv
@@ -244,7 +256,9 @@ def bwd_dx_plain(dc, w):
 
 def bwd_dx(dc, w):
     """Gradient of the padded input from dconv (Co, H, W) and w
-    (Co, Ci, k, k). CUDA tensors launch ``fused_block_bwd_dx``."""
+    (Co, Ci, k, k). CUDA tensors launch ``fused_block_bwd_dx`` (the FULL
+    conv on the tensor cores on dc and w as stored, the plan of
+    ``dx_plan``)."""
     co, ci, k, _ = w.shape
     if dc.dim() != 3 or dc.shape[0] != co or k not in KERNEL_SIZES:
         raise ValueError(f"dconv {tuple(dc.shape)} and w {tuple(w.shape)}")
@@ -253,11 +267,12 @@ def bwd_dx(dc, w):
     build.require_cuda(dc, "fused_block_bwd_dx dc", _F32)
     build.require_cuda(w, "fused_block_bwd_dx w", _F32)
     h, wd = dc.shape[1], dc.shape[2]
+    plan = dx_plan(h, wd, co, ci, k)
     dx = torch.empty((ci, h + k - 1, wd + k - 1), dtype=torch.float32,
                      device=dc.device)
     lib, st = _lib_stream(dc)
     err = lib.fused_block_bwd_dx(dc.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                                 co, h, wd, ci, k, st)
+                                 co, h, wd, ci, k, plan.tile, plan.split, st)
     DX.launches += 1
     build.check(err, DX.name)
     return dx
@@ -297,8 +312,9 @@ def apply_fused(x, w, gamma, beta, *, pad_mode="reflection", slope=SLOPE,
                 eps=EPS):
     """(1, Ci, H, W) -> (1, Co, H, W): 'same' conv with w (Co, Ci, k, k),
     k in {1, 3}, + train-mode BN + LeakyReLU (fused_block.py::apply_fused).
-    The reflection (or zero) pad runs before the kernel, so its adjoint is
-    autograd's, as JAX differentiates its jnp.pad."""
+    The reflection (or zero) pad runs before the kernel, as JAX's jnp.pad
+    does; the reflection pad's adjoint is ``ops/pad.py``'s deterministic
+    fold."""
     k = w.shape[2]
     if not supported(x, k) or w.dtype != torch.float32 or w.shape[3] != k:
         raise ValueError(f"the fused block takes a batch-1 f32 input and a "
@@ -307,6 +323,6 @@ def apply_fused(x, w, gamma, beta, *, pad_mode="reflection", slope=SLOPE,
                          f"{w.dtype}")
     p = (k - 1) // 2
     if p:
-        mode = "reflect" if pad_mode == "reflection" else "constant"
-        x = F.pad(x, (p, p, p, p), mode=mode)
+        x = (pad.reflection_pad(x, p) if pad_mode == "reflection"
+             else F.pad(x, (p,) * 4))
     return conv_bn_lrelu(x[0], w, gamma, beta, slope, eps)[None]

@@ -43,6 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from .. import pad
 from . import build
 from . import cf_conv as tcf
 
@@ -176,8 +177,8 @@ def lrt_conv(x: torch.Tensor, w_mu: torch.Tensor, w_rho: torch.Tensor,
         raise ValueError(f"batch-1 NCHW input expected, got {tuple(x.shape)}")
     xs = x[0]
     if padding:
-        mode = "reflect" if pad_mode == "reflection" else "constant"
-        xs = F.pad(xs[None], (padding,) * 4, mode=mode)[0]
+        xs = (pad.reflection_pad(xs, padding) if pad_mode == "reflection"
+              else F.pad(xs, (padding,) * 4))
     act_mu, act_var = double_conv(xs, w_mu, F.softplus(w_rho) ** 2, stride)
     act_mu, act_var = act_mu[None], act_var[None]
     if b_mu is not None:

@@ -6,33 +6,40 @@
 
 On one NVIDIA GPU: for every launch of a 256^2 5-scale step (chip_smoke.py's
 conv sites) -- ``cf_conv_fwd`` forward and FULL dx in bf16 (the CT path) and
-f32 (den, the LRT backward's dx) and ``lrt_conv_fwd`` in f32 (path A) -- the
-profiler's device time of each (tile, split of K) the kernels can launch,
-beside the plan ``ops/kernels/cf_conv.py::tile_plan`` picks. With ``--dw``
-instead: ``cf_conv_dw`` at every distinct conv-site shape of the CT and den
-nets in bf16 and f32, at each (tile, split of the pixels) of
-``dw_candidates``, beside ``dw_plan``'s pick; and ``fused_block_fwd`` at the
-den net's 20 fused sites with each conv tile (no split of K), beside
-``fused_block.py::fwd_plan``'s pick. Its output is what the plans' cost
-models are fitted to; the port never reads it. With ``--check`` it first
-holds the kernels it times against their plain versions at every site shape
-(chip_smoke.py's phase-2 checks). Prints one JSON summary line.
+f32 (den, the LRT backward's dx) and ``lrt_conv_fwd`` in f32 (path A) -- and
+for ``fused_block_bwd_dx`` at the den net's 19 fused sites that need a dx,
+the profiler's device time of each (tile, split of K) the kernels can
+launch, beside the plan ``ops/kernels/cf_conv.py::tile_plan`` picks
+(``fused_block.py::dx_plan``). With ``--dw`` instead: ``cf_conv_dw`` at
+every distinct conv-site shape of the CT and den nets in bf16 and f32, and
+``fused_block_bwd_dw`` at the den net's 20 fused sites, at each (tile, split
+of the pixels) of ``dw_candidates``, beside ``dw_plan``'s pick; and
+``fused_block_fwd`` at the 20 fused sites with each conv tile (no split of
+K), beside ``fused_block.py::fwd_plan``'s pick. Its output is what the
+plans' cost models are fitted to; the port never reads it. With ``--check``
+it first holds the kernels it times against their plain versions at every
+site shape (chip_smoke.py's phase-2 checks). Prints one JSON summary line.
 
 ``--fit`` (no card needed) reads such a file and grid-searches the cost
-model's constants -- for the conv and LRT rows ``_CHUNK_LATENCY``,
-``_ROW_COST``, ``_MMA_COST``, ``_REMOTE_COST``; for the dw rows
-``_DW_LATENCY``, ``_DW_MMA_COST``, ``_DW_GLOBAL_COST``
+model's constants -- for the conv, LRT and fused dx rows
+``_CHUNK_LATENCY``, ``_ROW_COST``, ``_MMA_COST``, ``_REMOTE_COST``; for the
+dw and fused dw rows ``_DW_LATENCY``, ``_DW_MMA_COST``, ``_DW_GLOBAL_COST``
 (ops/kernels/cf_conv.py) -- for the ones whose picks sum to the least
 measured device time; it prints them beside the sums of the current
-constants' picks and of the best plan of every launch.
+constants' picks and of the best plan of every launch, and those sums for
+each kind of row.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
+
+CONV_KINDS = ("conv", "lrt", "fused_dx")    # tile_plan's rows
+DW_KINDS = ("dw", "fused_dw")               # dw_plan's rows
 
 
 def candidates(tcf, h, w, n, i, dtype):
@@ -47,16 +54,17 @@ def fit(path: str) -> dict:
     with open(path) as f:
         rows = json.load(f)["rows"]
     out = {}
-    conv = [r for r in rows if r["kind"] in ("conv", "lrt")]
+    conv = [r for r in rows if r["kind"] in CONV_KINDS]
     if conv:
         out["conv"] = fit_conv(conv)
-    dw = [r for r in rows if r["kind"] == "dw"]
+    dw = [r for r in rows if r["kind"] in DW_KINDS]
     if dw:
         out["dw"] = fit_dw(dw)
-    fused = [r for r in rows if r["kind"] == "fused"]
-    if fused:
-        out["fused"] = dict(picked_ms=sum(r["picked"]["ms"] for r in fused),
-                            best_ms=sum(r["best"]["ms"] for r in fused))
+    for kind in sorted({r["kind"] for r in rows}):
+        rs = [r for r in rows if r["kind"] == kind]
+        out[f"sums_{kind}"] = dict(
+            picked_ms=sum(r["picked"]["ms"] for r in rs),
+            best_ms=sum(r["best"]["ms"] for r in rs), launches=len(rs))
     print(json.dumps(out))
     return out
 
@@ -188,15 +196,17 @@ def main(argv=None) -> int:
             for n in (1, 2)}
     sites = cs.conv_sites(nets[1], cs.SIZE)
     l_sites = cs.conv_sites(nets[2], cs.SIZE)
+    f_sites = cs.fused_sites(nets[2], cs.SIZE)
     if args.dw:
-        rows = sweep_dw(cs, sites + l_sites, cs.fused_sites(nets[2], cs.SIZE),
-                        args.check)
+        rows = sweep_dw(cs, sites + l_sites, f_sites, args.check)
         return report(cs, smi, rows, (("dw", "bf16"), ("dw", "f32"),
-                                      ("fused", "f32")), args.out, t0)
+                                      ("fused_dw", "f32"), ("fused", "f32")),
+                      args.out, t0)
     if args.check:
         results = {}
         cs.check_conv_kernels(sites, results)
         cs.check_lrt_kernel(l_sites, results)
+        cs.check_fused_kernels(f_sites, results)
 
     chosen = tcf.tile_plan
     forced = {}
@@ -246,8 +256,44 @@ def main(argv=None) -> int:
                            f"{best['ms'] * 1e3:7.1f} us")
     finally:
         tcf.tile_plan = chosen
+    rows += sweep_fused_dx(cs, f_sites, gen)
     return report(cs, smi, rows, (("conv", "bf16"), ("conv", "f32"),
-                                  ("lrt", "f32")), args.out, t0)
+                                  ("lrt", "f32"), ("fused_dx", "f32")),
+                  args.out, t0)
+
+
+@contextlib.contextmanager
+def forced(module, attr, plan):
+    """``module.attr`` (a plan function) returns ``plan`` inside."""
+    chosen = getattr(module, attr)
+    setattr(module, attr, lambda *a, **kw: plan)
+    try:
+        yield
+    finally:
+        setattr(module, attr, chosen)
+
+
+def sweep_fused_dx(cs, fused_sites, gen) -> list:
+    """fused_block_bwd_dx at every fused site that needs a dx under each
+    (tile, split of K) of the FULL conv of its shape."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
+
+    rows = []
+    for s in fused_sites:
+        if not s["needs_dx"]:
+            continue
+        _, wk, _, _, dc = cs.fused_operands(s, gen)
+        h, wd, co, ci, k = (s[n] for n in ("h", "w", "co", "ci", "k"))
+        row = timed_row(
+            cs, "fused_dx", "f32", s["name"], h + k - 1, wd + k - 1, ci, co,
+            k, candidates(tcf, h + k - 1, wd + k - 1, ci, co, torch.float32),
+            tfb.dx_plan(h, wd, co, ci, k),
+            lambda p: forced(tfb, "dx_plan", p),
+            lambda dc=dc, wk=wk: tfb.bwd_dx(dc, wk))
+        rows.append(dict(row, n_weights=1))
+    return rows
 
 
 def report(cs, smi, rows, groups, out, t0) -> int:
@@ -285,10 +331,10 @@ def timed_row(cs, kind, dname, name, h, w, n, i, k, plans, pick, force,
 
 
 def sweep_dw(cs, conv_sites, fused_sites, check: bool) -> list:
-    """cf_conv_dw at every distinct conv-site shape in bf16 and f32 under
-    each of dw_candidates' plans; fused_block_fwd at every fused site with
-    each conv tile (no split of K)."""
-    import contextlib
+    """cf_conv_dw at every distinct conv-site shape in bf16 and f32, and
+    fused_block_bwd_dw at every fused site, under each of dw_candidates'
+    plans; fused_block_fwd at every fused site with each conv tile (no
+    split of K)."""
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
     from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
@@ -297,15 +343,6 @@ def sweep_dw(cs, conv_sites, fused_sites, check: bool) -> list:
         results = {}
         cs.check_conv_kernels(conv_sites, results)
         cs.check_fused_kernels(fused_sites, results)
-
-    @contextlib.contextmanager
-    def forced(module, attr, plan):
-        chosen = getattr(module, attr)
-        setattr(module, attr, lambda *a, **kw: plan)
-        try:
-            yield
-        finally:
-            setattr(module, attr, chosen)
 
     gen = torch.Generator(device=cs.DEVICE).manual_seed(13)
     shapes = {}
@@ -324,8 +361,13 @@ def sweep_dw(cs, conv_sites, fused_sites, check: bool) -> list:
                 lambda p: forced(tcf, "dw_plan", p),
                 lambda xp=xp, g=g, k=k: tcf.conv_dw(xp, g, k, k)))
     for s in fused_sites:
-        xp, wk, gamma, beta, _ = cs.fused_operands(s, gen)
+        xp, wk, gamma, beta, dc = cs.fused_operands(s, gen)
         h, wd, co, ci, k = (s[n] for n in ("h", "w", "co", "ci", "k"))
+        rows.append(timed_row(
+            cs, "fused_dw", "f32", s["name"], h, wd, co, ci, k,
+            tcf.dw_candidates(h, wd, co, ci, k), tfb.dw_plan(h, wd, co, ci, k),
+            lambda p: forced(tfb, "dw_plan", p),
+            lambda xp=xp, dc=dc, k=k: tfb.bwd_dw(dc, xp, k)))
         chunks = -(-ci // tcf.chunk_channels(torch.float32))
         plans = [tcf._plan(t, 1, h, wd, co, chunks)
                  for t, (_, bn) in enumerate(tcf.TILES) if bn <= max(16, co)]

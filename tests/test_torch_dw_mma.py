@@ -35,7 +35,8 @@ from mfvi_dip_mia_tpu.ops.pallas import fused_block as jfb
 from mfvi_dip_mia_tpu_torch.nn import build_skip_net
 from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
 from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
-from test_torch_tc_conv import _3xtf32_matmul, _tf32
+from torch_port_helpers import (assert_dw_covers, emulate_dw, matmul_3xtf32,
+                                rel, tf32)
 
 torch.set_num_threads(1)
 
@@ -50,39 +51,7 @@ def _nets():
             for n in (1, 2)}
 
 
-def _rel(got, ref):
-    return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
-
-
 # -- (a) the dw plan -----------------------------------------------------------
-
-def _cover(p, o, i, k, h, w):
-    """Assert that plan p covers (o, i, k, h, w) once."""
-    assert p.o_tiles * p.bo >= o > (p.o_tiles - 1) * p.bo
-    assert p.c_tiles * p.bc >= i > (p.c_tiles - 1) * p.bc
-    assert p.tap_groups * p.tap_rows == k
-    assert p.tap_rows == (k if k <= 3 else 1)
-    tiles_x = -(-w // TW)
-    assert p.pixel_tiles == -(-h // tcf.DW_ROWS) * tiles_x
-    cover = np.zeros((h, w), np.int64)
-    seen = []
-    for s in range(p.split):
-        mine = list(p.pixel_tiles_of(s))
-        assert mine, (s, p)                     # every split has work
-        seen += mine
-        for pt in mine:
-            y0, x0 = (pt // tiles_x) * tcf.DW_ROWS, (pt % tiles_x) * TW
-            cover[y0:y0 + tcf.DW_ROWS, x0:x0 + TW] += 1
-    assert sorted(seen) == list(range(p.pixel_tiles))
-    assert (cover == 1).all()
-    assert 1 <= p.cluster <= tcf.MAX_SPLIT and p.split % p.cluster == 0
-    assert p.groups == 1 or p.cluster == tcf.MAX_SPLIT
-    wm, wn, _ = tcf.DW_TILES[p.tile]
-    assert (p.bo, p.bc) == (16 * wm, 16 * wn)
-    assert p.partial_floats(k) == (0 if p.groups == 1 else
-                                   p.tiles * p.groups * p.bo * p.bc
-                                   * p.tap_rows * k)
-
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dw_plan_covers_every_site_once_and_fills_the_card(dtype):
@@ -94,7 +63,7 @@ def test_dw_plan_covers_every_site_once_and_fills_the_card(dtype):
         o, _, k, _ = s["w"]
         h, w = hp - k + 1, wp - k + 1
         p = tcf.dw_plan(h, w, o, i, dtype, k)
-        _cover(p, o, i, k, h, w)
+        assert_dw_covers(p, o, i, k, h, w)
         assert p.bo <= max(16, -(-o // 16) * 16)
         assert p.bc <= max(16, -(-i // 16) * 16)
         most = max(c.ctas for c in tcf.dw_candidates(h, w, o, i, k)
@@ -113,67 +82,6 @@ def test_dw_plan_splits_the_large_sites():
 
 
 # -- (b) the kernel's indexing and summation order -------------------------------
-
-def slab_row(r: int, j: int, ky: int, kx: int, k: int) -> int:
-    """The slab row that the B operand of tap (ky, kx) reads for pixel (row
-    r, column j) of a pixel tile (conv_mma.cuh, dw_tile_mma)."""
-    return (r + ky) * (TW + k - 1) + kx + j
-
-
-def emulate_dw(xp: np.ndarray, g: np.ndarray, k: int, p) -> np.ndarray:
-    """cf_conv_dw as the kernel computes it, in f32: per output tile and
-    split, each staged pixel tile's products by pixel row into the row's
-    warp (row r to warp r % WK), then the WK warps, the cluster's ranks and
-    the groups of clusters summed in order."""
-    i_ch, hp, wp = xp.shape
-    o_ch, h, w = g.shape
-    _, _, wk = tcf.DW_TILES[p.tile]
-    rows, kyb = tcf.DW_ROWS, p.tap_rows
-    sh, sw = rows + kyb - 1, TW + k - 1
-    tiles_x = -(-w // TW)
-    # the tensors zero-extended: the staging's zero fill outside them
-    xz = np.zeros((p.c_tiles * p.bc, hp + rows + k, wp + TW + k), np.float32)
-    xz[:i_ch, :hp, :wp] = xp
-    gz = np.zeros((p.o_tiles * p.bo, h + rows, w + TW), np.float32)
-    gz[:o_ch, :h, :w] = g
-    out = np.zeros((p.o_tiles * p.bo, p.c_tiles * p.bc, k, k), np.float32)
-    for ot in range(p.o_tiles):
-        for ct in range(p.c_tiles):
-            for tg in range(p.tap_groups):
-                o0, c0, ky0 = ot * p.bo, ct * p.bc, tg * kyb
-                sums = []
-                for s in range(p.split):
-                    part = np.zeros((wk, p.bo, p.bc, kyb, k), np.float32)
-                    for pt in p.pixel_tiles_of(s):
-                        y0, x0 = (pt // tiles_x) * rows, (pt % tiles_x) * TW
-                        # slab[sy * sw + sx][c], channels-last
-                        slab = xz[c0:c0 + p.bc, y0 + ky0:y0 + ky0 + sh,
-                                  x0:x0 + sw].reshape(p.bc, sh * sw).T
-                        gt = gz[o0:o0 + p.bo, y0:y0 + rows, x0:x0 + TW]
-                        for r in range(rows):
-                            for ky in range(kyb):
-                                for kx in range(k):
-                                    q = [slab_row(r, j, ky, kx, k)
-                                         for j in range(TW)]
-                                    part[r % wk, :, :, ky, kx] += (
-                                        gt[:, r, :] @ slab[q])
-                    block = part[0]
-                    for wi in range(1, wk):
-                        block = block + part[wi]
-                    sums.append(block)
-                # a cluster's ranks into its leader, then the groups
-                leaders = []
-                for grp in range(p.groups):
-                    lead = sums[grp * p.cluster]
-                    for rank in range(1, p.cluster):
-                        lead = lead + sums[grp * p.cluster + rank]
-                    leaders.append(lead)
-                tot = leaders[0]
-                for lead in leaders[1:]:
-                    tot = tot + lead
-                out[o0:o0 + p.bo, c0:c0 + p.bc, ky0:ky0 + kyb] = tot
-    return out[:o_ch, :i_ch]
-
 
 def _plans(h, w, o, i, k):
     """The plan dw_plan picks, and forced ones that run every tile, a
@@ -196,15 +104,15 @@ def test_emulated_dw_matches_the_plain_dw_and_jax(k):
                               k).numpy()
     ref = np.asarray(jcf.dw_valid_cf(jnp.asarray(xp), jnp.asarray(g),
                                      (k, k))).transpose(3, 2, 0, 1)
-    assert _rel(plain, ref) < 1e-5
+    assert rel(plain, ref) < 1e-5
     plans = _plans(h, w, o_ch, i_ch, k)
     assert len(plans) >= 3
     for p in plans:
-        _cover(p, o_ch, i_ch, k, h, w)
+        assert_dw_covers(p, o_ch, i_ch, k, h, w)
         got = emulate_dw(xp, g, k, p)
         # f32 sums of 19 * 90 products in other orders
-        assert _rel(got, plain) < 1e-5, p
-        assert _rel(got, ref) < 1e-5, p
+        assert rel(got, plain) < 1e-5, p
+        assert rel(got, ref) < 1e-5, p
     # the wrapper on CPU tensors is the plain version
     assert torch.equal(tcf.conv_dw(torch.from_numpy(xp), torch.from_numpy(g),
                                    k, k), torch.from_numpy(plain))
@@ -233,7 +141,7 @@ def test_emulated_dw_at_a_parity_plane_stride_2_site():
         dw_planes = emulate_dw(planes, gy, 2, p)
         (got,) = torch.autograd.grad(
             plane_w, wt, torch.from_numpy(dw_planes), retain_graph=True)
-        assert _rel(got.numpy(), ref) < 1e-5, p
+        assert rel(got.numpy(), ref) < 1e-5, p
 
 
 # -- (c) 3xTF32 over the longest pixel reduction ---------------------------------
@@ -249,8 +157,8 @@ def test_3xtf32_meets_f32_accuracy_over_65536_pixels(seed):
     for rhs in (x, x * x):
         ref = g.double() @ rhs.double()
         scale = float(ref.abs().max())
-        err3 = float((_3xtf32_matmul(g, rhs).double() - ref).abs().max())
-        err1 = float((_tf32(g) @ _tf32(rhs)).double().sub(ref).abs().max())
+        err3 = float((matmul_3xtf32(g, rhs).double() - ref).abs().max())
+        err1 = float((tf32(g) @ tf32(rhs)).double().sub(ref).abs().max())
         assert err3 / scale < 1e-5
         assert err1 / scale > 1e-5       # one TF32 pass would not do
 
@@ -363,11 +271,11 @@ def test_emulated_fused_fwd_matches_fwd_plain_and_jax(ci, h, w, k):
         torch.from_numpy(xp), torch.from_numpy(wt), torch.from_numpy(gamma),
         torch.from_numpy(beta)))
     # chip_smoke.py's tolerances of the kernel against fwd_plain
-    assert _rel(got, out_p) < 1e-4
-    assert _rel(stats[:, 0], stats_p[:, 0]) < 1e-5
-    assert _rel(stats[:, 1], stats_p[:, 1]) < 1e-5
+    assert rel(got, out_p) < 1e-4
+    assert rel(stats[:, 0], stats_p[:, 0]) < 1e-5
+    assert rel(stats[:, 1], stats_p[:, 1]) < 1e-5
     if jfb.supported(ci, co, h, w, k):
         ref = np.asarray(jfb.apply_fused(
             jnp.asarray(x), jnp.asarray(w_hwio), jnp.asarray(gamma),
             jnp.asarray(beta), pad_mode="reflection"))[0]
-        assert _rel(got, ref) < 1e-4
+        assert rel(got, ref) < 1e-4

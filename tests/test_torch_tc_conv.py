@@ -26,6 +26,7 @@ import chip_smoke
 from mfvi_dip_mia_tpu.ops.pallas import cf_conv as jcf
 from mfvi_dip_mia_tpu_torch.nn import build_skip_net
 from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+from torch_port_helpers import full_dx_indexed, matmul_3xtf32, tf32
 
 torch.set_num_threads(1)
 
@@ -107,24 +108,10 @@ def test_deep_sites_split_k_across_a_cluster():
 
 # -- (b) 3xTF32 ----------------------------------------------------------------
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32: keep 10 mantissa bits, round to nearest, ties away
-    from zero (on the magnitude bits)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _3xtf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-    # the kernel's order: a_lo b_hi, a_hi b_lo, then a_hi b_hi, in f32
-    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
-
-
 def test_tf32_rounding_keeps_ten_mantissa_bits():
     x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
                       -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12], dtype=torch.float32)
-    got = _tf32(x).tolist()
+    got = tf32(x).tolist()
     assert got == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
                    -(1.0 + 2.0 ** -10), 1.0]
 
@@ -143,32 +130,14 @@ def test_3xtf32_meets_f32_accuracy_at_the_widest_site(seed):
     for lhs, rhs in ((a, b), (a * a, b_var)):
         ref = lhs.double() @ rhs.double()
         scale = float(ref.abs().max())
-        err3 = float((_3xtf32_matmul(lhs, rhs).double() - ref).abs().max())
-        err1 = float((_tf32(lhs) @ _tf32(rhs)).double().sub(ref).abs().max())
+        err3 = float((matmul_3xtf32(lhs, rhs).double() - ref).abs().max())
+        err1 = float((tf32(lhs) @ tf32(rhs)).double().sub(ref).abs().max())
         assert err3 / scale < 1e-5
         assert err1 / scale > 1e-5       # one TF32 pass would not do
         assert err1 > 30 * err3
 
 
 # -- (c) the FULL dx indexing ----------------------------------------------------
-
-def full_dx_indexed(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel's FULL form in plain torch: out[i, y, x] = sum_{o, ky, kx}
-    w[o, i, k-1-ky, k-1-kx] * g[o, y + ky - (k-1), x + kx - (k-1)], g read
-    only inside its bounds (no padded copy), w as stored."""
-    o_ch, i_ch, k, _ = w.shape
-    _, h, wd = g.shape
-    out = torch.zeros((i_ch, h + k - 1, wd + k - 1), dtype=torch.float64)
-    gd, wdd = g.double(), w.double()
-    for ky in range(k):
-        for kx in range(k):
-            wt = wdd[:, :, k - 1 - ky, k - 1 - kx].T          # (I, O)
-            # output rows y whose source row y + ky - (k-1) lies in g
-            y_lo, x_lo = k - 1 - ky, k - 1 - kx
-            out[:, y_lo:y_lo + h, x_lo:x_lo + wd] += torch.einsum(
-                "io,ohw->ihw", wt, gd)
-    return out.float()
-
 
 @pytest.mark.parametrize("k", [1, 2, 3, 5])
 def test_full_dx_indexing_matches_the_plain_dx_and_jax(k):
