@@ -10,7 +10,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel's registers, shared memory and spills (``nvcc -Xptxas -v`` of the
    build), and the HMMA (mma.sync) instructions of every instantiation of
    the six tensor-core kernels (``cuobjdump -sass`` of the library; each
-   must have some).
+   must have some); the dense Radon kernels must not spill.
 2. Every kernel against its plain PyTorch version on the card: the VALID
    conv (forward and FULL dx) and its weight gradient, each twice for the
    same bits, in f32 and bf16 at every conv-site shape of the 256^2 CT and
@@ -21,7 +21,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    twice for the same bits; dconv, dgamma, dbeta), the LRT
    double conv in f32 and bf16 at every conv-site shape of the 256^2 den
    U-Net (act_mu, act_var; its backward in f32 at a quarter of them), and
-   the dense bf16-matrix Radon forward and adjoint at 256^2 / 45 angles.
+   the dense bf16-matrix Radon forward and adjoint at 256^2 / 45 angles and
+   on two odd random matrices, at 1 and 3 image columns, each launched
+   twice for the same bits.
 3. One f32 CT, one f32 den and one f32 LRT den loss and gradient through
    the 256^2 nets on the card against the CPU's plain path. Then the paths:
    bench.py's CT configuration (256^2, input depth 16, temp 2.2e-10, sigma
@@ -35,8 +37,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    its 25-sample LRT posterior summary; path B, the CT configuration with
    ``radon_mode="dense-bf16"`` (100 + 200 iterations). Launch counters are
    zeroed just before each path and read just after it. Last, the
-   reproducibility of a fit: the den f32, CT bf16 and path-A fits, each
-   run twice at seed 1 for 60 iterations, must give equal bits in every
+   reproducibility of a fit: the den f32, CT bf16, path-A and path-B fits,
+   each run twice at seed 1 for 60 iterations, must give equal bits in every
    metric row and in the final parameters.
 4. Each kernel's time at the paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
@@ -44,7 +46,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    line ``{"kernels": [...]}``; for every kernel also the profiler's device
    time of one step's calls beside the library's for the same calls
    (``device_ms``, ``library_device_ms``; for the fused forward the cuDNN
-   conv + batch_norm + leaky_relu chain, for the fused dc none).
+   conv + batch_norm + leaky_relu chain, for the fused dc none). The dense
+   Radon pair also gives the GB/s of A and the share of the bytes bound of
+   the kernel and of cuBLAS.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -155,6 +159,16 @@ def ptxas_report() -> dict:
             f"{max(r['registers'] for r in rows)}, static shared memory up "
             f"to {max(r['smem'] for r in rows)} B, spill bytes "
             f"{sum(r['spill'] for r in rows)}")
+    for name, _ in DENSE_FUNCS:
+        rows = {f: r for f, r in report.items() if f"{name}_" in f}
+        if not rows:
+            raise AssertionError(f"ptxas reported no {name} kernel")
+        for f, r in rows.items():
+            log(f"[1] ptxas {name} ({f}): {r['registers']} registers, "
+                f"static shared memory {r['smem']} B, spill bytes "
+                f"{r['spill']}")
+            if r["spill"]:
+                raise AssertionError(f"{f} spills {r['spill']} bytes")
     for name, tag in MMA_KERNELS:
         rows = [r for f, r in report.items() if tag_of(f) == tag]
         if not rows:
@@ -179,6 +193,11 @@ MMA_KERNELS = (("lrt_conv_fwd", "lrt_conv_fwd_mma_kernel"),
                ("fused_block_fwd", "fused_fwd_mma_kernel"),
                ("fused_block_bwd_dw", "fused_bwd_dw_mma_kernel"),
                ("fused_block_bwd_dx", "fused_bwd_dx_mma_kernel"))
+
+
+# the dense Radon pair's __global__s (csrc/radon_dense.cu), held to no spills
+DENSE_FUNCS = (("radon_dense_fwd", "radon_dense_fwd_kernel"),
+               ("radon_dense_adj", "radon_dense_adj_kernel"))
 
 
 def tag_of(mangled: str) -> str:
@@ -646,7 +665,8 @@ def check_lrt_kernel(sites, results: dict) -> None:
 def check_dense_radon(results: dict):
     """The bf16 projection matrix at 256^2 / 45 angles, built once (it is
     cached for path B), and the dense forward and adjoint kernels against
-    their plain versions on it, with the adjoint identity."""
+    their plain versions on it at 1 and 3 image columns, each launched
+    twice for the same bits, with the adjoint identity."""
     import torch
     from mfvi_dip_mia_tpu_torch.ops import radon as tradon
     from mfvi_dip_mia_tpu_torch.ops.kernels import radon_dense as rd
@@ -659,29 +679,66 @@ def check_dense_radon(results: dict):
     log(f"[2] dense bf16 projection matrix {tuple(a.shape)} "
         f"({a.numel() * 2 / 1e9:.3f} GB) built and cast in {build_s:.1f} s")
     gen = torch.Generator(device=DEVICE).manual_seed(9)
-    v = torch.rand((1, a.shape[1]), generator=gen, device=DEVICE)
-    y = torch.randn((1, a.shape[0]), generator=gen, device=DEVICE)
     tol = TOL[("radon_dense", "bf16")]
-    for kname, got, ref in (
-            ("radon_dense_fwd", rd.radon_dense_fwd(a, v),
-             rd.radon_dense_fwd_plain(a, v)),
-            ("radon_dense_adj", rd.radon_dense_adj(a, y),
-             rd.radon_dense_adj_plain(a, y))):
-        torch.cuda.synchronize()
-        err, r = rel_err(got, ref)
-        if got.shape != ref.shape or r > tol:
-            raise AssertionError(
-                f"{kname}: shape {tuple(got.shape)} vs {tuple(ref.shape)}, "
-                f"max abs err {err:.3e} (rel {r:.3e})")
-        log(f"    {kname:16s} bf16 matrix max abs err {err:.3e} rel "
-            f"{r:.3e} (tolerance {tol:.0e}) ok")
-        results.setdefault(kname, {})["max_abs_err"] = err
-    lhs = float((rd.radon_dense_fwd(a, v) * y).double().sum())
-    rhs = float((v * rd.radon_dense_adj(a, y)).double().sum())
-    if abs(lhs - rhs) > 1e-4 * max(abs(lhs), 1.0):
-        raise AssertionError(f"dense adjoint identity: {lhs} vs {rhs}")
+    for cols in (1, 3):
+        v = torch.rand((cols, a.shape[1]), generator=gen, device=DEVICE)
+        y = torch.randn((cols, a.shape[0]), generator=gen, device=DEVICE)
+        for kname, fn, ref in (
+                ("radon_dense_fwd", lambda: rd.radon_dense_fwd(a, v),
+                 rd.radon_dense_fwd_plain(a, v)),
+                ("radon_dense_adj", lambda: rd.radon_dense_adj(a, y),
+                 rd.radon_dense_adj_plain(a, y))):
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            err, r = rel_err(got, ref)
+            if got.shape != ref.shape or r > tol:
+                raise AssertionError(
+                    f"{kname} ({cols} columns): shape {tuple(got.shape)} vs "
+                    f"{tuple(ref.shape)}, max abs err {err:.3e} (rel "
+                    f"{r:.3e})")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{kname} ({cols} columns): two "
+                                     "launches gave different bits")
+            log(f"    {kname:16s} {cols} column(s): max abs err {err:.3e} "
+                f"rel {r:.3e} (tolerance {tol:.0e}), two launches equal "
+                "bits ok")
+            res = results.setdefault(kname, {})
+            res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+        if cols == 1:
+            lhs = float((rd.radon_dense_fwd(a, v) * y).double().sum())
+            rhs = float((v * rd.radon_dense_adj(a, y)).double().sum())
+            if abs(lhs - rhs) > 1e-4 * max(abs(lhs), 1.0):
+                raise AssertionError(f"dense adjoint identity: {lhs} vs "
+                                     f"{rhs}")
+            log(f"    adjoint identity <Av, y> {lhs:.6e} vs <v, A^T y> "
+                f"{rhs:.6e} ok")
+    # odd shapes, random bf16 matrices: strips narrower than a stage and
+    # ragged (Q = 96, 4104), more splits per strip than one batch of the
+    # adjoint's sum, tiles of one row, g padded to 4 floats (cols * P % 4)
+    for p, q in ODD_DENSE_SHAPES:
+        m = torch.randn((p, q), generator=gen, device=DEVICE).to(torch.bfloat16)
+        for cols in (1, 3):
+            v = torch.randn((cols, q), generator=gen, device=DEVICE)
+            y = torch.randn((cols, p), generator=gen, device=DEVICE)
+            for kname, fn, ref in (
+                    ("radon_dense_fwd", lambda: rd.radon_dense_fwd(m, v),
+                     rd.radon_dense_fwd_plain(m, v)),
+                    ("radon_dense_adj", lambda: rd.radon_dense_adj(m, y),
+                     rd.radon_dense_adj_plain(m, y))):
+                got, again = fn(), fn()
+                torch.cuda.synchronize()
+                err, r = rel_err(got, ref)
+                if got.shape != ref.shape or r > tol or not torch.equal(
+                        got, again):
+                    raise AssertionError(
+                        f"{kname} at A ({p}, {q}), {cols} columns: rel err "
+                        f"{r:.3e}, equal bits {torch.equal(got, again)}")
+        log(f"    dense pair at A ({p}, {q}), 1 and 3 columns: ok")
     results["radon_dense_fwd"]["matrix_build_seconds"] = build_s
     return a
+
+
+ODD_DENSE_SHAPES = ((270, 96), (1000, 4104))
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -800,12 +857,12 @@ METRIC_ROWS = ("mse_corrupted", "mse_gt", "psnrs", "ssims")
 
 
 def reproducibility() -> dict:
-    """The den f32 fit, the CT bf16 fit and path A's LRT den f32 fit, each
-    run twice in this process through ``fit`` at seed 1 for REPRO_ITERS
-    iterations (metric rows every iteration): whether the two runs' metric
-    rows and final parameters are equal bit for bit, and the first
-    iteration whose row differs. The caller decides what a difference
-    means (chip_smoke.py raises)."""
+    """The den f32 fit, the CT bf16 fit, path A's LRT den f32 fit and path
+    B's dense CT bf16 fit, each run twice in this process through ``fit``
+    at seed 1 for REPRO_ITERS iterations (metric rows every iteration):
+    whether the two runs' metric rows and final parameters are equal bit
+    for bit, and the first iteration whose row differs. The caller decides
+    what a difference means (chip_smoke.py raises)."""
     import numpy as np
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
     from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
@@ -814,12 +871,15 @@ def reproducibility() -> dict:
     den = Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
     ct = Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
     out = {}
-    for label, task, method, dtype, kw in (
-            ("den f32", "den", den, "f32", {}),
-            ("ct bf16", "ct", ct, "bf16", {}),
-            ("path A, LRT den f32", "den", den, "f32", dict(reparam="lrt"))):
+    for label, task, method, dtype, kw, op in (
+            ("den f32", "den", den, "f32", {}, {}),
+            ("ct bf16", "ct", ct, "bf16", {}, {}),
+            ("path A, LRT den f32", "den", den, "f32", dict(reparam="lrt"),
+             {}),
+            ("path B, dense CT bf16", "ct", ct, "bf16", {},
+             dict(radon_mode="dense-bf16"))):
         problem = P.build_problem(task, "mfvi", 0, input_depth=16,
-                                  device=DEVICE)
+                                  device=DEVICE, **op)
         a, b = (fit(problem, method, num_iter=REPRO_ITERS - 1, lr=1e-3,
                     seed=1, show_every=REPRO_ITERS, metrics_every=1,
                     compute_dtype=dtype, collect_snapshots=False,
@@ -1097,8 +1157,7 @@ KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_mma_kernel",
                 "fused_block_bwd_dw": "fused_bwd_dw_mma_kernel",
                 "fused_block_bwd_dx": "fused_bwd_dx_mma_kernel",
                 "lrt_conv_fwd": "lrt_conv_fwd_mma_kernel",
-                "radon_dense_fwd": "radon_dense_fwd_kernel",
-                "radon_dense_adj": "radon_dense_adj_"}
+                **dict(DENSE_FUNCS)}
 
 
 def profile_fit(label: str, problem, method, kw: dict, steps: int,
@@ -1565,7 +1624,10 @@ def time_lrt_kernel(sites, results: dict) -> None:
 def time_dense_radon(a, results: dict) -> None:
     """One call of each dense kernel at 256^2 / 45 angles beside its bound
     (A's bytes read once), its plain version and cuBLAS ``torch.mv`` on the
-    same bf16 matrix (which rounds the vector and the result to bf16)."""
+    same bf16 matrix (which rounds the vector and the result to bf16): the
+    CUDA-event and profiler device times (the kernel's and cuBLAS's taken
+    in turns, three each), the GB/s of A and the share of the bound of
+    each."""
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import radon_dense as rd
 
@@ -1577,6 +1639,11 @@ def time_dense_radon(a, results: dict) -> None:
     flops = 2.0 * p * q
     nbytes = a.numel() * 2 + (p + q) * 4
     b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+
+    def rate(ms):
+        return (f"{a.numel() * 2 / (ms * 1e-3) / 1e9:.0f} GB/s of A, "
+                f"{100 * b_ms / ms:.1f} % of the bound")
+
     for kname, fk, fp, fl in (
             ("radon_dense_fwd", lambda: rd.radon_dense_fwd(a, v),
              lambda: rd.radon_dense_fwd_plain(a, v),
@@ -1585,16 +1652,29 @@ def time_dense_radon(a, results: dict) -> None:
              lambda: rd.radon_dense_adj_plain(a, y),
              lambda: torch.mv(a.T, y16))):
         t_k, t_p, t_l = time_ms(fk), time_ms(fp, reps=5), time_ms(fl)
-        d_k, d_l = device_ms(fk), device_ms(fl)
-        log(f"[4] {kname} ({nbytes / 1e9:.3f} GB): kernel {t_k:.4f} ms, "
-            f"plain {t_p:.4f} ms, cuBLAS bf16 mv {t_l:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), {a.numel() * 2 / (t_k * 1e-3) / 1e9:.0f}"
-            f" GB/s of matrix; profiler device time {d_k:.4f} ms, cuBLAS's "
-            f"{d_l:.4f} ms")
+        # the kernel and cuBLAS in turns (k, l, l, k, k, l): medians of 3
+        runs = {fk: [], fl: []}
+        for turn in range(3):
+            for f in ((fk, fl) if turn % 2 == 0 else (fl, fk)):
+                runs[f].append(device_ms(f, reps=10))
+        d_k, d_l = (sorted(runs[f])[1] for f in (fk, fl))
+        log(f"[4] {kname} ({nbytes / 1e9:.3f} GB): kernel {t_k:.4f} ms "
+            f"({rate(t_k)}), plain {t_p:.4f} ms, cuBLAS bf16 mv {t_l:.4f} "
+            f"ms ({rate(t_l)}), bound {b_ms:.4f} ms ({b_by})")
+        log(f"    profiler device time, median of 3 in turns: kernel "
+            f"{d_k:.4f} ms ({rate(d_k)}; runs "
+            + " ".join(f"{x:.4f}" for x in runs[fk]) + f"), cuBLAS "
+            f"{d_l:.4f} ms ({rate(d_l)}; runs "
+            + " ".join(f"{x:.4f}" for x in runs[fl]) + ")")
         results.setdefault(kname, {}).update(
             ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
             bound_by=b_by, gb=nbytes / 1e9, device_ms=d_k,
-            library_device_ms=d_l)
+            library_device_ms=d_l, device_ms_runs=runs[fk],
+            library_device_ms_runs=runs[fl],
+            device_gb_per_s=a.numel() * 2 / (d_k * 1e-3) / 1e9,
+            library_device_gb_per_s=a.numel() * 2 / (d_l * 1e-3) / 1e9,
+            device_share_of_bound=b_ms / d_k,
+            library_device_share_of_bound=b_ms / d_l)
 
 
 def main(argv=None) -> int:

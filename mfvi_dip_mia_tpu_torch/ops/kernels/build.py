@@ -51,8 +51,8 @@ _SIGNATURES = {
     "fused_block_bwd_dw": [_P] * 5 + [_I] * 8 + [_P],
     "fused_block_bwd_dx": [_P] * 3 + [_I] * 7 + [_P],
     "lrt_conv_fwd": [_P] * 5 + [_I] * 8 + [_P],
-    "radon_dense_fwd": [_P] * 3 + [_I] * 3 + [_P],
-    "radon_dense_adj": [_P] * 4 + [_I] * 5 + [_P],
+    "radon_dense_fwd": [_P] * 4 + [_I] * 4 + [_P],
+    "radon_dense_adj": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 

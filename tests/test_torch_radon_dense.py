@@ -112,7 +112,9 @@ def test_plain_kernels_over_row_chunks(matrices, monkeypatch):
     for w, c, e in zip(whole, chunked, exact):
         assert torch.allclose(w.double(), e, rtol=0, atol=1e-5)
         assert torch.allclose(c.double(), e, rtol=0, atol=1e-5)
-    assert trd._adj_splits(11520, 65536) == (17, 678)
+    # the kernels' grid at the path's shape (256^2, 45 angles, 132 SMs)
+    plan = trd.dense_plan(11520, 65536, 2 * 132)
+    assert (plan.fwd_blocks, plan.adj_blocks, plan.n_strips) == (264, 264, 64)
 
 
 @pytest.mark.parametrize("mode_t,mode_j", [("dense-bf16", "pallas"),
