@@ -10,20 +10,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel's registers, shared memory and spills (``nvcc -Xptxas -v`` of the
    build), and the HMMA (mma.sync) instructions of every instantiation of
    the six tensor-core kernels (``cuobjdump -sass`` of the library; each
-   must have some); the dense Radon kernels must not spill.
+   must have some); the dense Radon kernels and the fused dc must not
+   spill.
 2. Every kernel against its plain PyTorch version on the card: the VALID
    conv (forward and FULL dx) and its weight gradient, each twice for the
    same bits, in f32 and bf16 at every conv-site shape of the 256^2 CT and
    den U-Nets and four odd shapes, the banded Radon forward and
    adjoint at 256^2 / 45 angles with the f32 and the bf16 band, the four
    fused conv + BN + LeakyReLU kernels in f32 at every fused-site shape of
-   the 256^2 den U-Net and four odd shapes (out, stats, dw and dx each
-   twice for the same bits; dconv, dgamma, dbeta), the LRT
+   the 256^2 den U-Net and four odd shapes (each twice for the same bits;
+   the dc also at 16 x 512^2, past a cluster's shared memory), the LRT
    double conv in f32 and bf16 at every conv-site shape of the 256^2 den
    U-Net (act_mu, act_var; its backward in f32 at a quarter of them), and
    the dense bf16-matrix Radon forward and adjoint at 256^2 / 45 angles and
    on two odd random matrices, at 1 and 3 image columns, each launched
-   twice for the same bits.
+   for the same bits (40 times at 256^2, twice on the odd matrices).
 3. One f32 CT, one f32 den and one f32 LRT den loss and gradient through
    the 256^2 nets on the card against the CPU's plain path. Then the paths:
    bench.py's CT configuration (256^2, input depth 16, temp 2.2e-10, sigma
@@ -46,9 +47,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    line ``{"kernels": [...]}``; for every kernel also the profiler's device
    time of one step's calls beside the library's for the same calls
    (``device_ms``, ``library_device_ms``; for the fused forward the cuDNN
-   conv + batch_norm + leaky_relu chain, for the fused dc none). The dense
-   Radon pair also gives the GB/s of A and the share of the bytes bound of
-   the kernel and of cuBLAS.
+   conv + batch_norm + leaky_relu chain, for the fused dc the
+   leaky_relu_backward + native_batch_norm_backward chain on the conv
+   output; the dc also per site, its smallest site the per-launch floor).
+   The dense Radon pair also gives the GB/s of A and the share of the bytes
+   bound of the kernel and of cuBLAS.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -159,8 +162,8 @@ def ptxas_report() -> dict:
             f"{max(r['registers'] for r in rows)}, static shared memory up "
             f"to {max(r['smem'] for r in rows)} B, spill bytes "
             f"{sum(r['spill'] for r in rows)}")
-    for name, _ in DENSE_FUNCS:
-        rows = {f: r for f, r in report.items() if f"{name}_" in f}
+    for name, tag in NO_SPILL_FUNCS:
+        rows = {f: r for f, r in report.items() if tag in f}
         if not rows:
             raise AssertionError(f"ptxas reported no {name} kernel")
         for f, r in rows.items():
@@ -198,6 +201,9 @@ MMA_KERNELS = (("lrt_conv_fwd", "lrt_conv_fwd_mma_kernel"),
 # the dense Radon pair's __global__s (csrc/radon_dense.cu), held to no spills
 DENSE_FUNCS = (("radon_dense_fwd", "radon_dense_fwd_kernel"),
                ("radon_dense_adj", "radon_dense_adj_kernel"))
+# the __global__s held to no spills: the dense Radon pair and the fused dc
+NO_SPILL_FUNCS = DENSE_FUNCS + (("fused_block_bwd_dc",
+                                 "fused_bwd_dc_cluster_kernel"),)
 
 
 def tag_of(mangled: str) -> str:
@@ -286,6 +292,37 @@ def device_ms(fn, reps: int = 5, tries: int = 6) -> float:
     if not n:
         raise RuntimeError("the profiler caught no device kernel")
     return seen[n] / 1e3 / reps
+
+
+def site_device_ms(calls, tag: str, reps: int = 5, tries: int = 6) -> list:
+    """The profiler's device time of each call's one kernel (its function
+    name starting with ``tag``), in call order: the median over ``reps``
+    passes of the calls. Profiled again until a profile catches every
+    launch, at most ``tries`` times (see ``device_ms``)."""
+    import statistics
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for f in calls:
+        f()
+    torch.cuda.synchronize()
+    n = len(calls)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for f in calls:
+                    f()
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA
+                      and re.search(r"(?<!\w)" + tag, ev.name)),
+                     key=lambda ev: ev.time_range.start)
+        if len(evs) == reps * n:
+            us = [ev.time_range.elapsed_us() for ev in evs]
+            return [statistics.median(us[r * n + i] for r in range(reps)) / 1e3
+                    for i in range(n)]
+    raise RuntimeError(f"no profile caught all {reps * n} launches of {tag}")
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -506,11 +543,53 @@ EXTRA_FUSED_SHAPES = ((36, 68, 20, 27, 3), (68, 4, 33, 17, 3),
                       (16, 36, 8, 8, 3), (132, 36, 12, 40, 1))
 
 
+# The dc kernel beyond the den net's sites, (Ci, Co, H, W, k): 16 channels
+# of 512^2 (bench.py --size 512's level 0), whose slices do not fit in a
+# cluster's shared memory
+DC_WIDE_SHAPES = ((16, 16, 512, 512, 1),)
+
+
+def hold_fused(checks, shape, worst: dict) -> None:
+    """Each (kernel, what, got, ref) within TOL_FUSED[what] of the largest
+    |ref|; the worst error per (kernel, what) into ``worst``."""
+    for kname, what, got, ref in checks:
+        if got.shape != ref.shape or not bool(got.isfinite().all()):
+            raise AssertionError(
+                f"{kname} {what} at {shape}: shape {tuple(got.shape)} vs "
+                f"{tuple(ref.shape)} or non-finite values")
+        a, r = rel_err(got, ref)
+        if r > TOL_FUSED[what]:
+            raise AssertionError(
+                f"{kname} {what} at (Ci, Co, H, W, k) {shape}: max abs "
+                f"err {a:.3e} (rel {r:.3e}) > tolerance "
+                f"{TOL_FUSED[what]:.0e}")
+        if r >= worst.get((kname, what), (0.0, -1.0))[1]:
+            worst[(kname, what)] = (a, r)
+
+
+def check_dc(g, out, stats, gamma, beta, shape, worst: dict) -> None:
+    """fused_block_bwd_dc against bwd_dc_plain, launched twice: its sums
+    have one order, fixed by the shape, so the bits must repeat."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
+
+    got = tfb.bwd_dc(g, out, stats, gamma, beta)
+    again = tfb.bwd_dc(g, out, stats, gamma, beta)
+    ref = tfb.bwd_dc_plain(g, out, stats, gamma, beta)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"fused_block_bwd_dc at {shape}: two calls gave "
+                             "different bits")
+    hold_fused([("fused_block_bwd_dc", what, a, r) for what, a, r in zip(
+        ("dconv", "dgamma", "dbeta"), got, ref)], shape, worst)
+
+
 def check_fused_kernels(sites, results: dict) -> None:
     """Each fused kernel against its plain version at every distinct
-    fused-site shape and at EXTRA_FUSED_SHAPES; the backward kernels take
-    the plain forward's out and stats and the plain dconv, so each is held
-    alone. The forward, dw and dx are called twice for the same bits."""
+    fused-site shape and at EXTRA_FUSED_SHAPES, the dc also at
+    DC_WIDE_SHAPES; the backward kernels take the plain forward's out and
+    stats and the plain dconv, so each is held alone. Every kernel is called
+    twice for the same bits."""
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
 
@@ -521,7 +600,8 @@ def check_fused_kernels(sites, results: dict) -> None:
     for shape in EXTRA_FUSED_SHAPES:
         shapes[shape] = dict(zip(("ci", "co", "h", "w", "k"), shape))
     log(f"[2] fused-block kernels at {len(shapes)} distinct shapes of "
-        f"{len(sites)} fused sites and {len(EXTRA_FUSED_SHAPES)} odd shapes")
+        f"{len(sites)} fused sites and {len(EXTRA_FUSED_SHAPES)} odd shapes, "
+        f"the dc also at {len(DC_WIDE_SHAPES)} shape(s) of 512^2")
     worst = {}
     for shape, s in shapes.items():
         xp, wk, gamma, beta, g = fused_operands(s, gen)
@@ -534,7 +614,6 @@ def check_fused_kernels(sites, results: dict) -> None:
         if not (torch.equal(out, out2) and torch.equal(stats, stats2)):
             raise AssertionError(f"fused_block_fwd at {shape}: two calls "
                                  "gave different bits")
-        dc, dgam, dbet = tfb.bwd_dc(g, out_p, stats_p, gamma, beta)
         dc_p, dgam_p, dbet_p = tfb.bwd_dc_plain(g, out_p, stats_p, gamma,
                                                 beta)
         dw, dx = tfb.bwd_dw(dc_p, xp, k), tfb.bwd_dx(dc_p, wk)
@@ -551,26 +630,19 @@ def check_fused_kernels(sites, results: dict) -> None:
             ("fused_block_fwd", "out", out, out_p),
             ("fused_block_fwd", "mu", stats[:, 0], stats_p[:, 0]),
             ("fused_block_fwd", "inv", stats[:, 1], stats_p[:, 1]),
-            ("fused_block_bwd_dc", "dconv", dc, dc_p),
-            ("fused_block_bwd_dc", "dgamma", dgam, dgam_p),
-            ("fused_block_bwd_dc", "dbeta", dbet, dbet_p),
             ("fused_block_bwd_dw", "dw", dw, tfb.bwd_dw_plain(dc_p, xp, k)),
             ("fused_block_bwd_dx", "dx", dx, tfb.bwd_dx_plain(dc_p, wk)),
         ]
         torch.cuda.synchronize()
-        for kname, what, got, ref in checks:
-            if got.shape != ref.shape or not torch.isfinite(got).all():
-                raise AssertionError(
-                    f"{kname} {what} at {shape}: shape {tuple(got.shape)} vs "
-                    f"{tuple(ref.shape)} or non-finite values")
-            a, r = rel_err(got, ref)
-            if r > TOL_FUSED[what]:
-                raise AssertionError(
-                    f"{kname} {what} at (Ci, Co, H, W, k) {shape}: max abs "
-                    f"err {a:.3e} (rel {r:.3e}) > tolerance "
-                    f"{TOL_FUSED[what]:.0e}")
-            if r >= worst.get((kname, what), (0.0, -1.0))[1]:
-                worst[(kname, what)] = (a, r)
+        hold_fused(checks, shape, worst)
+        check_dc(g, out_p, stats_p, gamma, beta, shape, worst)
+    # a channel wider than a cluster's shared memory (dc_plan keeps what
+    # fits and re-reads the rest)
+    for shape in DC_WIDE_SHAPES:
+        xp, wk, gamma, beta, g = fused_operands(
+            dict(zip(("ci", "co", "h", "w", "k"), shape)), gen)
+        out_p, stats_p = tfb.fwd_plain(xp, wk, gamma, beta)
+        check_dc(g, out_p, stats_p, gamma, beta, shape, worst)
     for (kname, what), (a, r) in worst.items():
         log(f"    {kname:18s} {what:6s} worst max abs err {a:.3e} rel "
             f"{r:.3e} (tolerance {TOL_FUSED[what]:.0e}) ok")
@@ -666,7 +738,7 @@ def check_dense_radon(results: dict):
     """The bf16 projection matrix at 256^2 / 45 angles, built once (it is
     cached for path B), and the dense forward and adjoint kernels against
     their plain versions on it at 1 and 3 image columns, each launched
-    twice for the same bits, with the adjoint identity."""
+    DENSE_REPEATS times for the same bits, with the adjoint identity."""
     import torch
     from mfvi_dip_mia_tpu_torch.ops import radon as tradon
     from mfvi_dip_mia_tpu_torch.ops.kernels import radon_dense as rd
@@ -688,7 +760,8 @@ def check_dense_radon(results: dict):
                  rd.radon_dense_fwd_plain(a, v)),
                 ("radon_dense_adj", lambda: rd.radon_dense_adj(a, y),
                  rd.radon_dense_adj_plain(a, y))):
-            got, again = fn(), fn()
+            got = fn()
+            again = [fn() for _ in range(DENSE_REPEATS - 1)]
             torch.cuda.synchronize()
             err, r = rel_err(got, ref)
             if got.shape != ref.shape or r > tol:
@@ -696,12 +769,15 @@ def check_dense_radon(results: dict):
                     f"{kname} ({cols} columns): shape {tuple(got.shape)} vs "
                     f"{tuple(ref.shape)}, max abs err {err:.3e} (rel "
                     f"{r:.3e})")
-            if not torch.equal(got, again):
-                raise AssertionError(f"{kname} ({cols} columns): two "
-                                     "launches gave different bits")
+            differ = sum(not torch.equal(got, o) for o in again)
+            if differ:
+                raise AssertionError(
+                    f"{kname} ({cols} columns): {differ} of "
+                    f"{DENSE_REPEATS - 1} launches gave other bits than the "
+                    "first")
             log(f"    {kname:16s} {cols} column(s): max abs err {err:.3e} "
-                f"rel {r:.3e} (tolerance {tol:.0e}), two launches equal "
-                "bits ok")
+                f"rel {r:.3e} (tolerance {tol:.0e}), {DENSE_REPEATS} "
+                "launches equal bits ok")
             res = results.setdefault(kname, {})
             res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
         if cols == 1:
@@ -739,6 +815,10 @@ def check_dense_radon(results: dict):
 
 
 ODD_DENSE_SHAPES = ((270, 96), (1000, 4104))
+# launches of each dense kernel at 256^2 that must give equal bits: a race
+# between a stage's readers and its refill (csrc/bulk_copy.cuh::
+# fence_proxy_async) changed the bits of only some adjoint launches
+DENSE_REPEATS = 40
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -1153,7 +1233,7 @@ KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_mma_kernel",
                 "radon_banded_fwd": "radon_fwd_",
                 "radon_banded_adj": "radon_adj_",
                 "fused_block_fwd": "fused_fwd_mma_kernel",
-                "fused_block_bwd_dc": "fused_bwd_dc_kernel",
+                "fused_block_bwd_dc": "fused_bwd_dc_cluster_kernel",
                 "fused_block_bwd_dw": "fused_bwd_dw_mma_kernel",
                 "fused_block_bwd_dx": "fused_bwd_dx_mma_kernel",
                 "lrt_conv_fwd": "lrt_conv_fwd_mma_kernel",
@@ -1424,6 +1504,10 @@ def time_fused_kernels(sites, results: dict) -> None:
         ci, co, h, w, k = (s[n] for n in ("ci", "co", "h", "w", "k"))
         out, stats = tfb.fwd_plain(xp, wk, gamma, beta)
         dc = tfb.bwd_dc_plain(g, out, stats, gamma, beta)[0]
+        # the unfused backward's inputs: the conv output it keeps, and the
+        # statistics as batch_norm saves them
+        conv = F.conv2d(xp[None], wk)
+        mu, inv = stats[:, 0].contiguous(), stats[:, 1].contiguous()
         conv_flops = 2.0 * co * ci * k * k * h * w
         n_out, n_io = co * h * w, xp.numel() + wk.numel()
         calls = [
@@ -1437,7 +1521,11 @@ def time_fused_kernels(sites, results: dict) -> None:
             ("fused_block_bwd_dc", 14.0 * n_out, (3 * n_out + 6 * co) * 4,
              lambda: tfb.bwd_dc(g, out, stats, gamma, beta),
              lambda: tfb.bwd_dc_plain(g, out, stats, gamma, beta), None,
-             None),
+             lambda: torch.ops.aten.native_batch_norm_backward(
+                 torch.ops.aten.leaky_relu_backward(g[None], out[None],
+                                                    tfb.SLOPE, True),
+                 conv, gamma, None, None, mu, inv, True, tfb.EPS,
+                 [True, True, True])),
             ("fused_block_bwd_dw", conv_flops, (n_out + n_io) * 4,
              lambda: tfb.bwd_dw(dc, xp, k),
              lambda: tfb.bwd_dw_plain(dc, xp, k),
@@ -1498,6 +1586,21 @@ def time_fused_kernels(sites, results: dict) -> None:
             extra = (f", cuDNN conv + batch_norm + leaky_relu chain "
                      f"{a['chain_ms']:.3f} ms" + extra + " (a chain of "
                      "three calls)")
+        if name == "fused_block_bwd_dc":
+            r["lrelu_bn_backward_chain_ms"] = a["chain_ms"]
+            r["library_device_ms_is_a_chain"] = True
+            extra = (f", leaky_relu_backward + native_batch_norm_backward "
+                     f"chain {a['chain_ms']:.3f} ms" + extra + " (a chain "
+                     "of two calls, on the conv output)")
+            # each site's kernel alone: the smallest is what one launch
+            # costs the card at least
+            per = site_device_ms(kern, KERNEL_FUNCS[name])
+            r["site_device_ms"] = {s["name"]: v for s, v in zip(sites, per)}
+            r["launch_floor_device_ms"] = min(per)
+            log(f"[4] {name} device ms per site, in launch order: "
+                + ", ".join(f"{s['name']} {v:.4f}"
+                            for s, v in zip(sites, per))
+                + f"; the smallest (the per-launch floor) {min(per):.4f}")
         log(f"[4] {name}: {a['calls']} launches per den step, "
             f"{a['flops'] / 1e9:.3f} GFLOP, {a['nbytes'] / 1e6:.1f} MB: kernel "
             f"{a['ms']:.3f} ms, plain {a['plain_ms']:.3f} ms, library "

@@ -73,9 +73,10 @@ class FlatParams:
         return self.flat[self.n_var:2 * self.n_var]
 
 
-def flatten(params: dict, device="cpu") -> FlatParams:
+def flatten(params: dict, device=None) -> FlatParams:
     """Lay ``params`` out as [mu | rho | det] (leaf order within a segment is
-    the dict's). Every '*_mu' leaf must have its '*_rho' twin."""
+    the dict's) on ``device``, by default the leaves' own. Every '*_mu' leaf
+    must have its '*_rho' twin."""
     mu = [n for n in params if n.endswith("_mu")]
     rho = [n[:-3] + "_rho" for n in mu]
     missing = [n for n in rho if n not in params]
@@ -91,7 +92,8 @@ def flatten(params: dict, device="cpu") -> FlatParams:
     flat = torch.cat([params[n].reshape(-1).float() for n in names]) if names \
         else torch.zeros(0)
     n_var = sum(math.prod(params[n].shape) for n in mu)
-    return FlatParams(flat.to(device), names, shapes, offsets, n_var)
+    return FlatParams(flat if device is None else flat.to(device), names,
+                      shapes, offsets, n_var)
 
 
 def eps_order(params: FlatParams) -> list:

@@ -568,20 +568,12 @@ __device__ __forceinline__ void conv_tile_mma(
       });
 }
 
-// Launch `kern` on grid (split, m tiles, n tiles) in clusters of (split, 1,
-// 1). Returns the launch's cudaError_t.
-// Above 48 KB of shared memory in all a kernel must opt in; the kernels'
-// static shared memory (at most ~1 KB here) counts too, hence the margin.
-constexpr int kOptInSmem = 46 * 1024;
-
+// Launch `kern` on `grid` in clusters of (split, 1, 1) with `smem` bytes of
+// dynamic shared memory, which the kernel's limit must already allow.
+// Returns the launch's cudaError_t.
 template <typename... P, typename... A>
-inline int launch(void (*kern)(P...), int threads, int smem, dim3 grid,
-                  int split, cudaStream_t st, A... args) {
-  if (smem > kOptInSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+inline int launch_cluster(void (*kern)(P...), int threads, int smem,
+                          dim3 grid, int split, cudaStream_t st, A... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads, 1, 1);
@@ -597,6 +589,23 @@ inline int launch(void (*kern)(P...), int threads, int smem, dim3 grid,
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Launch `kern` on grid (split, m tiles, n tiles) in clusters of (split, 1,
+// 1). Returns the launch's cudaError_t.
+// Above 48 KB of shared memory in all a kernel must opt in; the kernels'
+// static shared memory (at most ~1 KB here) counts too, hence the margin.
+constexpr int kOptInSmem = 46 * 1024;
+
+template <typename... P, typename... A>
+inline int launch(void (*kern)(P...), int threads, int smem, dim3 grid,
+                  int split, cudaStream_t st, A... args) {
+  if (smem > kOptInSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return launch_cluster(kern, threads, smem, grid, split, st, args...);
 }
 
 // The instantiated tiles, by the index ops/kernels/cf_conv.py::TILES gives:

@@ -11,13 +11,13 @@
 // What does not carry over from the TPU: its forward keeps the whole
 // (Co, H, W) conv output in VMEM across three sequential loops (conv + sum,
 // centred sum of squares, normalize). No Hopper block holds 4 MB, and blocks
-// run in no order. So the forward and the dc kernel are each ONE cooperative
-// launch (cudaLaunchCooperativeKernel, grid <= the co-resident blocks) whose
-// blocks walk (row tile x channel tile) work items and meet at grid.sync()
-// between passes: per-item per-channel partial sums go to an f32 scratch,
-// and every block that needs a channel's statistic sums that channel's
-// partials itself, in one fixed order, so all blocks see the same bits. The
-// conv output is written once and re-read from the 50 MB L2 (4 MB at most
+// run in no order. So the forward is ONE cooperative launch
+// (cudaLaunchCooperativeKernel, grid <= the co-resident blocks) whose blocks
+// walk (row tile x channel tile) work items and meet at grid.sync() between
+// passes: per-item per-channel partial sums go to an f32 scratch, and every
+// block that needs a channel's statistic sums that channel's partials
+// itself, in one fixed order, so all blocks see the same bits. The conv
+// output is written once and re-read from the 50 MB L2 (4 MB at most
 // here). No float atomics: every reduction is deterministic.
 //
 // What bounds them on the card: the conv (forward, dw, dx) is arithmetic,
@@ -36,9 +36,27 @@
 //     the unfused chain), stats = [mu, inv] per channel, then normalize +
 //     LeakyReLU in place. The launch is sized to the co-resident blocks at
 //     the tile's real dynamic shared memory.
-//   * bwd_dc: on the CUDA cores; xhat recomputed from the block OUTPUT
-//     (LeakyReLU inverted by sign, a safe reciprocal of gamma), two passes
-//     with one grid.sync().
+//   * bwd_dc (replaces _bwd_dc_call): bound by bytes, g and out read once
+//     and dconv written once (3 x Co*H*W f32: 0.0174 ms per 256^2 den step
+//     at 3.35 TB/s), and at 14 of the den net's 20 sites, whose bound is
+//     under 1 us, by the cost of a launch itself. The TPU kernel walks a
+//     channel's rows twice from VMEM; a Hopper block holds at most 227 KB,
+//     but a channel of the widest site (16 x 256^2: 512 KB of g and out)
+//     fits in the shared memory of a cluster of 8 blocks. So each channel
+//     goes to a cluster (1-8 blocks, a contiguous pixel slice each), or, at
+//     the deep sites, several channels to one block (a warp or more each);
+//     ops/kernels/fused_block.py::dc_plan picks it from the shape alone,
+//     filling the card in about one wave. A block bulk-copies its slices of
+//     g and out into shared memory (cp.async.bulk on mbarriers, up to four
+//     pieces, so summing starts before the last piece lands), sums gp and
+//     gp * xhat in a fixed order (xhat recomputed from the block output:
+//     LeakyReLU inverted by sign, a safe reciprocal of gamma), meets the
+//     other ranks through distributed shared memory in rank order (one
+//     cluster barrier after the pushes), and writes dconv from shared
+//     memory. One ordinary cluster launch: no
+//     grid barrier, no scratch, no second read of g or out from device
+//     memory where the slice is resident (every 256^2 den site; past 227 KB
+//     a slice keeps what fits and re-reads the rest, in the same order).
 //   * bwd_dw: conv_mma.cuh's dw tile (M = output channels, N = input
 //     channels x taps, the reduction over pixels on xp's channels-last
 //     slab), the pixels split over a cluster summed through distributed
@@ -57,6 +75,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bulk_copy.cuh"
 #include "conv_mma.cuh"
 #include "conv_tile.cuh"
 
@@ -203,8 +222,6 @@ fused_fwd_mma_kernel(const float* __restrict__ xp,
   }
 }
 
-constexpr int kDcPix = kThreads * 8;  // pixels of one bwd_dc work item
-
 struct DcLeaf {
   float ga, be, rg;
   __device__ __forceinline__ DcLeaf(const float* gamma, const float* beta,
@@ -216,79 +233,214 @@ struct DcLeaf {
   }
 };
 
-// dconv, dgamma, dbeta from (g, out, stats); part: O * n_chunks * 2 floats
+constexpr int kDcMaxChunks = 4;  // bulk copies (and mbarriers) per slice
+constexpr int kDcMaxCpb = 8;     // channels per block at most: a warp each
+// the plan's dynamic shared memory at most (ops/kernels/fused_block.py::
+// DC_SMEM), below the 227 KB a block may opt in to
+constexpr int kDcSmemMax = 224 * 1024;
+
+// The end of bulk chunk k of `chunks` of a resident slice of n pixels
+// (n % 4 == 0): 16-byte boundaries, the last chunk ending at n.
+__device__ __forceinline__ int dc_chunk_end(int n, int k, int chunks) {
+  return k + 1 == chunks ? n : (n * (k + 1) / chunks) & ~3;
+}
+
+// The cluster barrier in its two halves (PTX barrier.cluster): every
+// thread of every block of the cluster arrives, then waits.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// dconv, dgamma, dbeta from (g, out, stats) in one pass over g and out.
+// Grid: ceil(O / cpb) * cluster blocks in clusters of `cluster`. Cluster
+// blocks share one channel (cpb == 1), rank r taking pixels [r * len,
+// (r + 1) * len); or a block takes cpb whole channels (cluster == 1), a
+// group of 256 / cpb threads each. The first `res` pixels of each of a
+// block's slices stay in dynamic shared memory (cpb * 2 * res floats: g,
+// then out, per channel). Where `bulk` (H*W % 4 == 0; g, out and dc
+// 16-byte aligned) they arrive by 1-D bulk copies in `chunks` pieces, each
+// on its own mbarrier, and are read and written as float4; else each
+// thread loads its own pixels and keeps them. Pixels past `res` are read
+// from global memory again in the second step.
+// The order of the sums, the same on both paths: a thread takes the groups
+// of four pixels u = t, t + 256 / cpb, ..., each group's pixels in order;
+// then the warp's shuffle tree, the group's warps in index order, and the
+// cluster's ranks in rank order. Each rank pushes its partials into every
+// rank's shared memory (distributed shared memory) between two cluster
+// barriers, the first of which only proves that every rank has started,
+// so every rank sums the same values in the same order: the bits depend
+// on the shape alone. No grid barrier, no scratch, no atomics.
 __global__ void __launch_bounds__(kThreads)
-fused_bwd_dc_kernel(const float* __restrict__ g, const float* __restrict__ out,
-                    const float* __restrict__ stats,
-                    const float* __restrict__ gamma,
-                    const float* __restrict__ beta, float* dc, float* dgamma,
-                    float* dbeta, float* part, int O, int HW, float inv_hw,
-                    float slope, float inv_slope) {
+fused_bwd_dc_cluster_kernel(const float* __restrict__ g,
+                            const float* __restrict__ out,
+                            const float* __restrict__ stats,
+                            const float* __restrict__ gamma,
+                            const float* __restrict__ beta,
+                            float* __restrict__ dc, float* __restrict__ dgamma,
+                            float* __restrict__ dbeta, int O, int HW,
+                            int cluster, int cpb, int len, int res,
+                            int chunks, int bulk, float inv_hw, float slope,
+                            float inv_slope) {
+  extern __shared__ __align__(128) float dsm[];
+  __shared__ __align__(8) uint64_t bars[kDcMaxCpb * kDcMaxChunks];
   __shared__ float red[2][kWarps];
-  __shared__ float tot[2];
-  cg::grid_group grid = cg::this_grid();
-  const int n_chunks = (HW + kDcPix - 1) / kDcPix;
-  const int n_items = O * n_chunks;
+  __shared__ float part[kDcMaxCpb][2];
+  __shared__ float ranks[conv_mma::kMaxSplit][2];  // every rank's partials
+  if (cluster > 1) cluster_arrive_relaxed();        // this rank has started
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gt = kThreads / cpb;  // threads per channel
+  const int j = threadIdx.x / gt, t = threadIdx.x % gt;
+  const int rank = blockIdx.x % cluster;
+  const int c = (blockIdx.x / cluster) * cpb + j;
+  const int p0 = rank * len;
+  const int n = c < O ? max(0, min(len, HW - p0)) : 0;  // this slice's pixels
+  const int nr = min(n, res);                            // resident
+  const size_t base = (size_t)c * HW + p0;
+  float* sg = dsm + (size_t)2 * j * res;
+  float* so = sg + res;
+  const uint32_t bar = bulk_copy::smem_u32(bars + j * kDcMaxChunks);
+  const DcLeaf lf(gamma, beta, min(c, O - 1));
+  const float scale = stats[min(c, O - 1) * 2 + 1] * lf.ga;
 
-  // pass 1: per-chunk sums of gp and gp * xhat
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int c = item / n_chunks, ch = item % n_chunks;
-    const DcLeaf lf(gamma, beta, c);
-    const int p_end = min(HW, (ch + 1) * kDcPix);
-    float s1 = 0.f, s2 = 0.f;
-    for (int p = ch * kDcPix + threadIdx.x; p < p_end; p += kThreads) {
-      const size_t q = (size_t)c * HW + p;
-      const float o = out[q], gt = g[q];
-      const bool m = o > 0.f;
-      const float xh = ((m ? o : o * inv_slope) - lf.be) * lf.rg;
-      const float gp = m ? gt : slope * gt;
-      s1 += gp;
-      s2 += gp * xh;
-    }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      red[0][warp] = s1;
-      red[1][warp] = s2;
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      for (int q = 0; q < cpb * kDcMaxChunks; ++q)
+        bulk_copy::bar_init(bulk_copy::smem_u32(bars + q), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-    if (threadIdx.x < 2) {
-      float s = 0.f;
-      for (int k = 0; k < kWarps; ++k) s += red[threadIdx.x][k];
-      part[(size_t)item * 2 + threadIdx.x] = s;
+    if (t == 0) {
+      const uint64_t pol = bulk_copy::l2_evict_normal();
+      for (int k = 0, lo = 0; k < chunks; ++k) {
+        const int hi = dc_chunk_end(nr, k, chunks);
+        const uint32_t bytes = (uint32_t)(hi - lo) * 4;
+        bulk_copy::bar_expect_tx(bar + 8 * k, 2 * bytes);
+        if (bytes) {
+          bulk_copy::bulk_load(bulk_copy::smem_u32(sg + lo), g + base + lo,
+                               bytes, bar + 8 * k, pol);
+          bulk_copy::bulk_load(bulk_copy::smem_u32(so + lo), out + base + lo,
+                               bytes, bar + 8 * k, pol);
+        }
+        lo = hi;
+      }
     }
-    __syncthreads();
   }
-  grid.sync();
 
-  // pass 2: the channel totals, then dconv elementwise
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int c = item / n_chunks, ch = item % n_chunks;
-    if (warp < 2) {
-      const float s = warp_sum_strided(part + (size_t)c * n_chunks * 2 + warp,
-                                       n_chunks, 2);
-      if (lane == 0) tot[warp] = s;
+  // xhat from the block output (LeakyReLU inverted by sign) and gp, the
+  // same f32 operations as bwd_dc_plain (__fmul_rn: no contraction into an
+  // FMA)
+  auto leaf = [&](float o, float gv, float& xh, float& gp) {
+    const bool m = o > 0.f;
+    xh = ((m ? o : __fmul_rn(o, inv_slope)) - lf.be) * lf.rg;
+    gp = m ? gv : __fmul_rn(slope, gv);
+  };
+  float s1 = 0.f, s2 = 0.f;
+  auto add = [&](float o, float gv) {
+    float xh, gp;
+    leaf(o, gv, xh, gp);
+    s1 += gp;
+    s2 += __fmul_rn(gp, xh);
+  };
+  const float4* sg4 = reinterpret_cast<const float4*>(sg);
+  const float4* so4 = reinterpret_cast<const float4*>(so);
+  const float4* g4 = reinterpret_cast<const float4*>(g + base);
+  const float4* o4 = reinterpret_cast<const float4*>(out + base);
+  // step 1: this thread's groups, in order, wherever they are
+  int u = t;
+  if (bulk) {
+    for (int k = 0; k < chunks; ++k) {
+      const int hi = dc_chunk_end(nr, k, chunks) >> 2;
+      if (u >= hi) continue;
+      bulk_copy::bar_wait(bar + 8 * k, 0);
+      for (; u < hi; u += gt) {
+        const float4 o = so4[u], v = sg4[u];
+        add(o.x, v.x), add(o.y, v.y), add(o.z, v.z), add(o.w, v.w);
+      }
     }
+    for (; u < n >> 2; u += gt) {
+      const float4 o = __ldg(o4 + u), v = __ldg(g4 + u);
+      add(o.x, v.x), add(o.y, v.y), add(o.z, v.z), add(o.w, v.w);
+    }
+  } else {
+    for (; 4 * u < n; u += gt)
+      for (int p = 4 * u; p < min(4 * u + 4, n); ++p) {
+        const float o = out[base + p], gv = g[base + p];
+        if (p < nr) {  // read back by this thread alone in step 2
+          so[p] = o;
+          sg[p] = gv;
+        }
+        add(o, gv);
+      }
+  }
+
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    red[0][warp] = s1;
+    red[1][warp] = s2;
+  }
+  __syncthreads();
+  if (t < 2) {
+    const int wpc = kWarps / cpb;
+    float s = 0.f;
+    for (int w = 0; w < wpc; ++w) s += red[t][j * wpc + w];
+    part[j][t] = s;
+  }
+  float tot1, tot2;
+  if (cluster > 1) {
+    // push this rank's partials to every rank, then sum them in rank order
+    cluster_wait();  // every rank has started: its shared memory exists
     __syncthreads();
-    const float s1 = tot[0], s2 = tot[1];
-    if (ch == 0 && threadIdx.x == 0) {
-      dgamma[c] = s2;
-      dbeta[c] = s1;
+    if (threadIdx.x < 2 * cluster) {
+      float* dst = cg::this_cluster().map_shared_rank(&ranks[0][0],
+                                                      threadIdx.x >> 1);
+      dst[rank * 2 + (threadIdx.x & 1)] = part[0][threadIdx.x & 1];
     }
-    const DcLeaf lf(gamma, beta, c);
-    const float m1 = s1 * inv_hw, m2 = s2 * inv_hw;
-    const float scale = stats[c * 2 + 1] * lf.ga;
-    const int p_end = min(HW, (ch + 1) * kDcPix);
-    for (int p = ch * kDcPix + threadIdx.x; p < p_end; p += kThreads) {
-      const size_t q = (size_t)c * HW + p;
-      const float o = out[q], gt = g[q];
-      const bool m = o > 0.f;
-      const float xh = ((m ? o : o * inv_slope) - lf.be) * lf.rg;
-      const float gp = m ? gt : slope * gt;
-      dc[q] = scale * (gp - m1 - xh * m2);
+    cluster_arrive();
+    cluster_wait();  // every push has landed; none follows
+    tot1 = 0.f;
+    tot2 = 0.f;
+    for (int r = 0; r < cluster; ++r) {
+      tot1 += ranks[r][0];
+      tot2 += ranks[r][1];
     }
+  } else {
     __syncthreads();
+    tot1 = part[j][0];
+    tot2 = part[j][1];
+  }
+  if (rank == 0 && t == 0 && c < O) {
+    dgamma[c] = tot2;
+    dbeta[c] = tot1;
+  }
+
+  // step 2: dconv from the resident slice (the rest from global memory)
+  const float m1 = tot1 * inv_hw, m2 = tot2 * inv_hw;
+  auto dconv = [&](float o, float gv) {
+    float xh, gp;
+    leaf(o, gv, xh, gp);
+    return scale * ((gp - m1) - __fmul_rn(xh, m2));
+  };
+  if (bulk) {
+    float4* d4 = reinterpret_cast<float4*>(dc + base);
+    for (int q = t; q < n >> 2; q += gt) {
+      const bool in = q < nr >> 2;
+      const float4 o = in ? so4[q] : __ldg(o4 + q);
+      const float4 v = in ? sg4[q] : __ldg(g4 + q);
+      d4[q] = make_float4(dconv(o.x, v.x), dconv(o.y, v.y), dconv(o.z, v.z),
+                          dconv(o.w, v.w));
+    }
+  } else {
+    for (int q = t; 4 * q < n; q += gt)
+      for (int p = 4 * q; p < min(4 * q + 4, n); ++p)
+        dc[base + p] = p < nr ? dconv(so[p], sg[p])
+                              : dconv(out[base + p], g[base + p]);
   }
 }
 
@@ -433,18 +585,43 @@ int fused_block_fwd(const float* xp, const float* w, const float* gamma,
                   static_cast<cudaStream_t>(stream));
 }
 
-// g, out (O, H*W), stats (O, 2), gamma / beta (O,) -> dc (O, H*W), dgamma,
-// dbeta (O,); part: O * ceil(H*W / 2048) * 2 floats.
+// g, out (O, H*W), stats (O, 2), gamma / beta (O,) -> dc (O, H*W), dgb
+// (2, O) = [dgamma; dbeta]. The plan of ops/kernels/fused_block.py::
+// dc_plan: cluster (1-8) blocks per channel, or cpb (1, 2, 4, 8) channels
+// per block, slices of len pixels, res of them resident (both multiples of
+// 4), loaded in `chunks` (1-4) bulk copies; one ordinary cluster launch.
+// The bulk copies are taken where H*W % 4 == 0 and g, out and dc are
+// 16-byte aligned (checked here).
 int fused_block_bwd_dc(const float* g, const float* out, const float* stats,
                        const float* gamma, const float* beta, float* dc,
-                       float* dgamma, float* dbeta, float* part, int O, int HW,
-                       float inv_hw, float slope, float inv_slope,
-                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_items = O * ((HW + kDcPix - 1) / kDcPix);
-  void* args[] = {&g, &out, &stats, &gamma, &beta, &dc, &dgamma, &dbeta, &part,
-                  &O, &HW, &inv_hw, &slope, &inv_slope};
-  return launch_coop(fused_bwd_dc_kernel, n_items, args, st);
+                       float* dgb, int O, int HW, int cluster, int cpb,
+                       int len, int res, int chunks, float inv_hw,
+                       float slope, float inv_slope, void* stream) {
+  static bool allowed = false;
+  const int smem = cpb * 2 * res * (int)sizeof(float);
+  if (O < 1 || HW < 1 || cluster < 1 || cluster > conv_mma::kMaxSplit ||
+      (cpb != 1 && cpb != 2 && cpb != 4 && cpb != kDcMaxCpb) ||
+      (cpb > 1 && (cluster > 1 || len < HW)) || len % 4 || res % 4 ||
+      res < 4 || (long long)len * cluster < HW || smem > kDcSmemMax ||
+      chunks < 1 || chunks > kDcMaxChunks)
+    return (int)cudaErrorInvalidValue;
+  if (!allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_bwd_dc_cluster_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kDcSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    allowed = true;
+  }
+  const int bulk = HW % 4 == 0 && (reinterpret_cast<uintptr_t>(g) |
+                                   reinterpret_cast<uintptr_t>(out) |
+                                   reinterpret_cast<uintptr_t>(dc)) %
+                                          16 == 0;
+  return conv_mma::launch_cluster(
+      fused_bwd_dc_cluster_kernel, kThreads, smem,
+      dim3((O + cpb - 1) / cpb * cluster), cluster,
+      static_cast<cudaStream_t>(stream), g, out, stats, gamma, beta, dc, dgb,
+      dgb + O, O, HW, cluster, cpb, len, res, chunks, bulk, inv_hw, slope,
+      inv_slope);
 }
 
 // xp (I, H+K-1, W+K-1), dc (O, H, W) -> dw (O, I, K, K), K in {1, 3}.

@@ -28,7 +28,10 @@
 //     policy, so the 1.5 GB stream does not evict the operand every block
 //     reuses (v or g, copied with evict_last). Four consumer warps wait on a
 //     stage's full barrier, convert bf16 to f32, FMA in f32 and arrive on its
-//     empty barrier; no block-wide barrier fences the stream.
+//     empty barrier; no block-wide barrier fences the stream. The producer
+//     fences the async proxy after each empty wait (bulk_copy.cuh::
+//     fence_proxy_async): without it an adjoint launch at 3 image columns
+//     now and then refilled a stage a consumer was still reading.
 //   * Forward: a block walks its rows in tiles of <= kRows rows (its row
 //     range cut as evenly as kRows allows); each stage holds kCols columns of
 //     the tile's rows and the same columns of v (also by bulk copy, read once
@@ -52,9 +55,12 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "conv_tile.cuh"
 
 namespace {
+
+using namespace bulk_copy;
 
 constexpr int kConsumerWarps = 4;
 constexpr int kConsumers = 32 * kConsumerWarps;  // threads that compute
@@ -73,62 +79,6 @@ constexpr int kStageFwd = kStageA + kCols * 4;
 constexpr int kStageAdj = kStageA + 16 * 4;
 constexpr int kFwdSmem = kBarBytes + kStages * kStageFwd;  // dynamic shared
 constexpr int kAdjSmem = kBarBytes + kStages * kStageAdj;  // memory of a launch
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t l2_evict_first() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ uint64_t l2_evict_last() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
-  return p;
-}
-
-// bytes (a multiple of 16) from global src to shared dst (both 16-byte
-// aligned), completing on bar's transaction count, with an L2 policy.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
-      : "memory");
-}
 
 // The ring's barriers: full[s] completes when stage s's bytes have landed
 // (the producer's one arrival with its byte count), empty[s] when every
@@ -166,6 +116,8 @@ struct RingPos {
 __device__ __forceinline__ void producer_acquire(uint32_t bars, const RingPos& at,
                                                  uint32_t bytes) {
   bar_wait(empty_bar(bars, at.s), at.phase ^ 1);
+  // the consumers' reads of the stage before the copies that overwrite it
+  fence_proxy_async();
   bar_expect_tx(full_bar(bars, at.s), bytes);
 }
 

@@ -47,7 +47,7 @@ _SIGNATURES = {
                          _P],
     "radon_banded_adj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fused_block_fwd": [_P] * 8 + [_I] * 6 + [_F] * 3 + [_P],
-    "fused_block_bwd_dc": [_P] * 9 + [_I] * 2 + [_F] * 3 + [_P],
+    "fused_block_bwd_dc": [_P] * 7 + [_I] * 7 + [_F] * 3 + [_P],
     "fused_block_bwd_dw": [_P] * 5 + [_I] * 8 + [_P],
     "fused_block_bwd_dx": [_P] * 3 + [_I] * 7 + [_P],
     "lrt_conv_fwd": [_P] * 5 + [_I] * 8 + [_P],

@@ -10,7 +10,9 @@ Four kernels (``csrc/fused_block.cu``), f32 only, as the TPU block is:
   inv]).
 * ``fused_block_bwd_dc`` replaces ``_bwd_dc_call``: dconv, dgamma and dbeta
   with xhat recomputed from the block output (LeakyReLU inverted by sign, a
-  safe reciprocal of gamma), so the conv output is never stored.
+  safe reciprocal of gamma), so the conv output is never stored. One
+  ordinary cluster launch on ``dc_plan``'s plan: a channel's slices held in
+  its cluster's shared memory, its sums met in rank order.
 * ``fused_block_bwd_dw`` replaces ``_bwd_dw_call``: the weight gradient, on
   csrc/conv_mma.cuh's dw tile (3xTF32, the pixels split over a cluster and
   groups of clusters, ``dw_plan``), as ``cf_conv_dw`` in f32.
@@ -35,6 +37,8 @@ for a tensor on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -55,7 +59,6 @@ SLOPE = 0.2
 EPS = 1e-5
 KERNEL_SIZES = (1, 3)
 _F32 = (torch.float32,)
-_DC_PIX = 2048          # pixels of one bwd_dc work item (csrc kDcPix)
 _FWD_PIX = 2048         # pixels of one forward BN work item (csrc kFwdPix)
 
 
@@ -165,9 +168,68 @@ def bwd_dc_plain(g, out, stats, gamma, beta, slope=SLOPE):
     return inv * ga * (gp - m1 - xhat * m2), s2, s1
 
 
+# The dc kernel's plan depends on the shape alone (so do its bits): one wave
+# of an H100 SXM's 132 SMs is the target on any card.
+DC_SMS = 132
+DC_THREADS = 256        # a block's threads (csrc conv_tile::kThreads)
+DC_MAX_CLUSTER = 8      # blocks sharing one channel at most (portable size)
+DC_MAX_CPB = DC_THREADS // 32   # channels per block at most: a warp each
+DC_MIN_PIX = 1024       # a block's pixels before a channel is split, and
+                        # the most a block of several channels takes
+DC_SMEM = 224 * 1024    # dynamic shared memory per block (csrc kDcSmemMax)
+DC_CHUNK_PIX = 2048     # pixels of one bulk copy at least (8 KB of g or out)
+DC_MAX_CHUNKS = 4       # bulk copies per slice at most (csrc kDcMaxChunks)
+
+
+class DcPlan(NamedTuple):
+    """How ``fused_block_bwd_dc`` cuts a (co, hw) site: ``cluster`` blocks
+    share one channel, rank r taking pixels [r * length, (r + 1) * length),
+    or one block takes ``cpb`` whole channels; the first ``res`` pixels of
+    each slice are resident in shared memory (``smem`` bytes a block),
+    bulk-copied in ``chunks`` pieces."""
+    cluster: int
+    cpb: int
+    length: int
+    res: int
+    chunks: int
+    blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def dc_plan(co: int, hw: int) -> DcPlan:
+    """The plan of ``fused_block_bwd_dc`` at co channels of hw pixels: a
+    channel split over as many blocks (1-8, a cluster) as fill one wave with
+    at least DC_MIN_PIX pixels each, more where a slice would not fit in
+    shared memory; an unsplit channel of at most DC_MIN_PIX / 2 pixels
+    shares its block with others (2, 4 or 8 channels, as many as keep the
+    block within DC_MIN_PIX pixels). Slices are multiples of 4 pixels, so
+    each starts on a 16-byte boundary where hw % 4 == 0; a resident slice
+    is copied in one piece per DC_CHUNK_PIX pixels, up to four, so the sums
+    start before the last piece lands."""
+    def r4(n):
+        return -(-n // 4) * 4
+
+    cluster = max(1, min(DC_MAX_CLUSTER, DC_SMS // co, hw // DC_MIN_PIX))
+    while (cluster < DC_MAX_CLUSTER
+           and 8 * r4(-(-hw // cluster)) > DC_SMEM):
+        cluster += 1
+    cpb = 1
+    while cluster == 1 and cpb < DC_MAX_CPB and 2 * cpb * hw <= DC_MIN_PIX:
+        cpb *= 2
+    length = r4(-(-hw // cluster))
+    res = min(length, DC_SMEM // (8 * cpb) // 4 * 4)
+    chunks = max(1, min(DC_MAX_CHUNKS, res // DC_CHUNK_PIX))
+    return DcPlan(cluster, cpb, length, res, chunks,
+                  -(-co // cpb) * cluster, cpb * 8 * res)
+
+
 def bwd_dc(g, out, stats, gamma, beta, slope=SLOPE):
     """The BN + LeakyReLU backward from the block output: (dconv (Co, H, W),
-    dgamma (Co,), dbeta (Co,)). CUDA tensors launch ``fused_block_bwd_dc``."""
+    dgamma (Co,), dbeta (Co,)). CUDA tensors launch ``fused_block_bwd_dc``
+    (one cluster launch on ``dc_plan``'s plan, no scratch; the C entry takes
+    the bulk copies where H*W % 4 == 0 and g, out and dconv are 16-byte
+    aligned)."""
     if g.shape != out.shape or out.dim() != 3:
         raise ValueError(f"g {tuple(g.shape)} and out {tuple(out.shape)} "
                          "must be the same (Co, H, W)")
@@ -177,18 +239,18 @@ def bwd_dc(g, out, stats, gamma, beta, slope=SLOPE):
                     (gamma, "gamma"), (beta, "beta")):
         build.require_cuda(t, f"fused_block_bwd_dc {what}", _F32)
     co, h, wd = out.shape
+    plan = dc_plan(co, h * wd)
     dc = torch.empty_like(out)
     dgb = torch.empty((2, co), dtype=torch.float32, device=out.device)
-    part = torch.empty((co * -(-(h * wd) // _DC_PIX) * 2,),
-                       dtype=torch.float32, device=out.device)
     lib, st = _lib_stream(out)
     err = lib.fused_block_bwd_dc(
         g.data_ptr(), out.data_ptr(), stats.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), dc.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
-        part.data_ptr(), co, h * wd, 1.0 / (h * wd), slope, 1.0 / slope, st)
+        beta.data_ptr(), dc.data_ptr(), dgb.data_ptr(), co, h * wd,
+        plan.cluster, plan.cpb, plan.length, plan.res, plan.chunks,
+        1.0 / (h * wd), slope, 1.0 / slope, st)
     DC.launches += 1
     build.check(err, DC.name)
-    return dc, dgb[0], dgb[1]
+    return (dc, *dgb.unbind())
 
 
 # -- kernel 3: the weight gradient -------------------------------------------------

@@ -169,15 +169,29 @@ def test_adjoint_order_matches_pallas_vjp(matrix):
 
 def test_source_streams_a_by_bulk_copies_in_one_adjoint_launch():
     """Both kernels take A through cp.async.bulk with an L2 evict_first
-    policy into an mbarrier ring; the adjoint is one kernel, with no reduce
+    policy into an mbarrier ring, each refill fenced after the consumers'
+    reads of the stage; the adjoint is one kernel, with no reduce
     launch and no float atomics (the one atomicAdd is the int ticket); no
     SM count is written into the wrapper."""
     src = open(SRC).read()
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    # the copy and barrier helpers live in csrc/bulk_copy.cuh, which the
+    # source includes and calls
+    assert '#include "bulk_copy.cuh"' in code
+    helpers = open(os.path.join(os.path.dirname(SRC), "bulk_copy.cuh")).read()
     assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" \
-        ".L2::cache_hint" in code
-    assert "createpolicy.fractional.L2::evict_first" in code
-    assert "mbarrier.try_wait.parity" in code
+        ".L2::cache_hint" in helpers
+    assert "createpolicy.fractional.L2::evict_first" in helpers
+    assert "mbarrier.try_wait.parity" in helpers
+    assert "bulk_load(" in code and "l2_evict_first()" in code
+    assert "bar_wait(" in code
+    # the producer orders the consumers' reads of a stage before the bulk
+    # copies that refill it (async proxy)
+    assert "fence.proxy.async.shared::cta" in helpers
+    acquire = code[code.index("void producer_acquire("):]
+    acquire = acquire[:acquire.index("}")]
+    assert acquire.index("bar_wait(") < acquire.index("fence_proxy_async()") \
+        < acquire.index("bar_expect_tx(")
     assert code.count("__global__") == 2
     assert "radon_dense_adj_reduce_kernel" not in code
     atomics = [line.strip() for line in code.splitlines()

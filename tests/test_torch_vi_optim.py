@@ -140,3 +140,15 @@ def test_two_flat_adamw_steps_match_jax(trees, temp, sigma):
         d_got = got[name] - init[name]
         assert float((d_got - d_ref).abs().max()) <= ADAMW_REL * 2 * lr + \
             1e-7 * float(init[name].abs().max()), name
+
+
+def test_flatten_keeps_the_leaves_device_by_default():
+    """Without ``device`` the flat buffer stays where the leaves are (here
+    the meta device, which cannot be copied to the CPU); with it, it moves."""
+    leaves = {"a.w_mu": torch.ones(3), "a.w_rho": torch.zeros(3),
+              "a.b": torch.full((2,), 2.0)}
+    meta = tvi.flatten({k: v.to("meta") for k, v in leaves.items()})
+    assert meta.flat.device.type == "meta" and meta.flat.shape == (8,)
+    cpu = tvi.flatten(leaves, device="cpu")
+    assert cpu.flat.device.type == "cpu"
+    assert cpu.flat.tolist() == [1, 1, 1, 0, 0, 0, 2, 2] and cpu.n_var == 3
