@@ -26,7 +26,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    on two odd random matrices, at 1 and 3 image columns, each launched
    for the same bits (40 times at 256^2, twice on the odd matrices).
 3. One f32 CT, one f32 den and one f32 LRT den loss and gradient through
-   the 256^2 nets on the card against the CPU's plain path. Then the paths:
+   the 256^2 nets on the card against the CPU's plain path. Then the paths,
+   each a fit on the card, where every iteration is a replay of the step's
+   CUDA graph (checked), and the same fit once more eagerly
+   (``fit(..., eager=True)``) for its it/s beside the graph's:
    bench.py's CT configuration (256^2, input depth 16, temp 2.2e-10, sigma
    1.7e-7, lr 1e-3, seed 1, bf16, metrics every 10) through ``fit``, 100
    warm-up and 200 timed iterations; the den/MFVI f32 fit of 500 iterations
@@ -37,11 +40,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``fit(..., reparam="lrt")`` (100 warm-up and 200 timed iterations) and
    its 25-sample LRT posterior summary; path B, the CT configuration with
    ``radon_mode="dense-bf16"`` (100 + 200 iterations). Launch counters are
-   zeroed just before each path and read just after it. Last, the
-   reproducibility of a fit: the den f32, CT bf16, path-A and path-B fits,
-   each run twice at seed 1 for 60 iterations, must give equal bits in every
-   metric row and in the final parameters.
-4. Each kernel's time at the paths' shapes beside its bound, its plain
+   zeroed just before each path and read just after its graph fit; they
+   count what the card ran: each replay adds its capture's launches, the
+   two eager warm-up steps before a capture count as steps run. Last, the
+   reproducibility of a fit: the den f32, CT bf16, path-A and path-B graph
+   fits, each run twice at seed 1 for 60 iterations, must give equal bits
+   in every metric row and in the final parameters.
+4. The graph against the eager step: each path's fit at seed 1 (60
+   iterations, snapshots every 20, metric rows every 10) once eagerly and
+   three times in a row as graph replays. Every graph fit must give the
+   eager fit's bits in every metric row, snapshot and final parameter,
+   replay every iteration, and count the eager fit's launches per step
+   run; the three must leave at most 64 MB more device memory allocated
+   than before them; and every global cache of the port must hold the same
+   tensors just before and just after each capture.
+5. Each kernel's time at the paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
    off; timed here only, never called by the port), printed as one JSON
    line ``{"kernels": [...]}``; for every kernel also the profiler's device
@@ -51,7 +64,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    leaky_relu_backward + native_batch_norm_backward chain on the conv
    output; the dc also per site, its smallest site the per-launch floor).
    The dense Radon pair also gives the GB/s of A and the share of the bytes
-   bound of the kernel and of cuBLAS.
+   bound of the kernel and of cuBLAS. With ``--profile-steps``, each path's
+   fit is profiled as graph replays (from the first replay on) and eagerly.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -923,6 +937,29 @@ def hold_launches(path: str, launches: dict, expected: set) -> None:
                 f"launches of {sorted(expected)} only)")
 
 
+def steps_run(res) -> int:
+    """The steps a fit ran on the card: its iterations, and before a graph
+    fit's capture its two eager warm-up steps (one of each variant), which
+    launch every kernel too."""
+    return res.executed + res.warmup_steps
+
+
+def hold_replays(path: str, res) -> None:
+    if res.replays != res.executed:
+        raise AssertionError(f"{path}: {res.replays} of {res.executed} "
+                             "iterations were graph replays")
+
+
+def eager_rate(problem, method, **kw) -> float:
+    """it/s of the same fit run eagerly (``fit(..., eager=True)``), for the
+    line beside the graph fit's."""
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import fit
+    res = fit(problem, method, eager=True, **kw)
+    if res.replays:
+        raise AssertionError("an eager fit replayed a graph")
+    return res.iters_per_sec
+
+
 def use_bench_images() -> None:
     """bench.py's images: the synthetic CT slice and x-ray at SIZE^2."""
     import mfvi_dip_mia_tpu_torch.tasks.data as D
@@ -936,34 +973,43 @@ REPRO_ITERS = 60
 METRIC_ROWS = ("mse_corrupted", "mse_gt", "psnrs", "ssims")
 
 
+def fit_paths() -> tuple:
+    """The four paths' fits: (label, task, method, compute dtype, fit
+    keywords, build_problem keywords)."""
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method
+    den = Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
+    ct = Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
+    return (("den f32", "den", den, "f32", {}, {}),
+            ("ct bf16", "ct", ct, "bf16", {}, {}),
+            ("path A, LRT den f32", "den", den, "f32", dict(reparam="lrt"),
+             {}),
+            ("path B, dense CT bf16", "ct", ct, "bf16", {},
+             dict(radon_mode="dense-bf16")))
+
+
 def reproducibility() -> dict:
     """The den f32 fit, the CT bf16 fit, path A's LRT den f32 fit and path
     B's dense CT bf16 fit, each run twice in this process through ``fit``
-    at seed 1 for REPRO_ITERS iterations (metric rows every iteration):
+    (graph replays) at seed 1 for REPRO_ITERS iterations (metric rows every
+    iteration):
     whether the two runs' metric rows and final parameters are equal bit
     for bit, and the first iteration whose row differs. The caller decides
     what a difference means (chip_smoke.py raises)."""
     import numpy as np
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
-    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import fit
 
     use_bench_images()
-    den = Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
-    ct = Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
     out = {}
-    for label, task, method, dtype, kw, op in (
-            ("den f32", "den", den, "f32", {}, {}),
-            ("ct bf16", "ct", ct, "bf16", {}, {}),
-            ("path A, LRT den f32", "den", den, "f32", dict(reparam="lrt"),
-             {}),
-            ("path B, dense CT bf16", "ct", ct, "bf16", {},
-             dict(radon_mode="dense-bf16"))):
+    for label, task, method, dtype, kw, op in fit_paths():
         problem = P.build_problem(task, "mfvi", 0, input_depth=16,
                                   device=DEVICE, **op)
         a, b = (fit(problem, method, num_iter=REPRO_ITERS - 1, lr=1e-3,
                     seed=1, show_every=REPRO_ITERS, metrics_every=1,
                     compute_dtype=dtype, collect_snapshots=False,
                     device=DEVICE, **kw) for _ in range(2))
+        for r in (a, b):
+            hold_replays(f"the reproducibility fit, {label}", r)
         differ = np.zeros(a.executed, bool)
         for f in METRIC_ROWS:
             ra, rb = getattr(a, f), getattr(b, f)
@@ -1005,16 +1051,18 @@ def run_fits(results: dict) -> dict:
         raise AssertionError(f"CT operator mode {problem.operator.mode}")
     method = Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
     n_iter = CT_ITERS_WARM + CT_ITERS_TIMED
-    kernels.reset_launches()
-    res = fit(problem, method, num_iter=n_iter - 1, lr=1e-3, seed=1,
+    kw = dict(num_iter=n_iter - 1, lr=1e-3, seed=1,
               show_every=CT_ITERS_WARM, metrics_every=10,
-              compute_dtype="bf16", collect_snapshots=False,
-              device=DEVICE)
+              compute_dtype="bf16", collect_snapshots=False, device=DEVICE)
+    kernels.reset_launches()
+    res = fit(problem, method, **kw)
     launches = {k.name: k.launches for k in kernels.KERNELS}
+    eager = eager_rate(problem, method, **kw)
     traj = res.psnrs[::10, 2]
-    log(f"[3] ct/mfvi bf16 {SIZE}^2: {res.executed} iterations, "
-        f"{res.iters_per_sec:.2f} it/s over the last {CT_ITERS_TIMED} "
-        f"(first chunk incl. set-up {res.compile_seconds:.1f} s)")
+    log(f"[3] ct/mfvi bf16 {SIZE}^2: {res.executed} iterations, graph "
+        f"{res.iters_per_sec:.2f} it/s, eager {eager:.2f} it/s over the last "
+        f"{CT_ITERS_TIMED} (graph's first chunk incl. set-up "
+        f"{res.compile_seconds:.1f} s)")
     log("    smoothed PSNR every 10 it: "
         + " ".join(f"{p:.2f}" for p in traj))
     log(f"    final smoothed PSNR {res.final_psnr:.3f} dB (iteration 0: "
@@ -1023,12 +1071,15 @@ def run_fits(results: dict) -> dict:
             and res.final_psnr > res.psnrs[0, 2]):
         raise AssertionError("CT fit did not improve on iteration 0")
     hold_launches("the bf16 CT main path", launches, CONV | BANDED)
+    hold_replays("the bf16 CT main path", res)
     out["ct"] = dict(iters_per_sec=res.iters_per_sec,
+                     eager_iters_per_sec=eager,
                      final_psnr=res.final_psnr,
                      psnr_it0=float(res.psnrs[0, 2]),
                      psnr_every10=[float(p) for p in traj],
-                     executed=res.executed, launches=launches,
-                     launches_per_step={k: n / res.executed
+                     executed=res.executed, steps_run=steps_run(res),
+                     launches=launches,
+                     launches_per_step={k: n / steps_run(res)
                                         for k, n in launches.items()})
     out["den"] = run_den(kernels)
     out["lrt_den"] = run_lrt_den(kernels)
@@ -1049,28 +1100,32 @@ def run_lrt_den(kernels) -> dict:
     problem = P.build_problem("den", "mfvi", 0, input_depth=16,
                               device=DEVICE)
     n_sites = problem.net.num_conv_sites
-    kernels.reset_launches()
-    res = fit(problem, Method("mfvi", temp=5.66e-7, sigma=1.46e-5),
-              num_iter=PATH_ITERS_WARM + PATH_ITERS_TIMED - 1, lr=1e-3,
+    method = Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
+    kw = dict(num_iter=PATH_ITERS_WARM + PATH_ITERS_TIMED - 1, lr=1e-3,
               seed=1, show_every=PATH_ITERS_WARM, metrics_every=1,
               compute_dtype="f32", collect_snapshots=False, device=DEVICE,
               reparam="lrt")
+    kernels.reset_launches()
+    res = fit(problem, method, **kw)
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    per_step = {k: n / res.executed for k, n in launches.items()}
+    per_step = {k: n / steps_run(res) for k, n in launches.items()}
+    eager = eager_rate(problem, method, **kw)
     log(f"[3] path A, den/mfvi f32 LRT {SIZE}^2 through fit(reparam='lrt'): "
-        f"{res.executed} iterations, {res.iters_per_sec:.2f} it/s over the "
-        f"last {PATH_ITERS_TIMED} (first chunk incl. set-up "
-        f"{res.compile_seconds:.1f} s), final smoothed PSNR "
-        f"{res.final_psnr:.3f} dB (iteration 0: {res.psnrs[0, 2]:.3f})")
+        f"{res.executed} iterations, graph {res.iters_per_sec:.2f} it/s, "
+        f"eager {eager:.2f} it/s over the last {PATH_ITERS_TIMED} (graph's "
+        f"first chunk incl. set-up {res.compile_seconds:.1f} s), final "
+        f"smoothed PSNR {res.final_psnr:.3f} dB (iteration 0: "
+        f"{res.psnrs[0, 2]:.3f})")
     log(f"    launches per step {per_step}")
     if not (np.isfinite(res.final_psnr)
             and res.final_psnr > res.psnrs[0, 2]):
         raise AssertionError("LRT den fit did not improve on iteration 0")
     hold_launches("path A's fit", launches, CONV | {"lrt_conv_fwd"})
-    if launches["lrt_conv_fwd"] != n_sites * res.executed:
+    hold_replays("path A's fit", res)
+    if launches["lrt_conv_fwd"] != n_sites * steps_run(res):
         raise AssertionError(f"lrt_conv_fwd launched "
                              f"{launches['lrt_conv_fwd']} times in "
-                             f"{res.executed} steps of {n_sites} sites")
+                             f"{steps_run(res)} steps of {n_sites} sites")
 
     kernels.reset_launches()
     torch.cuda.synchronize()
@@ -1089,11 +1144,12 @@ def run_lrt_den(kernels) -> dict:
             or not np.isfinite(mc["mc_mean_psnr"])
             or not np.isfinite(mc["mc_epi"]).all()):
         raise AssertionError("path A's posterior summary failed")
-    return dict(iters_per_sec=res.iters_per_sec, final_psnr=res.final_psnr,
-                psnr_it0=float(res.psnrs[0, 2]),
+    return dict(iters_per_sec=res.iters_per_sec, eager_iters_per_sec=eager,
+                final_psnr=res.final_psnr, psnr_it0=float(res.psnrs[0, 2]),
                 mc_mean_psnr=mc["mc_mean_psnr"], mc_samples_per_sec=mc_rate,
-                executed=res.executed, launches=launches,
-                launches_per_step=per_step, mc_launches=mc_launches)
+                executed=res.executed, steps_run=steps_run(res),
+                launches=launches, launches_per_step=per_step,
+                mc_launches=mc_launches)
 
 
 def run_dense_ct(kernels) -> dict:
@@ -1110,28 +1166,33 @@ def run_dense_ct(kernels) -> dict:
     build_s = time.perf_counter() - t0
     if problem.operator.mode != "dense-bf16":
         raise AssertionError(f"CT operator mode {problem.operator.mode}")
-    kernels.reset_launches()
-    res = fit(problem, Method("mfvi", temp=2.2e-10, sigma=1.7e-7),
-              num_iter=PATH_ITERS_WARM + PATH_ITERS_TIMED - 1, lr=1e-3,
+    method = Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
+    kw = dict(num_iter=PATH_ITERS_WARM + PATH_ITERS_TIMED - 1, lr=1e-3,
               seed=1, show_every=PATH_ITERS_WARM, metrics_every=10,
               compute_dtype="bf16", collect_snapshots=False, device=DEVICE)
+    kernels.reset_launches()
+    res = fit(problem, method, **kw)
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    per_step = {k: n / res.executed for k, n in launches.items()}
+    per_step = {k: n / steps_run(res) for k, n in launches.items()}
+    eager = eager_rate(problem, method, **kw)
     log(f"[3] path B, ct/mfvi bf16 {SIZE}^2 with the dense bf16 matrix: "
         f"problem built in {build_s:.1f} s (matrix cached), "
-        f"{res.executed} iterations, {res.iters_per_sec:.2f} it/s over the "
-        f"last {PATH_ITERS_TIMED}, final smoothed PSNR {res.final_psnr:.3f} "
-        f"dB (iteration 0: {res.psnrs[0, 2]:.3f})")
+        f"{res.executed} iterations, graph {res.iters_per_sec:.2f} it/s, "
+        f"eager {eager:.2f} it/s over the last {PATH_ITERS_TIMED}, final "
+        f"smoothed PSNR {res.final_psnr:.3f} dB (iteration 0: "
+        f"{res.psnrs[0, 2]:.3f})")
     log(f"    launches per step {per_step}")
     if not (np.isfinite(res.final_psnr)
             and res.final_psnr > res.psnrs[0, 2]):
         raise AssertionError("dense CT fit did not improve on iteration 0")
     hold_launches("path B", launches, CONV | DENSE)
-    if any(launches[k] != res.executed for k in DENSE):
+    hold_replays("path B", res)
+    if any(launches[k] != steps_run(res) for k in DENSE):
         raise AssertionError("the dense Radon kernels did not run once each "
                              "per step")
-    return dict(iters_per_sec=res.iters_per_sec, final_psnr=res.final_psnr,
-                psnr_it0=float(res.psnrs[0, 2]), executed=res.executed,
+    return dict(iters_per_sec=res.iters_per_sec, eager_iters_per_sec=eager,
+                final_psnr=res.final_psnr, psnr_it0=float(res.psnrs[0, 2]),
+                executed=res.executed, steps_run=steps_run(res),
                 problem_seconds=build_s, launches=launches,
                 launches_per_step=per_step)
 
@@ -1159,7 +1220,7 @@ def run_den(kernels) -> dict:
 
     def fit_and_count(problem, method, **kw):
         seen["res"] = fit(problem, method, **kw)
-        seen["problem"] = problem
+        seen.update(problem=problem, method=method, kw=kw)
         seen["fit_launches"] = {k.name: k.launches for k in kernels.KERNELS}
         return seen["res"]
 
@@ -1183,12 +1244,19 @@ def run_den(kernels) -> dict:
         R.fit = fit
         shutil.rmtree(tmp, ignore_errors=True)
     res, problem = seen["res"], seen["problem"]
-    per_step = {k: n / res.executed for k, n in seen["fit_launches"].items()}
+    per_step = {k: n / steps_run(res)
+                for k, n in seen["fit_launches"].items()}
     mc_psnr = float(arrays["mc_mean_psnr"])
+    # the runner's fit again, eagerly: its own net input (the runner's
+    # stream has moved on), no callbacks
+    eager = eager_rate(problem, seen["method"], **{
+        k: v for k, v in seen["kw"].items()
+        if k not in ("rng", "log_fn", "snapshot_fn")})
     log(f"[3] den/mfvi f32 {SIZE}^2 through run_den_mfvi: {res.executed} "
-        f"iterations, {res.iters_per_sec:.2f} it/s (run wall {wall:.1f} s), "
-        f"final smoothed PSNR {final:.3f} dB (iteration 0: "
-        f"{res.psnrs[0, 2]:.3f}), 25-sample MC mean PSNR {mc_psnr:.3f} dB")
+        f"iterations, graph {res.iters_per_sec:.2f} it/s (run wall "
+        f"{wall:.1f} s), eager {eager:.2f} it/s, final smoothed PSNR "
+        f"{final:.3f} dB (iteration 0: {res.psnrs[0, 2]:.3f}), 25-sample MC "
+        f"mean PSNR {mc_psnr:.3f} dB")
     log(f"    launches per fit step {per_step}; whole run {launches}")
     if set(arrays) != DEN_KEYS:
         raise AssertionError(f"save.npz keys {sorted(arrays)}")
@@ -1200,6 +1268,7 @@ def run_den(kernels) -> dict:
             and final > res.psnrs[0, 2]):
         raise AssertionError("den fit did not improve on iteration 0")
     hold_launches("the den main path", launches, CONV | FUSED)
+    hold_replays("the den main path", res)
 
     # MC posterior samples per second of mc_predict at SIZE^2 (bench.py
     # --metric mc's counterpart): the final parameters, 100 whole-tree draws
@@ -1218,9 +1287,10 @@ def run_den(kernels) -> dict:
         raise AssertionError("mc_predict gave non-finite samples")
     log(f"[3] mc_predict at {SIZE}^2: {mc_rate:.1f} posterior samples/s over "
         f"{MC_SAMPLES_TIMED} samples")
-    return dict(iters_per_sec=res.iters_per_sec, final_psnr=final,
-                psnr_it0=float(res.psnrs[0, 2]), mc_mean_psnr=mc_psnr,
-                mc_samples_per_sec=mc_rate, executed=res.executed,
+    return dict(iters_per_sec=res.iters_per_sec, eager_iters_per_sec=eager,
+                final_psnr=final, psnr_it0=float(res.psnrs[0, 2]),
+                mc_mean_psnr=mc_psnr, mc_samples_per_sec=mc_rate,
+                executed=res.executed, steps_run=steps_run(res),
                 run_wall_seconds=wall, launches=launches,
                 fit_launches=seen["fit_launches"],
                 launches_per_step=per_step)
@@ -1241,23 +1311,70 @@ KERNEL_FUNCS = {"cf_conv_fwd": "conv_fwd_mma_kernel",
 
 
 def profile_fit(label: str, problem, method, kw: dict, steps: int,
-                step_ms: float) -> dict:
-    """torch.profiler over a short fit: device time by kernel, and the
-    device's busy share of a step. The profiler slows the host, so the share
-    is taken of ``step_ms``, the unprofiled fit's time per step."""
+                step_ms: dict, site_tag: str | None = None) -> dict:
+    """torch.profiler over a short fit in each mode of ``step_ms``
+    ({"graph" / "eager": the unprofiled fit's ms per step in that mode}):
+    device time by kernel, and the card's busy share of a step (the
+    profiler slows the host, so the share is taken of the unprofiled step).
+    A graph fit is profiled from its first replay: its warm-up and capture
+    stay outside the window, so every step counted is a replay. With both
+    modes, the kernels whose calls per step differ are listed by name.
+    ``site_tag`` names a kernel whose device time is also given per launch
+    of a step (in launch order, the median over the steps)."""
+    out = {mode: _profile_mode(label, problem, method, kw, steps, ms,
+                               mode == "eager", site_tag)
+           for mode, ms in step_ms.items()}
+    if len(out) == 2:
+        calls = {m: out[m]["calls_per_step"] for m in ("eager", "graph")}
+        differ = {k: [calls["eager"].get(k, 0.0), calls["graph"].get(k, 0.0)]
+                  for k in sorted(set(calls["eager"]) | set(calls["graph"]))
+                  if abs(calls["eager"].get(k, 0.0)
+                         - calls["graph"].get(k, 0.0)) > 0.05}
+        out["calls_differing"] = differ
+        log(f"    {label}: kernels whose calls per step differ, eager / "
+            "graph: " + ("; ".join(f"{k[:70]} {e:.2f} / {g:.2f}"
+                                    for k, (e, g) in differ.items())
+                         or "none"))
+    return out
+
+
+def _profile_mode(label: str, problem, method, kw: dict, steps: int,
+                  step_ms: float, eager: bool, site_tag) -> dict:
+    import statistics
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from mfvi_dip_mia_tpu_torch.tasks.trainer import fit
+    import mfvi_dip_mia_tpu_torch.tasks.trainer as T
 
-    fit(problem, method, num_iter=9, show_every=10, **kw)      # warm
+    mode = "eager" if eager else "graph"
+    T.fit(problem, method, num_iter=9, show_every=10, eager=eager, **kw)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fit(problem, method, num_iter=steps - 1, show_every=steps, **kw)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    started = []
+    capture_step = T.capture_step
+
+    def start():
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        prof.start()
+        started.append(time.perf_counter())
+
+    def then_profile(*args, **kwargs):
+        graphs = capture_step(*args, **kwargs)
+        start()
+        return graphs
+
+    T.capture_step = then_profile
+    try:
+        if eager:
+            start()
+        T.fit(problem, method, num_iter=steps - 1, show_every=steps,
+              eager=eager, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - started[0]
+    finally:
+        T.capture_step = capture_step
+        if started:
+            prof.stop()
     # device kernels only: an operator's row repeats its kernels' time
     rows = [(ev.key, ev.self_device_time_total, ev.count)
             for ev in prof.key_averages()
@@ -1266,10 +1383,10 @@ def profile_fit(label: str, problem, method, kw: dict, steps: int,
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3 / steps
     launches = sum(r[2] for r in rows) / steps
-    log(f"[3] profile of {steps} {label} steps: {launches:.0f} device kernels "
-        f"and {busy_ms:.3f} ms of device time per step; the unprofiled step "
-        f"takes {step_ms:.3f} ms, so the card is busy "
-        f"{100 * busy_ms / step_ms:.1f}% of it (profiled wall "
+    log(f"[3] profile of {steps} {label} steps, {mode}: {launches:.1f} "
+        f"device kernels and {busy_ms:.3f} ms of device time per step; the "
+        f"unprofiled {mode} step takes {step_ms:.3f} ms, so the card is "
+        f"busy {100 * busy_ms / step_ms:.1f}% of it (profiled wall "
         f"{wall * 1e3 / steps:.1f} ms/step)")
     for key, us, n in rows[:12]:
         log(f"    {us / 1e3 / steps:9.4f} ms/step  x{n / steps:6.1f}  "
@@ -1279,15 +1396,31 @@ def profile_fit(label: str, problem, method, kw: dict, steps: int,
             for name, tag in KERNEL_FUNCS.items()}
     log("    the port's kernels, device ms/step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in ours.items() if v > 0))
+    sites = None
+    if site_tag:
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA
+                      and re.search(r"(?<!\w)" + site_tag, ev.name)),
+                     key=lambda ev: ev.time_range.start)
+        if evs and len(evs) % steps == 0:
+            n = len(evs) // steps
+            us = [ev.time_range.elapsed_us() for ev in evs]
+            sites = [statistics.median(us[r * n + i] for r in range(steps))
+                     for i in range(n)]
+            log(f"    {site_tag} device us per launch, in a step's launch "
+                "order: " + " ".join(f"{u:.2f}" for u in sites)
+                + f" (smallest {min(sites):.2f})")
     return dict(steps=steps, device_ms_per_step=busy_ms, step_ms=step_ms,
                 kernels_device_ms_per_step=ours,
                 busy_share=busy_ms / step_ms, kernels_per_step=launches,
                 profiled_wall_ms_per_step=wall * 1e3 / steps,
+                calls_per_step={k: n / steps for k, _, n in rows},
+                site_us=sites,
                 top=[dict(kernel=k, ms_per_step=us / 1e3 / steps,
                           calls_per_step=n / steps) for k, us, n in rows[:40]])
 
 
-def profile_ct(steps: int, step_ms: float) -> dict:
+def profile_ct(steps: int, fit: dict) -> dict:
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
     from mfvi_dip_mia_tpu_torch.tasks.trainer import Method
 
@@ -1295,13 +1428,20 @@ def profile_ct(steps: int, step_ms: float) -> dict:
     return profile_fit(
         "CT", problem, Method("mfvi", temp=2.2e-10, sigma=1.7e-7),
         dict(lr=1e-3, seed=1, metrics_every=10, compute_dtype="bf16",
-             collect_snapshots=False), steps, step_ms)
+             collect_snapshots=False), steps, step_ms_of(fit))
+
+
+def step_ms_of(fit: dict) -> dict:
+    """{mode: unprofiled ms per step} of a phase-3 path's fits."""
+    return {"graph": 1e3 / fit["iters_per_sec"],
+            "eager": 1e3 / fit["eager_iters_per_sec"]}
 
 
 def profile_den(steps: int) -> dict:
-    """The den f32 fit profiled with the fused block, and once more with its
-    sites sent down the unfused chain (an A/B of this script only: the port
-    has no switch), each beside its own unprofiled it/s over 100 steps."""
+    """The den f32 fit profiled with the fused block, as graph replays and
+    eagerly, and once more with its sites sent down the unfused chain (an
+    A/B of this script only: the port has no switch; graph replays), each
+    beside its own unprofiled it/s over 100 steps."""
     from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
     from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
@@ -1313,16 +1453,22 @@ def profile_den(steps: int) -> dict:
     out = {}
     supported = fused_block.supported
     try:
-        for variant in ("fused", "unfused"):
+        for variant, modes in (("fused", ("graph", "eager")),
+                               ("unfused", ("graph",))):
             if variant == "unfused":
                 fused_block.supported = lambda x, k: False
-            res = fit(problem, method, num_iter=DEN_AB_ITERS - 1,
-                      show_every=10, **kw)
-            out[variant] = profile_fit(f"den ({variant})", problem, method,
-                                       kw, steps, 1e3 / res.iters_per_sec)
-            out[variant]["iters_per_sec"] = res.iters_per_sec
-            log(f"    den {variant}: {res.iters_per_sec:.2f} it/s over "
-                f"{DEN_AB_ITERS - 10} unprofiled steps")
+            rate = {mode: fit(problem, method, num_iter=DEN_AB_ITERS - 1,
+                              show_every=10, eager=mode == "eager",
+                              **kw).iters_per_sec for mode in modes}
+            out[variant] = profile_fit(
+                f"den ({variant})", problem, method, kw, steps,
+                {mode: 1e3 / r for mode, r in rate.items()},
+                KERNEL_FUNCS["fused_block_bwd_dc"]
+                if variant == "fused" else None)
+            out[variant]["iters_per_sec"] = rate
+            log(f"    den {variant}: " + ", ".join(
+                f"{mode} {r:.2f} it/s" for mode, r in rate.items())
+                + f" over {DEN_AB_ITERS - 10} unprofiled steps")
     finally:
         fused_block.supported = supported
     return out
@@ -1330,7 +1476,7 @@ def profile_den(steps: int) -> dict:
 
 def profile_paths(steps: int, fits: dict) -> dict:
     """Path A (LRT den) and path B (dense CT) profiled, each beside its own
-    unprofiled it/s from phase 3."""
+    unprofiled it/s from phase 3, as graph replays and eagerly."""
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
     from mfvi_dip_mia_tpu_torch.tasks.trainer import Method
 
@@ -1343,16 +1489,154 @@ def profile_paths(steps: int, fits: dict) -> dict:
                                             sigma=1.46e-5),
             dict(lr=1e-3, seed=1, metrics_every=1, compute_dtype="f32",
                  collect_snapshots=False, reparam="lrt"), steps,
-            1e3 / fits["lrt_den"]["iters_per_sec"]),
+            step_ms_of(fits["lrt_den"])),
         "dense_ct": profile_fit(
             "dense CT (path B)", ct, Method("mfvi", temp=2.2e-10,
                                             sigma=1.7e-7),
             dict(lr=1e-3, seed=1, metrics_every=10, compute_dtype="bf16",
                  collect_snapshots=False), steps,
-            1e3 / fits["dense_ct"]["iters_per_sec"])}
+            step_ms_of(fits["dense_ct"]))}
+
+# -- phase 4: the graph against the eager step ----------------------------------
+
+GRAPH_ITERS = 60              # each fit's iterations
+GRAPH_SHOW = 20               # snapshots and host reads every 20
+GRAPH_METRICS = 10            # metric rows every 10: both captured variants
+GRAPH_FITS = 3                # graph fits in a row, held to MEMORY_SLACK
+MEMORY_SLACK = 64 * 2 ** 20   # device bytes the three may leave allocated
+SNAPSHOTS = ("recons", "uncerts_epi", "uncerts_ale")
 
 
-# -- phase 4: times beside bounds ---------------------------------------------
+def _tensor_ptrs(v) -> list:
+    import torch
+    if isinstance(v, torch.Tensor):
+        return [v.data_ptr()]
+    if isinstance(v, (tuple, list)):
+        return [p for x in v for p in _tensor_ptrs(x)]
+    return []
+
+
+def cache_state() -> dict:
+    """The port's global caches: the data_ptr of every tensor each holds,
+    by key (the dw / dense adjoint tickets, the pad tables, the dense Radon
+    matrices and plan tables, the bilinear and blur matrices), and the size
+    of the host-side plan caches (dc_plan, the dense and conv plans)."""
+    import mfvi_dip_mia_tpu_torch.nn.layers as L
+    import mfvi_dip_mia_tpu_torch.ops.metrics as M
+    import mfvi_dip_mia_tpu_torch.ops.pad as PD
+    import mfvi_dip_mia_tpu_torch.ops.radon as R
+    from mfvi_dip_mia_tpu_torch.ops.kernels import (cf_conv, fused_block,
+                                                    radon_dense)
+    out = {name: {repr(k): _tensor_ptrs(v) for k, v in d.items()}
+           for name, d in (("cf_conv._TICKETS", cf_conv._TICKETS),
+                           ("radon._MATRIX_CACHE", R._MATRIX_CACHE),
+                           ("pad._tables", PD._tables.entries),
+                           ("layers._matrix_on", L._matrix_on.entries),
+                           ("metrics._blur_on", M._blur_on.entries),
+                           ("radon_dense._device_plan",
+                            radon_dense._device_plan.entries))}
+    for name, fn in (("fused_block.dc_plan", fused_block.dc_plan),
+                     ("radon_dense.dense_plan", radon_dense.dense_plan),
+                     ("cf_conv.tile_plan", cf_conv.tile_plan),
+                     ("cf_conv.dw_plan", cf_conv.dw_plan)):
+        out[name] = fn.cache_info().currsize
+    return out
+
+
+def graph_against_eager() -> dict:
+    """Each path's fit at seed 1 (GRAPH_ITERS iterations, snapshots and
+    host reads every GRAPH_SHOW, metric rows every GRAPH_METRICS, so both
+    captured variants run) once eagerly and GRAPH_FITS times as graph
+    replays, in a row. Raises unless every graph fit gives the eager fit's
+    bits in every metric row, snapshot and final parameter; every one of
+    its iterations was a replay; its launch counts are the eager fit's per
+    step run (the two warm-up steps included); the graph fits leave at most
+    MEMORY_SLACK bytes more allocated than before them; and every cache of
+    ``cache_state`` is the same just before and just after each capture."""
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    import mfvi_dip_mia_tpu_torch.tasks.trainer as T
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+
+    use_bench_images()
+    captures = []
+    capture_variant = T.capture_variant
+
+    def watched(*args, **kw):
+        before = cache_state()
+        out = capture_variant(*args, **kw)
+        captures.append(before == cache_state())
+        return out
+
+    out = {}
+    T.capture_variant = watched
+    try:
+        for label, task, method, dtype, kw, op in fit_paths():
+            problem = P.build_problem(task, "mfvi", 0, input_depth=16,
+                                      device=DEVICE, **op)
+            fit_kw = dict(num_iter=GRAPH_ITERS - 1, lr=1e-3, seed=1,
+                          show_every=GRAPH_SHOW, metrics_every=GRAPH_METRICS,
+                          compute_dtype=dtype, device=DEVICE, **kw)
+            kernels.reset_launches()
+            ref = T.fit(problem, method, eager=True, **fit_kw)
+            ref_launches = kernels.counts()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            n_captures = len(captures)
+            fits = []
+            for _ in range(GRAPH_FITS):
+                kernels.reset_launches()
+                fits.append((T.fit(problem, method, **fit_kw),
+                             kernels.counts()))
+            torch.cuda.synchronize()
+            mem_left = torch.cuda.memory_allocated() - mem0
+            caches_kept = captures[n_captures:]
+            unequal = sorted({
+                f for res, _ in fits for f in METRIC_ROWS + SNAPSHOTS
+                if not np.array_equal(getattr(res, f), getattr(ref, f),
+                                      equal_nan=True)} | {
+                "params" for res, _ in fits
+                if any(not np.array_equal(res.params[k], v, equal_nan=True)
+                       for k, v in ref.params.items())})
+            counted = all(
+                n * ref.executed == m * steps_run(res)
+                for res, got in fits for n, m in zip(got, ref_launches))
+            replays = [res.replays for res, _ in fits]
+            log(f"[4] {label}: {GRAPH_FITS} graph fits against an eager fit "
+                f"at seed 1, {ref.executed} iterations each: "
+                + ("equal bits in every metric row, snapshot and final "
+                   "parameter" if not unequal else f"{unequal} differ")
+                + f"; replays {replays}; launches "
+                + ("the eager fit's per step run" if counted else
+                   f"{fits[0][1]} against eager {ref_launches}")
+                + f"; {mem_left / 2 ** 20:+.1f} MB allocated after the "
+                f"graph fits (reserved {torch.cuda.memory_reserved() / 2 ** 20:.0f}"
+                f" MB); caches unchanged by {sum(caches_kept)} of "
+                f"{len(caches_kept)} captures; graph {fits[0][0].iters_per_sec:.2f}"
+                f" it/s, eager {ref.iters_per_sec:.2f} it/s over "
+                f"{ref.executed - GRAPH_SHOW} iterations")
+            out[label] = dict(
+                iterations=ref.executed, unequal=unequal, replays=replays,
+                launches_counted=counted, memory_left_bytes=mem_left,
+                captures=len(caches_kept), captures_keeping_caches=sum(
+                    caches_kept),
+                graph_iters_per_sec=[r.iters_per_sec for r, _ in fits],
+                eager_iters_per_sec=ref.iters_per_sec,
+                final_psnr=ref.final_psnr)
+            if (unequal or replays != [ref.executed] * GRAPH_FITS
+                    or ref.replays or not counted
+                    or mem_left > MEMORY_SLACK
+                    or len(caches_kept) != 2 * GRAPH_FITS
+                    or not all(caches_kept)):
+                raise AssertionError(f"{label}: the graph fit failed its "
+                                     "checks against the eager fit")
+    finally:
+        T.capture_variant = capture_variant
+    return out
+
+
+# -- phase 5: times beside bounds ---------------------------------------------
 
 def time_conv_kernels(sites, results: dict) -> None:
     """Per training step of the CT main path (bf16): every forward site and
@@ -1438,14 +1722,14 @@ def time_conv_kernels(sites, results: dict) -> None:
                          cluster=dwp.cluster, groups=dwp.groups,
                          ctas=dwp.ctas)
         per_site.append(row)
-    log(f"[4] cf_conv_fwd tile plans of the {len(plans)} bf16 launches: "
+    log(f"[5] cf_conv_fwd tile plans of the {len(plans)} bf16 launches: "
         + ", ".join(f"{bm}x{bn} {sum(tcf.TILES[p.tile] == (bm, bn) for p in plans)}"
                     for bm, bn in tcf.TILES)
         + "; splits " + ", ".join(f"{k} {sum(p.split == k for p in plans)}"
                                   for k in (1, 2, 4, 8))
         + f"; blocks per launch {min(p.ctas for p in plans)}-"
         f"{max(p.ctas for p in plans)}")
-    log(f"[4] cf_conv_dw plans of the {len(dw_plans)} bf16 launches: tiles "
+    log(f"[5] cf_conv_dw plans of the {len(dw_plans)} bf16 launches: tiles "
         + ", ".join(f"{'x'.join(map(str, t))} "
                     f"{sum(tcf.DW_TILES[p.tile] == t for p in dw_plans)}"
                     for t in tcf.DW_TILES)
@@ -1473,7 +1757,7 @@ def time_conv_kernels(sites, results: dict) -> None:
                      library_device_ms=agg["library_device_ms"])
             extra = (f"; profiler device time {agg['device_ms']:.4f} ms, "
                      f"cuDNN's {agg['library_device_ms']:.4f} ms")
-        log(f"[4] {name}: {agg['calls']} launches per step, "
+        log(f"[5] {name}: {agg['calls']} launches per step, "
             f"{agg['flops'] / 1e9:.3f} GFLOP: kernel {agg['ms']:.3f} ms, "
             f"plain {agg['plain_ms']:.3f} ms, library {agg['library_ms']:.3f}"
             f" ms, bound {agg['bound_ms']:.4f} ms{extra}")
@@ -1597,11 +1881,11 @@ def time_fused_kernels(sites, results: dict) -> None:
             per = site_device_ms(kern, KERNEL_FUNCS[name])
             r["site_device_ms"] = {s["name"]: v for s, v in zip(sites, per)}
             r["launch_floor_device_ms"] = min(per)
-            log(f"[4] {name} device ms per site, in launch order: "
+            log(f"[5] {name} device ms per site, in launch order: "
                 + ", ".join(f"{s['name']} {v:.4f}"
                             for s, v in zip(sites, per))
                 + f"; the smallest (the per-launch floor) {min(per):.4f}")
-        log(f"[4] {name}: {a['calls']} launches per den step, "
+        log(f"[5] {name}: {a['calls']} launches per den step, "
             f"{a['flops'] / 1e9:.3f} GFLOP, {a['nbytes'] / 1e6:.1f} MB: kernel "
             f"{a['ms']:.3f} ms, plain {a['plain_ms']:.3f} ms, library "
             f"{'none' if lib is None else f'{lib:.3f} ms'}{extra}, bound "
@@ -1638,7 +1922,7 @@ def time_radon_kernels(states, dense_bf16, results: dict) -> None:
             nbytes = band_bytes + st.jlo.numel() * 4 + io_bytes
             b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
             t_k, t_p, t_l = time_ms(fk), time_ms(fp, reps=5), time_ms(fl)
-            log(f"[4] {kname} {dname} band ({band_bytes / 1e6:.1f} MB): "
+            log(f"[5] {kname} {dname} band ({band_bytes / 1e6:.1f} MB): "
                 f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, dense mv "
                 f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"{band_bytes / (t_k * 1e-3) / 1e9:.0f} GB/s of band")
@@ -1716,7 +2000,7 @@ def time_lrt_kernel(sites, results: dict) -> None:
              calls_timed_per_step=agg["calls"],
              gflop_per_step=agg["flops"] / 1e9,
              mb_per_step=agg["nbytes"] / 1e6, sites=per_site)
-    log(f"[4] lrt_conv_fwd: {agg['calls']} launches per LRT den step, "
+    log(f"[5] lrt_conv_fwd: {agg['calls']} launches per LRT den step, "
         f"{agg['flops'] / 1e9:.3f} GFLOP, {agg['nbytes'] / 1e6:.1f} MB: "
         f"kernel {agg['ms']:.3f} ms, plain {agg['plain_ms']:.3f} ms, two "
         f"cuDNN convs {agg['library_ms']:.3f} ms, bound "
@@ -1761,7 +2045,7 @@ def time_dense_radon(a, results: dict) -> None:
             for f in ((fk, fl) if turn % 2 == 0 else (fl, fk)):
                 runs[f].append(device_ms(f, reps=10))
         d_k, d_l = (sorted(runs[f])[1] for f in (fk, fl))
-        log(f"[4] {kname} ({nbytes / 1e9:.3f} GB): kernel {t_k:.4f} ms "
+        log(f"[5] {kname} ({nbytes / 1e9:.3f} GB): kernel {t_k:.4f} ms "
             f"({rate(t_k)}), plain {t_p:.4f} ms, cuBLAS bf16 mv {t_l:.4f} "
             f"ms ({rate(t_l)}), bound {b_ms:.4f} ms ({b_by})")
         log(f"    profiler device time, median of 3 in turns: kernel "
@@ -1854,6 +2138,7 @@ def main(argv=None) -> int:
     if unequal:
         raise AssertionError(f"two fits at one seed gave different bits: "
                              f"{unequal}")
+    fits["graph_vs_eager"] = graph_against_eager()
 
     time_conv_kernels(sites, results)
     time_radon_kernels(states, dense, results)
@@ -1863,8 +2148,7 @@ def main(argv=None) -> int:
     time_dense_radon(dense, results)
     del dense
     if args.profile_steps:
-        fits["profile"] = profile_ct(args.profile_steps,
-                                     1e3 / fits["ct"]["iters_per_sec"])
+        fits["profile"] = profile_ct(args.profile_steps, fits["ct"])
         fits["profile_den"] = profile_den(args.profile_steps)
         fits["profile_paths"] = profile_paths(args.profile_steps, fits)
 
@@ -1899,7 +2183,7 @@ def main(argv=None) -> int:
                            details=results, fits=fits,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1, default=float)
-    log(f"[4] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[5] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import device_cache
+
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
                      offset: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -56,7 +58,7 @@ def _bilinear_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _matrix_on(in_size: int, out_size: int, scale: float, device: str,
                dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(_bilinear_matrix(in_size, out_size, scale)).to(

@@ -34,7 +34,7 @@ import torch
 
 from . import build
 from .cf_conv import _tickets
-from ...utils.device import resolve_device
+from ...utils.device import device_cache, resolve_device
 
 FWD = build.Kernel(
     "radon_dense_fwd", "mfvi_dip_mia_tpu_torch/csrc/radon_dense.cu",
@@ -152,7 +152,7 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache
 def _device_plan(p: int, q: int, device: torch.device, blocks: int):
     """The plan with its bounds as int32 tensors on ``device`` (made once):
     the forward's row bounds, and the adjoint's tile_ptr followed by its

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import device_cache
+
 
 def psnr(image_true: torch.Tensor, image_test: torch.Tensor) -> torch.Tensor:
     err = torch.mean((image_true.float() - image_test.float()) ** 2)
@@ -38,7 +40,7 @@ def _blur_matrix(size: int, window_size: int, sigma: float) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _blur_on(size: int, window_size: int, sigma: float,
              device: str) -> torch.Tensor:
     return torch.from_numpy(_blur_matrix(size, window_size, sigma)).to(device)

@@ -26,10 +26,10 @@ repeat of it turns the sum into NaN.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
+
+from ..utils.device import device_cache
 
 
 def _axis_terms(n: int, p: int) -> tuple[list[list[int]], list[list[int]]]:
@@ -52,7 +52,7 @@ def _axis_terms(n: int, p: int) -> tuple[list[list[int]], list[list[int]]]:
     return terms, exists
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache
 def _tables(h: int, w: int, p: int, dtype: torch.dtype,
             device: torch.device):
     """(index (mr * mc * h * w,) into the flat padded plane, row-term masks

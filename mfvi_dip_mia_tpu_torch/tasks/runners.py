@@ -96,10 +96,13 @@ def run_task(task: str, method_name: str, *, img: int = 0,
 
     ``device`` defaults to the card (utils/device.py::resolve_device; an int,
     "cuda:1" or "tpu:3" names a CUDA ordinal modulo the card count) and
-    raises without one; ``device="cpu"`` runs the plain path. ``layout`` and
-    ``chunk_iters`` are the JAX trainer's XLA dispatch knobs: they are taken,
-    so that ``configs/*.json`` run_params pass unchanged, and change nothing
-    in eager PyTorch. ``compute_dtype`` is 'f32' (default) or 'bf16'."""
+    raises without one; ``device="cpu"`` runs the plain path.
+    ``chunk_iters`` goes to ``fit``: the iterations (graph replays on the
+    card) between host reads of the metric rows, default ``show_every``;
+    another length needs ``plot=False, save=False``. ``layout``, the JAX
+    trainer's NHWC / channels-first knob, is taken so that
+    ``configs/*.json`` run_params pass unchanged, and changes nothing: the
+    port is NCHW. ``compute_dtype`` is 'f32' (default) or 'bf16'."""
     from ..utils import viz
 
     if (task, method_name) not in _PORTED:
@@ -155,7 +158,7 @@ def run_task(task: str, method_name: str, *, img: int = 0,
         res = fit(problem, method, num_iter=num_iter, lr=lr, seed=seed,
                   show_every=show_every, rng=rng, device=dev,
                   metrics_every=metrics_every, compute_dtype=compute_dtype,
-                  collect_snapshots=(plot or save),
+                  collect_snapshots=(plot or save), chunk_iters=chunk_iters,
                   log_fn=log_fn if log_every_chunk else None,
                   snapshot_fn=snapshot_fn if plot else None)
 

@@ -1,5 +1,5 @@
 """The DIP trainer (counterpart of mfvi_dip_mia_tpu/tasks/trainer.py) for the
-MFVI method, as a plain Python loop on the device.
+MFVI method.
 
 Semantics kept from the JAX step (each with its reference line there):
   * ``num_iter + 1`` total iterations
@@ -10,15 +10,23 @@ Semantics kept from the JAX step (each with its reference line there):
   * prior sigma = sqrt(temp) * sigma; the KL value under no_grad, its
     gradient fused into the flat AdamW (optim/fused_adamw.py)
   * NaN guard: a non-finite loss skips the parameter AND optimizer update
-  * EMA out_avg = 0.99 * out_avg + 0.01 * out_t, seeded with the first iterate
+  * EMA out_avg = 0.99 * out_avg + 0.01 * out_t, seeded with the first
+    iterate (a select on the device's iteration index, trainer.py:303)
   * a 25-slot flat MC ring (unbiased variance at snapshots), PSNR/SSIM
     triples every ``metrics_every``, snapshots every ``show_every``
   * ``compute_dtype`` f32/bf16: the sampled weights (under LRT the mu / rho
     leaves, before any softplus, as cast_tree does) and the input are cast
     once; the master parameters, the KL and the loss stay f32
 
-The host stays out of the loop: metric rows are written to a device buffer
-and read once per ``show_every`` chunk (and at snapshots), never per step.
+The step is static, as JAX's scanned step is (``make_step``): it updates a
+state of fixed tensors in place, the iteration index lives on the device,
+the ring slot and the metric row are index copies. On the card ``fit``
+captures it once as a CUDA graph per variant (the step, and the step with
+its metric row) and every iteration is a replay: the counterpart of JAX's
+compiled chunk (trainer.py:386-424). ``eager=True`` runs the same step
+function eagerly instead, as the CPU always does. The host reads the metric
+rows once per ``chunk_iters`` iterations and the snapshot maps after each
+``show_every`` boundary, never inside a step.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from ..bayes import vi
+from ..ops import kernels
 from ..optim.fused_adamw import flat_adamw_update
 from ..utils import images as I
 from ..utils.device import resolve_device
@@ -61,8 +70,8 @@ class Method:
 
 class HyperParams(NamedTuple):
     """The fit's numeric hyperparameters. The JAX trainer traces them so
-    that one compiled graph serves every BO candidate; eager PyTorch traces
-    nothing, so here they are plain floats."""
+    that one compiled graph serves every BO candidate; the port captures its
+    graph once per fit, so here they are plain floats, constants of it."""
     lr: float
     temp: float
     prior_sigma: float
@@ -83,11 +92,14 @@ class FitResult:
     uncerts_ale: np.ndarray        # (S, mean_ch, H, W)
     params: dict                   # final parameters, name -> numpy (OIHW)
     net_input: np.ndarray          # the fixed DIP input (1, H, W, D)
-    iters_per_sec: float           # after the first show_every chunk
-    compile_seconds: float         # first chunk's wall, kernel build included
+    iters_per_sec: float           # after the first chunk
+    compile_seconds: float         # first chunk's wall: kernel build,
+                                   # warm-up and capture included
     final_psnr: float              # psnrs[-1, 2]: the BO objective
     executed: int = 0
     wall_seconds: float = 0.0
+    replays: int = 0               # iterations run as a CUDA graph replay
+    warmup_steps: int = 0          # eager steps on a copy before capture
 
 
 def resolve_compute_dtype(dtype) -> torch.dtype:
@@ -108,6 +120,183 @@ def init_params(problem: Problem, method: Method, seed: int) -> dict:
     return vi.to_mfvi(problem.net.init_params(gen), gen)
 
 
+@dataclasses.dataclass
+class StepState:
+    """Everything a step reads and writes besides the problem: tensors whose
+    storage stays where it is, since every step updates them in place."""
+    flat: torch.Tensor        # the [mu | rho | det] parameters
+    m: torch.Tensor           # AdamW's moments
+    v: torch.Tensor
+    count: torch.Tensor       # AdamW's step count, int32 ()
+    out_avg: torch.Tensor     # (1, n_out, H, W) EMA of the transformed output
+    ring_epi: torch.Tensor    # (MC_RING, mean_ch * H * W)
+    ring_ale: torch.Tensor
+    rows: torch.Tensor        # (iterations, 8) metric rows, NaN where unset
+    it: torch.Tensor          # (1,) int64: the iteration the next step runs
+
+    def tensors(self) -> list:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    def clone(self) -> "StepState":
+        return StepState(*(t.clone() for t in self.tensors()))
+
+
+class Prepared(NamedTuple):
+    step: Callable                 # step(state, with_metrics) -> None
+    state: StepState               # the state at iteration 0
+    params: vi.FlatParams          # the leaf layout of state.flat
+    net_input: np.ndarray          # the fixed DIP input (1, H, W, D)
+    generator: torch.Generator     # the fit's random stream
+
+
+def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
+              gen: torch.Generator, hp: HyperParams, dtype: torch.dtype,
+              reparam: str) -> Callable:
+    """The fit's step: ``step(state, with_metrics)`` runs one iteration on
+    ``state`` in place (the one at ``state.it``) and writes its metric row
+    when ``with_metrics``. It reads nothing back to the host, so the same
+    calls can be captured as a CUDA graph."""
+    h, w = problem.imsize
+    mc = problem.mean_ch
+    low = None if dtype == torch.float32 else dtype
+    noise_std = REG_NOISE_STD
+
+    def step(s: StepState, with_metrics: bool) -> None:
+        x = z
+        if noise_std:
+            x = z + noise_std * torch.randn(z.shape, generator=gen,
+                                            device=z.device)
+        p = s.flat.detach().requires_grad_(True)
+        if reparam == "lrt":
+            leaves = params.with_flat(p).leaves()
+        else:
+            leaves = vi.sample_mfvi_tree(params.with_flat(p), gen,
+                                         out_dtype=low)
+        if low is not None:
+            leaves = {k: t.to(dtype) for k, t in leaves.items()}
+            x = x.to(dtype)
+        out = problem.net(leaves, x, gen, reparam=reparam).float()
+        loss = problem.data_loss(out)
+        loss.backward()
+        with torch.no_grad():
+            kl = vi.kl_mfvi(params.with_flat(s.flat), 0.0, hp.prior_sigma)
+            ok = torch.isfinite(loss + hp.temp * kl)
+            new = flat_adamw_update(
+                s.flat, p.grad, s.m, s.v, s.count, lr=hp.lr,
+                n_var=params.n_var, kl_temp=hp.temp,
+                kl_prior_sigma=hp.prior_sigma, use_kl=True)
+            for old, upd in zip((s.flat, s.m, s.v, s.count), new):
+                old.copy_(torch.where(ok, upd, old))
+
+            out_t = problem.transform(out)
+            s.out_avg.copy_(torch.where(
+                s.it == 0, out_t,
+                s.out_avg * EXP_WEIGHT + out_t * (1.0 - EXP_WEIGHT)))
+            slot = s.it.remainder(MC_RING)
+            s.ring_epi.index_copy_(
+                0, slot, torch.clamp(out_t[0, :mc], 0, 1).reshape(1, -1))
+            if problem.has_ale:
+                ale = torch.clamp(out_t[0, mc:], 0, 1)
+                s.ring_ale.index_copy_(
+                    0, slot, ale.expand(mc, h, w).reshape(1, -1))
+            if with_metrics:
+                s.rows.index_copy_(
+                    0, s.it, problem.metrics(out_t, s.out_avg)[None])
+            s.it.add_(1)
+
+    return step
+
+
+def prepare_fit(problem: Problem, method: Method, *, iterations: int,
+                lr: float, seed: int = 42,
+                rng: np.random.Generator | None = None, device=None,
+                compute_dtype="f32", reparam: str = "rt") -> Prepared:
+    """The initialization ``fit`` performs for ``iterations`` iterations in
+    all: the state at iteration 0 on ``device`` and its step function.
+    ``rng`` draws the net input (default ``default_rng(seed)``)."""
+    dev = resolve_device(device)
+    if problem.device != dev:
+        raise ValueError(f"problem lives on {problem.device}, fit asked for "
+                         f"{dev}")
+    dtype = resolve_compute_dtype(compute_dtype)
+    h, w = problem.imsize
+    mc = problem.mean_ch
+    n_out = {"ct": 1, "den": 2}[problem.task]
+
+    z_np = I.get_noise(problem.input_depth, (h, w),
+                       rng=np.random.default_rng(seed) if rng is None else rng)
+    z = torch.from_numpy(z_np).permute(0, 3, 1, 2).contiguous().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = vi.flatten(init_params(problem, method, seed), device=dev)
+    flat = params.flat
+    state = StepState(
+        flat=flat, m=torch.zeros_like(flat), v=torch.zeros_like(flat),
+        count=torch.zeros((), dtype=torch.int32, device=dev),
+        out_avg=torch.zeros((1, n_out, h, w), device=dev),
+        ring_epi=torch.zeros((MC_RING, mc * h * w), device=dev),
+        ring_ale=torch.zeros((MC_RING, mc * h * w), device=dev),
+        rows=torch.full((iterations, 8), float("nan"), device=dev),
+        it=torch.zeros(1, dtype=torch.int64, device=dev))
+    step = make_step(problem, params, z, gen, HyperParams.of(method, lr),
+                     dtype, reparam)
+    return Prepared(step, state, params, z_np, gen)
+
+
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream per card for every fit's warm-up and capture, as
+    ``torch.cuda.graph`` keeps one: PyTorch keeps a cuBLAS workspace for
+    each stream cuBLAS has run on until the process ends, so a new stream
+    per fit would leave more device memory allocated after every fit."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+def capture_step(step: Callable, state: StepState,
+                 gen: torch.Generator) -> dict:
+    """``step``'s two variants captured as CUDA graphs on ``state``:
+    {with_metrics: (graph, the kernel launches one replay makes)}.
+
+    Both variants first run once eagerly on a copy of the state, on the
+    capture's side stream: that builds the kernels, sets their attributes,
+    and fills every lazy cache (the dw tickets, the pad tables, the Radon
+    plans, the interpolation and blur matrices) before capture, so a capture
+    records kernels only and puts nothing of its pool into a cache. ``gen``
+    is reset to where it was, so the fit's random stream starts where the
+    eager step's would. Raises if a capture fails."""
+    dev = state.flat.device
+    side = _capture_stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    start = gen.get_state()
+    with torch.cuda.stream(side):
+        scratch = state.clone()
+        for with_metrics in (False, True):
+            step(scratch, with_metrics)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    del scratch
+    gen.set_state(start)
+    return {with_metrics: capture_variant(step, state, gen, side,
+                                          with_metrics)
+            for with_metrics in (False, True)}
+
+
+def capture_variant(step: Callable, state: StepState, gen: torch.Generator,
+                    stream: torch.cuda.Stream, with_metrics: bool) -> tuple:
+    """One variant of ``step`` captured on ``stream``: (graph, the kernel
+    launches one replay makes). ``gen`` is registered with the graph, so
+    each replay draws the next numbers of the fit's stream, as the eager
+    step would."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    before = kernels.counts()
+    with torch.cuda.graph(graph, stream=stream):
+        step(state, with_metrics)
+    return graph, kernels.take_counts_since(before)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -120,45 +309,39 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         collect_snapshots: bool = True,
         rng: np.random.Generator | None = None,
         log_fn: Optional[Callable] = None,
-        reparam: str = "rt") -> FitResult:
+        reparam: str = "rt", chunk_iters: Optional[int] = None,
+        eager: bool = False) -> FitResult:
     """Run one MFVI DIP fit on ``device`` (default: the card). Returns the
     per-iteration metric traces, the snapshot stacks and the final smoothed
     PSNR as ``final_psnr``. ``snapshot_fn(i, recon, epi, ale)`` fires at
-    every snapshot, ``log_fn(i, metrics_row)`` at every ``show_every``
-    boundary. ``rng`` draws the net input (default ``default_rng(seed)``);
-    a runner passes the stream that drew the problem's noise
-    (trainer.py:502-513). ``reparam`` is 'rt' (weight-space draws) or 'lrt'
-    (local reparameterization, on the LRT double-conv kernel)."""
+    every snapshot, ``log_fn(i, metrics_row)`` once per chunk of
+    ``chunk_iters`` iterations (default ``show_every``; snapshots need the
+    two equal), at the chunk's last iteration. ``rng`` draws the net input
+    (default ``default_rng(seed)``); a runner passes the stream that drew
+    the problem's noise (trainer.py:502-513). ``reparam`` is 'rt'
+    (weight-space draws) or 'lrt' (local reparameterization, on the LRT
+    double-conv kernel).
+
+    On the card every iteration is a replay of the step's CUDA graph
+    (``capture_step``); ``eager=True`` runs the step eagerly instead, with
+    the same bits. The graphs and their memory are released on return."""
     if method.name != "mfvi":
         raise NotImplementedError(
             f"method {method.name!r} is not ported yet (ROADMAP Queue 1 "
             "item 10)")
-    dev = resolve_device(device)
-    if problem.device != dev:
-        raise ValueError(f"problem lives on {problem.device}, fit asked for "
-                         f"{dev}")
-    dtype = resolve_compute_dtype(compute_dtype)
     num_iter = num_iter + 1
+    chunk = chunk_iters or show_every
+    if collect_snapshots and chunk != show_every:
+        raise ValueError(
+            "chunk_iters must equal show_every when snapshots are collected; "
+            "pass collect_snapshots=False (or plot=False, save=False via the "
+            "runners) to use longer chunks")
+    prep = prepare_fit(problem, method, iterations=num_iter, lr=lr,
+                       seed=seed, rng=rng, device=device,
+                       compute_dtype=compute_dtype, reparam=reparam)
+    state, dev = prep.state, prep.state.flat.device
     h, w = problem.imsize
     mc = problem.mean_ch
-    n_out = {"ct": 1, "den": 2}[problem.task]
-
-    z_np = I.get_noise(problem.input_depth, (h, w),
-                       rng=np.random.default_rng(seed) if rng is None else rng)
-    z = torch.from_numpy(z_np).permute(0, 3, 1, 2).contiguous().to(dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    params = vi.flatten(init_params(problem, method, seed), device=dev)
-    flat = params.flat
-    m = torch.zeros_like(flat)
-    v = torch.zeros_like(flat)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
-    hp = HyperParams.of(method, lr)
-
-    out_avg = torch.zeros((1, n_out, h, w), device=dev)
-    ring_epi = torch.zeros((MC_RING, mc * h * w), device=dev)
-    ring_ale = torch.zeros((MC_RING, mc * h * w), device=dev)
-    rows_dev = torch.full((num_iter, 8), float("nan"), device=dev)
 
     n_snaps = num_iter // show_every + 1
     rows = np.full((num_iter, 8), np.nan)
@@ -167,70 +350,48 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
     unc_ale = np.zeros((n_snaps, mc, h, w), np.float32)
 
     t0 = time.perf_counter()
+    graphs = (capture_step(prep.step, state, prep.generator)
+              if dev.type == "cuda" and not eager else None)
+    warmup_steps = 0 if graphs is None else len(graphs)   # one per variant
     t_first = None
-    first_iters = min(show_every, num_iter)
-    for it in range(num_iter):
-        x = z
-        if REG_NOISE_STD:
-            x = z + REG_NOISE_STD * torch.randn(z.shape, generator=gen,
-                                                device=dev)
-        p = flat.detach().requires_grad_(True)
-        if reparam == "lrt":
-            leaves = params.with_flat(p).leaves()
-        else:
-            leaves = vi.sample_mfvi_tree(
-                params.with_flat(p), gen,
-                out_dtype=None if dtype == torch.float32 else dtype)
-        if dtype != torch.float32:
-            leaves = {k: t.to(dtype) for k, t in leaves.items()}
-            x = x.to(dtype)
-        out = problem.net(leaves, x, gen, reparam=reparam).float()
-        loss = problem.data_loss(out)
-        loss.backward()
-        with torch.no_grad():
-            kl = vi.kl_mfvi(params.with_flat(flat), 0.0, hp.prior_sigma)
-            ok = torch.isfinite(loss + hp.temp * kl)
-            new = flat_adamw_update(
-                flat, p.grad, m, v, count, lr=hp.lr, n_var=params.n_var,
-                kl_temp=hp.temp, kl_prior_sigma=hp.prior_sigma, use_kl=True)
-            flat.copy_(torch.where(ok, new[0], flat))
-            m = torch.where(ok, new[1], m)
-            v = torch.where(ok, new[2], v)
-            count = torch.where(ok, new[3], count)
-
-            out_t = problem.transform(out)
-            out_avg = (out_t if it == 0 else
-                       out_avg * EXP_WEIGHT + out_t * (1.0 - EXP_WEIGHT))
-            slot = it % MC_RING
-            ring_epi[slot] = torch.clamp(out_t[0, :mc], 0, 1).reshape(-1)
-            if problem.has_ale:
-                ale = torch.clamp(out_t[0, mc:], 0, 1)
-                ring_ale[slot] = ale.expand(mc, h, w).reshape(-1)
-            if it % metrics_every == 0:
-                rows_dev[it] = problem.metrics(out_t, out_avg)
-
-            if it % show_every == 0 and collect_snapshots:
-                k = it // show_every
-                recons[k] = torch.clamp(out_avg[0, :mc], 0, 1).cpu().numpy()
-                unc_epi[k] = (ring_epi.var(dim=0, unbiased=True)
-                              .reshape(mc, h, w).cpu().numpy())
-                if problem.has_ale:
-                    unc_ale[k] = (ring_ale.mean(dim=0).reshape(mc, h, w)
-                                  .cpu().numpy())
-                if snapshot_fn is not None:
-                    snapshot_fn(it, recons[k], unc_epi[k], unc_ale[k])
-
-        if (it + 1) % show_every == 0 or it + 1 == num_iter:
-            start = it + 1 - ((it % show_every) + 1)
-            rows[start:it + 1] = rows_dev[start:it + 1].cpu().numpy()
-            if log_fn is not None:
-                log_fn(it, rows[it])
-            if t_first is None:
-                _sync(dev)
-                t_first = time.perf_counter()
+    replays = 0
+    for start in range(0, num_iter, chunk):
+        end = min(start + chunk, num_iter)
+        snaps = []
+        for it in range(start, end):
+            with_metrics = it % metrics_every == 0
+            if graphs is None:
+                prep.step(state, with_metrics)
+            else:
+                graph, launches = graphs[with_metrics]
+                graph.replay()
+                kernels.add_counts(launches)
+                replays += 1
+            if collect_snapshots and it % show_every == 0:
+                # the maps right after this iteration, read with the chunk
+                snaps.append((it, torch.clamp(state.out_avg[0, :mc], 0, 1),
+                              state.ring_epi.var(dim=0, unbiased=True),
+                              state.ring_ale.mean(dim=0)
+                              if problem.has_ale else None))
+        rows[start:end] = state.rows[start:end].cpu().numpy()
+        for it, recon, epi, ale in snaps:
+            k = it // show_every
+            recons[k] = recon.cpu().numpy()
+            unc_epi[k] = epi.reshape(mc, h, w).cpu().numpy()
+            if ale is not None:
+                unc_ale[k] = ale.reshape(mc, h, w).cpu().numpy()
+            if snapshot_fn is not None:
+                snapshot_fn(it, recons[k], unc_epi[k], unc_ale[k])
+        if log_fn is not None:
+            log_fn(end - 1, rows[end - 1])
+        if t_first is None:
+            _sync(dev)
+            t_first = time.perf_counter()
 
     _sync(dev)
+    graphs = None                  # frees the graphs and their memory pools
     total_s = time.perf_counter() - t0
+    first_iters = min(chunk, num_iter)
     steady_iters = num_iter - first_iters
     steady_s = time.perf_counter() - t_first
     psnrs = rows[:, 2:5]
@@ -241,9 +402,9 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         ssims=rows[:, 5:8], recons=recons, uncerts_epi=unc_epi,
         uncerts_ale=unc_ale,
         params={k: t.detach().cpu().numpy()
-                for k, t in params.with_flat(flat).leaves().items()},
-        net_input=z_np,
+                for k, t in prep.params.with_flat(state.flat).leaves().items()},
+        net_input=prep.net_input,
         iters_per_sec=(steady_iters / steady_s
                        if steady_iters > 0 and steady_s > 0 else 0.0),
         compile_seconds=t_first - t0, final_psnr=final, executed=num_iter,
-        wall_seconds=total_s)
+        wall_seconds=total_s, replays=replays, warmup_steps=warmup_steps)

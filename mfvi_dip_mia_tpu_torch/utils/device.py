@@ -3,6 +3,8 @@ the caller asks for the CPU, and never fall back to it quietly."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -32,3 +34,21 @@ def _require_cuda() -> None:
         raise RuntimeError(
             "no CUDA device is available: the port runs on the card; pass "
             "device='cpu' explicitly to run its plain CPU path")
+
+
+def device_cache(fn):
+    """``functools.cache`` for a function that builds device tensors
+    (positional arguments only), with its entries readable as ``fn.entries``
+    (argument tuple -> result): a CUDA graph's capture must find them built
+    and leave them as they are, and a check can show that it did."""
+    entries = {}
+
+    @functools.wraps(fn)
+    def cached(*args):
+        if args not in entries:
+            entries[args] = fn(*args)
+        return entries[args]
+
+    cached.entries = entries
+    cached.cache_clear = entries.clear
+    return cached

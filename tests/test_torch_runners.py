@@ -73,7 +73,7 @@ def test_runner_artifacts_and_host_data_against_jax(small, tmp_path, task):
     psnr = runner(device="cpu", num_iter=2, lr=1e-3, temp=5.66e-7,
                   sigma=1.46e-5, seed=seed, show_every=2, plot=False,
                   save=True, save_path=str(tmp_path), weight_decay=0.5,
-                  layout="auto", chunk_iters=4, extra_key=1)
+                  layout="auto", chunk_iters=2, extra_key=1)
     z, out_dir = _artifact(str(tmp_path))
     prob_t, res_t = small["problem"], small["res"]
     assert psnr == res_t.final_psnr and np.isfinite(psnr)
