@@ -54,7 +54,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    run; the three must leave at most 64 MB more device memory allocated
    than before them; and every global cache of the port must hold the same
    tensors just before and just after each capture.
-5. Each kernel's time at the paths' shapes beside its bound, its plain
+5. The sweep: ``mc_predict`` at 256^2 as graph replays against its eager
+   loop (``eager=True``), RT on the den net and LRT (path A), 100 samples,
+   each from random parameters (seed 1): equal bits, samples/s of each,
+   launches counted per replay, no memory or cache entry left behind. Then
+   ``bo("ct", "mfvi", ...)`` with configs/bo_mfvi_ct.json's parameters
+   (256^2, f32, img 0, lr 1e-3, seed 1, the 2 x 2 temp / sigma candidates,
+   "tpu:0" -> cuda:0) cut to 200 iterations a fit and 2 rounds, plots off,
+   paths in a temporary directory: no crashed candidate, a kept one in
+   every round, every fit all graph replays, the JAX loop's fig_data keys,
+   at most 64 MB more allocated after round 2 than after round 1, and the
+   launches of the whole sweep (``launches_by_path["bo_ct"]``); round 1
+   again, resumed from a copy of round 0's ``0_fig_data.npz``, must give
+   the straight sweep's (X, Y) and fig_data bit for bit. Seconds per
+   candidate (set-up, fit, MC summary) and per round (GP, candidate
+   search). Last, ``cli.main`` on a copy of that config (one round, which
+   must observe the sweep's round 0) and ``eval_cli.main`` on a copy of
+   configs/test_mfvi_ct.json (200 iterations): a finite PSNR and a
+   save.npz with the CT and MC keys.
+6. Each kernel's time at the paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
    off; timed here only, never called by the port), printed as one JSON
    line ``{"kernels": [...]}``; for every kernel also the profiler's device
@@ -1140,7 +1158,8 @@ def run_lrt_den(kernels) -> dict:
         f"launches {mc_launches}")
     hold_launches("path A's posterior summary", mc_launches,
                   {"lrt_conv_fwd"})
-    if (mc_launches["lrt_conv_fwd"] != n_sites * MC_SAMPLES
+    # the summary replays one sample's graph, after one eager warm sample
+    if (mc_launches["lrt_conv_fwd"] != n_sites * (MC_SAMPLES + 1)
             or not np.isfinite(mc["mc_mean_psnr"])
             or not np.isfinite(mc["mc_epi"]).all()):
         raise AssertionError("path A's posterior summary failed")
@@ -1286,7 +1305,8 @@ def run_den(kernels) -> dict:
     if not torch.isfinite(outs).all():
         raise AssertionError("mc_predict gave non-finite samples")
     log(f"[3] mc_predict at {SIZE}^2: {mc_rate:.1f} posterior samples/s over "
-        f"{MC_SAMPLES_TIMED} samples")
+        f"{MC_SAMPLES_TIMED} samples (graph replays; the call's warm sample "
+        "and capture included)")
     return dict(iters_per_sec=res.iters_per_sec, eager_iters_per_sec=eager,
                 final_psnr=final, psnr_it0=float(res.psnrs[0, 2]),
                 mc_mean_psnr=mc_psnr, mc_samples_per_sec=mc_rate,
@@ -1636,7 +1656,346 @@ def graph_against_eager() -> dict:
     return out
 
 
-# -- phase 5: times beside bounds ---------------------------------------------
+# -- phase 5: the BO sweep, its CLIs, and mc_predict as a graph --------------
+
+MC_GRAPH_SAMPLES = 100        # samples of each mc_predict call held here
+SWEEP_ITERS = 200             # configs/bo_mfvi_ct.json's num_iter, cut
+SWEEP_ROUNDS = 2              # and its 20 rounds, cut
+FIG_KEYS = {"XX_lr", "XX_wd", "pred", "observed_X", "observed_Y",
+            "expected_improvement", "confidence", "acq", "candidates"}
+CT_KEYS = {"mse_gt", "recons", "uncerts", "uncerts_ale", "psnrs", "ssims",
+           "img_gt", "img_radon", "mse_noisy", "mc_mean_recon",
+           "mc_mean_psnr", "mc_mean_ssim", "mc_ale", "mc_epi"}
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def mc_graph_against_eager() -> dict:
+    """mc_predict at SIZE^2 on the den net's random parameters (seed 1), RT
+    and LRT, MC_GRAPH_SAMPLES samples a call: an eager call (``eager=True``)
+    against two graph calls from the same generator seed. Raises unless
+    both graph calls give the eager samples' bits, count the eager call's
+    launches per sample for each replay and the warm sample, leave at most
+    MEMORY_SLACK bytes more allocated, and leave every cache of
+    ``cache_state`` as the eager call left it. Samples/s of each, in this
+    call, whole calls (the graph's warm sample and capture included)."""
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    import mfvi_dip_mia_tpu_torch.utils.images as I
+    from mfvi_dip_mia_tpu_torch.bayes import vi
+    from mfvi_dip_mia_tpu_torch.bayes.uncertainty import mc_predict
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, init_params
+
+    problem = P.build_problem("den", "mfvi", 0, input_depth=16,
+                              device=DEVICE)
+    params = vi.flatten(init_params(problem, Method("mfvi"), 1),
+                        device=DEVICE)
+    z = I.get_noise(16, (SIZE, SIZE), rng=np.random.default_rng(1))
+    x = torch.from_numpy(z).permute(0, 3, 1, 2).contiguous().to(DEVICE)
+
+    def timed(**kw):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = mc_predict(problem.net, params, x,
+                          torch.Generator(device=DEVICE).manual_seed(5),
+                          MC_GRAPH_SAMPLES, **kw)
+        torch.cuda.synchronize()
+        return (outs, MC_GRAPH_SAMPLES / (time.perf_counter() - t0),
+                kernels.counts())
+
+    out = {}
+    for reparam in ("rt", "lrt"):
+        timed(reparam=reparam, eager=True)              # warm
+        ref, eager_rate, ref_launches = timed(reparam=reparam, eager=True)
+        caches = cache_state()
+        mem0 = torch.cuda.memory_allocated()
+        rates, equal, counted = [], [], []
+        for _ in range(2):
+            outs, rate, launches = timed(reparam=reparam)
+            rates.append(rate)
+            equal.append(torch.equal(outs, ref))
+            counted.append(all(
+                m * MC_GRAPH_SAMPLES == n * (MC_GRAPH_SAMPLES + 1)
+                for n, m in zip(ref_launches, launches)))
+            del outs
+        torch.cuda.synchronize()
+        mem_left = torch.cuda.memory_allocated() - mem0
+        kept = cache_state() == caches
+        names = {k.name: n // MC_GRAPH_SAMPLES
+                 for k, n in zip(kernels.KERNELS, ref_launches) if n}
+        log(f"[5] mc_predict {reparam} at {SIZE}^2, {MC_GRAPH_SAMPLES} "
+            f"samples: two graph calls against an eager call: "
+            + ("equal bits" if all(equal) else f"equal bits {equal}")
+            + f"; graph {rates[0]:.1f} / {rates[1]:.1f} samples/s, eager "
+            f"{eager_rate:.1f} samples/s (whole calls); launches per sample "
+            f"{names}" + ("" if all(counted) else " NOT counted per replay")
+            + f"; {mem_left / 2 ** 20:+.1f} MB allocated after; caches "
+            + ("unchanged" if kept else "CHANGED"))
+        out[reparam] = dict(equal=equal, graph_samples_per_sec=rates,
+                            eager_samples_per_sec=eager_rate,
+                            launches_per_sample=names,
+                            launches_counted=counted,
+                            memory_left_bytes=mem_left, caches_kept=kept)
+        if not (all(equal) and all(counted) and kept
+                and mem_left <= MEMORY_SLACK and names):
+            raise AssertionError(f"mc_predict {reparam}: the graph calls "
+                                 "failed their checks against the eager one")
+    return out
+
+
+class SweepProbe:
+    """Times and counts a sweep from outside: wraps the runner's fit and MC
+    summary, ``run_task``, the fanout and the loop's GP and candidate
+    search (module attributes, restored on exit)."""
+
+    def __init__(self):
+        import mfvi_dip_mia_tpu_torch.bo.loop as L
+        import mfvi_dip_mia_tpu_torch.parallel.fanout as F
+        import mfvi_dip_mia_tpu_torch.tasks.runners as R
+        self.targets = [(R, "fit"), (R, "mc_summary"), (R, "run_task"),
+                        (F, "run_candidates"), (L, "train_gp"),
+                        (L, "find_candidates")]
+        self.reset()
+
+    def reset(self):
+        self.candidates, self.rounds, self.failures = [], [], []
+        self._cand = {}
+
+    def __enter__(self):
+        import torch
+        self.saved = [getattr(m, n) for m, n in self.targets]
+        fit, mc, run_task, fanout, train_gp, find = self.saved
+
+        def timed(fn, key):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                r = fn(*a, **kw)
+                self._cand[key] = time.perf_counter() - t0
+                if key == "fit":
+                    self._cand["res"] = r
+                return r
+            return wrapper
+
+        def run_task_w(*a, **kw):
+            self._cand = {}
+            t0 = time.perf_counter()
+            try:
+                return run_task(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                c, res = self._cand, self._cand.get("res")
+                total = time.perf_counter() - t0
+                self.candidates.append(dict(
+                    seconds=total, fit_seconds=c.get("fit"),
+                    mc_seconds=c.get("mc_summary"),
+                    setup_seconds=total - c.get("fit", 0.0)
+                    - c.get("mc_summary", 0.0),
+                    first_chunk_seconds=getattr(res, "compile_seconds",
+                                                None),
+                    iters_per_sec=getattr(res, "iters_per_sec", None),
+                    replays=getattr(res, "replays", None),
+                    executed=getattr(res, "executed", None),
+                    final_psnr=getattr(res, "final_psnr", None)))
+
+        def fanout_w(*a, **kw):
+            t0 = time.perf_counter()
+            kw.setdefault("failures", self.failures)
+            r = fanout(*a, **kw)
+            torch.cuda.synchronize()
+            self.rounds.append(dict(
+                fanout_seconds=time.perf_counter() - t0,
+                candidates=len(a[2]), kept=len(r[0]),
+                memory_allocated=torch.cuda.memory_allocated()))
+            return r
+
+        def round_timed(fn, key):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                r = fn(*a, **kw)
+                self.rounds[-1][key] = time.perf_counter() - t0
+                return r
+            return wrapper
+
+        for (m, n), w in zip(self.targets, (
+                timed(fit, "fit"), timed(mc, "mc_summary"), run_task_w,
+                fanout_w, round_timed(train_gp, "train_gp_seconds"),
+                round_timed(find, "find_candidates_seconds"))):
+            setattr(m, n, w)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self.targets, self.saved):
+            setattr(m, n, f)
+        return False
+
+
+def _fig_arrays(path: str) -> dict:
+    import numpy as np
+    z = np.load(path)
+    return {k: z[k] for k in z.files}
+
+
+def sweep(probe: SweepProbe, tmp: str) -> dict:
+    """configs/bo_mfvi_ct.json through ``bo`` on the card, cut to
+    SWEEP_ITERS iterations a fit and SWEEP_ROUNDS rounds, no plots, paths
+    in ``tmp``; then round 1 again, resumed from a copy of round 0's
+    ``0_fig_data.npz``. Raises on a crashed candidate, a round without a
+    kept one, fig_data keys other than the JAX loop's, a resumed (X, Y) or
+    round-1 fig_data that is not the straight sweep's bit for bit, or more
+    than MEMORY_SLACK bytes more allocated after round 2 than after
+    round 1."""
+    import shutil
+    import numpy as np
+    import torch
+    from mfvi_dip_mia_tpu_torch.bo.loop import bo
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.utils.config import load_config
+
+    config = load_config(os.path.join(REPO, "configs", "bo_mfvi_ct.json"))
+    bo_params = {k: {"logbounds": v.logbounds, "candidates": v.candidates}
+                 for k, v in config.bo_params.items()}
+    rp = dict(config.run_params, num_iter=SWEEP_ITERS, plot=False,
+              save_path=os.path.join(tmp, "logs"))
+    straight, resumed = (os.path.join(tmp, d) for d in ("bo", "resumed"))
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    X, Y = bo("ct", "mfvi", bo_params, dict(rp, bo_results_path=straight),
+              n_rounds=SWEEP_ROUNDS, plot=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    cands, rounds = list(probe.candidates), list(probe.rounds)
+    failures = probe.failures
+    for i, r in enumerate(rounds):
+        log(f"[5] bo_mfvi_ct round {i}: {r['kept']} of {r['candidates']} "
+            f"candidates kept, fanout {r['fanout_seconds']:.2f} s, GP "
+            f"{r['train_gp_seconds']:.2f} s, find_candidates "
+            f"{r['find_candidates_seconds']:.2f} s, "
+            f"{r['memory_allocated'] / 2 ** 20:.1f} MB allocated after")
+    for c in cands:
+        log(f"    candidate: {c['seconds']:.2f} s = set-up "
+            f"{c['setup_seconds']:.2f} + fit {c['fit_seconds']:.2f} (first "
+            f"chunk incl. warm-up and capture {c['first_chunk_seconds']:.2f}"
+            f", then {c['iters_per_sec']:.1f} it/s) + MC summary "
+            f"{c['mc_seconds']:.2f}; final PSNR {c['final_psnr']:.3f} dB")
+    log(f"    sweep {wall:.1f} s, X {[tuple(map(float, x)) for x in X]}, "
+        f"Y {[float(y) for y in Y]}; launches {launches}")
+    crashed = [f for f in failures if f["crashed"]]
+    if crashed:
+        raise AssertionError(f"the sweep crashed on {len(crashed)} "
+                             f"candidates:\n{crashed[0]['error']}")
+    if len(rounds) != SWEEP_ROUNDS or any(r["kept"] < 1 for r in rounds):
+        raise AssertionError("a sweep round kept no candidate")
+    if any(c["replays"] != c["executed"] for c in cands):
+        raise AssertionError("a candidate's fit was not all graph replays")
+    if rounds[1]["memory_allocated"] > (rounds[0]["memory_allocated"]
+                                        + MEMORY_SLACK):
+        raise AssertionError("round 2 left more memory allocated than "
+                             "round 1")
+    hold_launches("the BO sweep", launches, CONV | BANDED | FUSED)
+    figs = [_fig_arrays(os.path.join(straight, f"{k}_fig_data.npz"))
+            for k in range(SWEEP_ROUNDS)]
+    if any(set(f) != FIG_KEYS for f in figs):
+        raise AssertionError(f"fig_data keys {sorted(figs[0])}")
+
+    os.makedirs(resumed)
+    shutil.copy(os.path.join(straight, "0_fig_data.npz"), resumed)
+    n_before = len(probe.candidates)
+    Xr, Yr = bo("ct", "mfvi", bo_params, dict(rp, bo_results_path=resumed),
+                n_rounds=SWEEP_ROUNDS, plot=False, resume=True)
+    last = _fig_arrays(os.path.join(resumed,
+                                    f"{SWEEP_ROUNDS - 1}_fig_data.npz"))
+    equal = (np.array_equal(np.asarray(Xr), np.asarray(X))
+             and np.array_equal(np.asarray(Yr), np.asarray(Y))
+             and all(np.array_equal(last[k], figs[-1][k]) for k in FIG_KEYS))
+    log(f"[5] bo_mfvi_ct resumed from round 0's fig_data: round "
+        f"{SWEEP_ROUNDS - 1} ran {len(probe.candidates) - n_before} fits; "
+        + ("(X, Y) and its fig_data equal the straight sweep's bit for bit"
+           if equal else "it DIFFERS from the straight sweep"))
+    if not equal:
+        raise AssertionError("the resumed sweep differs from the straight "
+                             "one")
+    return dict(X=[list(map(float, x)) for x in X], Y=[float(y) for y in Y],
+                seconds=wall, rounds=rounds, candidates=cands,
+                launches=launches, resumed_equal=equal)
+
+
+def run_clis(probe: SweepProbe, tmp: str, sweep_y: list) -> dict:
+    """``cli.main`` on a copy of configs/bo_mfvi_ct.json (plots off, paths
+    in ``tmp``; one round, --num-iter SWEEP_ITERS), whose round must
+    observe the sweep's round 0, and ``eval_cli.main`` on a copy of
+    configs/test_mfvi_ct.json (plots off, save_path in ``tmp``): a finite
+    PSNR and a save.npz with the CT and MC keys."""
+    import glob
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch import cli, eval_cli
+
+    def copy(name, **over):
+        with open(os.path.join(REPO, "configs", name)) as f:
+            raw = json.load(f)
+        raw["run_params"].update(over)
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        return path
+
+    args = ["--task", "ct", "--bayes", "mfvi", "--num-iter",
+            str(SWEEP_ITERS)]
+    t0 = time.perf_counter()
+    X, Y = cli.main(args + ["--config", copy(
+        "bo_mfvi_ct.json", plot=False,
+        save_path=os.path.join(tmp, "cli_logs"),
+        bo_results_path=os.path.join(tmp, "cli_bo")),
+        "--rounds", "1", "--no-plot"])
+    cli_s = time.perf_counter() - t0
+    if Y != sweep_y[:len(Y)]:
+        raise AssertionError(f"the CLI's round 0 observed {Y}, the sweep's "
+                             f"{sweep_y[:len(Y)]}")
+    t0 = time.perf_counter()
+    save = os.path.join(tmp, "eval_logs")
+    kept_c, kept_y = eval_cli.main(args + ["--config", copy(
+        "test_mfvi_ct.json", plot=False, save_path=save)])
+    eval_s = time.perf_counter() - t0
+    (path,) = glob.glob(os.path.join(save, "*", "save.npz"))
+    z = np.load(path, allow_pickle=True)
+    log(f"[5] cli.main (1 round of bo_mfvi_ct, {SWEEP_ITERS} it): "
+        f"{cli_s:.1f} s, Y {[float(y) for y in Y]} (the sweep's round 0); "
+        f"eval_cli.main (test_mfvi_ct, {SWEEP_ITERS} it): {eval_s:.1f} s, "
+        f"candidate {kept_c} PSNR {kept_y}, save.npz keys {len(z.files)}")
+    if (len(kept_y) != 1 or not np.isfinite(kept_y[0])
+            or set(z.files) != CT_KEYS
+            or not np.isfinite(float(z["mc_mean_psnr"]))):
+        raise AssertionError("eval_cli.main failed its checks")
+    return dict(cli_seconds=cli_s, cli_Y=[float(y) for y in Y],
+                eval_seconds=eval_s, eval_psnr=float(kept_y[0]),
+                eval_mc_mean_psnr=float(z["mc_mean_psnr"]))
+
+
+def sweep_phase() -> dict:
+    """Phase 5: mc_predict's graph against its eager loop, the BO sweep and
+    its resume, and the two CLIs; everything written goes to a temporary
+    directory, removed after."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"mc_graph_vs_eager": mc_graph_against_eager()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bo_")
+    try:
+        with SweepProbe() as probe:
+            out["bo_ct"] = sweep(probe, tmp)
+            probe.reset()
+            out["clis"] = run_clis(probe, tmp, out["bo_ct"]["Y"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[5] phase 5 took {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 6: times beside bounds -----------------------------------------
 
 def time_conv_kernels(sites, results: dict) -> None:
     """Per training step of the CT main path (bf16): every forward site and
@@ -1722,14 +2081,14 @@ def time_conv_kernels(sites, results: dict) -> None:
                          cluster=dwp.cluster, groups=dwp.groups,
                          ctas=dwp.ctas)
         per_site.append(row)
-    log(f"[5] cf_conv_fwd tile plans of the {len(plans)} bf16 launches: "
+    log(f"[6] cf_conv_fwd tile plans of the {len(plans)} bf16 launches: "
         + ", ".join(f"{bm}x{bn} {sum(tcf.TILES[p.tile] == (bm, bn) for p in plans)}"
                     for bm, bn in tcf.TILES)
         + "; splits " + ", ".join(f"{k} {sum(p.split == k for p in plans)}"
                                   for k in (1, 2, 4, 8))
         + f"; blocks per launch {min(p.ctas for p in plans)}-"
         f"{max(p.ctas for p in plans)}")
-    log(f"[5] cf_conv_dw plans of the {len(dw_plans)} bf16 launches: tiles "
+    log(f"[6] cf_conv_dw plans of the {len(dw_plans)} bf16 launches: tiles "
         + ", ".join(f"{'x'.join(map(str, t))} "
                     f"{sum(tcf.DW_TILES[p.tile] == t for p in dw_plans)}"
                     for t in tcf.DW_TILES)
@@ -1757,7 +2116,7 @@ def time_conv_kernels(sites, results: dict) -> None:
                      library_device_ms=agg["library_device_ms"])
             extra = (f"; profiler device time {agg['device_ms']:.4f} ms, "
                      f"cuDNN's {agg['library_device_ms']:.4f} ms")
-        log(f"[5] {name}: {agg['calls']} launches per step, "
+        log(f"[6] {name}: {agg['calls']} launches per step, "
             f"{agg['flops'] / 1e9:.3f} GFLOP: kernel {agg['ms']:.3f} ms, "
             f"plain {agg['plain_ms']:.3f} ms, library {agg['library_ms']:.3f}"
             f" ms, bound {agg['bound_ms']:.4f} ms{extra}")
@@ -1881,11 +2240,11 @@ def time_fused_kernels(sites, results: dict) -> None:
             per = site_device_ms(kern, KERNEL_FUNCS[name])
             r["site_device_ms"] = {s["name"]: v for s, v in zip(sites, per)}
             r["launch_floor_device_ms"] = min(per)
-            log(f"[5] {name} device ms per site, in launch order: "
+            log(f"[6] {name} device ms per site, in launch order: "
                 + ", ".join(f"{s['name']} {v:.4f}"
                             for s, v in zip(sites, per))
                 + f"; the smallest (the per-launch floor) {min(per):.4f}")
-        log(f"[5] {name}: {a['calls']} launches per den step, "
+        log(f"[6] {name}: {a['calls']} launches per den step, "
             f"{a['flops'] / 1e9:.3f} GFLOP, {a['nbytes'] / 1e6:.1f} MB: kernel "
             f"{a['ms']:.3f} ms, plain {a['plain_ms']:.3f} ms, library "
             f"{'none' if lib is None else f'{lib:.3f} ms'}{extra}, bound "
@@ -1922,7 +2281,7 @@ def time_radon_kernels(states, dense_bf16, results: dict) -> None:
             nbytes = band_bytes + st.jlo.numel() * 4 + io_bytes
             b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
             t_k, t_p, t_l = time_ms(fk), time_ms(fp, reps=5), time_ms(fl)
-            log(f"[5] {kname} {dname} band ({band_bytes / 1e6:.1f} MB): "
+            log(f"[6] {kname} {dname} band ({band_bytes / 1e6:.1f} MB): "
                 f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, dense mv "
                 f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"{band_bytes / (t_k * 1e-3) / 1e9:.0f} GB/s of band")
@@ -2000,7 +2359,7 @@ def time_lrt_kernel(sites, results: dict) -> None:
              calls_timed_per_step=agg["calls"],
              gflop_per_step=agg["flops"] / 1e9,
              mb_per_step=agg["nbytes"] / 1e6, sites=per_site)
-    log(f"[5] lrt_conv_fwd: {agg['calls']} launches per LRT den step, "
+    log(f"[6] lrt_conv_fwd: {agg['calls']} launches per LRT den step, "
         f"{agg['flops'] / 1e9:.3f} GFLOP, {agg['nbytes'] / 1e6:.1f} MB: "
         f"kernel {agg['ms']:.3f} ms, plain {agg['plain_ms']:.3f} ms, two "
         f"cuDNN convs {agg['library_ms']:.3f} ms, bound "
@@ -2045,7 +2404,7 @@ def time_dense_radon(a, results: dict) -> None:
             for f in ((fk, fl) if turn % 2 == 0 else (fl, fk)):
                 runs[f].append(device_ms(f, reps=10))
         d_k, d_l = (sorted(runs[f])[1] for f in (fk, fl))
-        log(f"[5] {kname} ({nbytes / 1e9:.3f} GB): kernel {t_k:.4f} ms "
+        log(f"[6] {kname} ({nbytes / 1e9:.3f} GB): kernel {t_k:.4f} ms "
             f"({rate(t_k)}), plain {t_p:.4f} ms, cuBLAS bf16 mv {t_l:.4f} "
             f"ms ({rate(t_l)}), bound {b_ms:.4f} ms ({b_by})")
         log(f"    profiler device time, median of 3 in turns: kernel "
@@ -2139,6 +2498,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"two fits at one seed gave different bits: "
                              f"{unequal}")
     fits["graph_vs_eager"] = graph_against_eager()
+    fits["sweep"] = sweep_phase()
+    fits["bo_ct"] = fits["sweep"]["bo_ct"]
 
     time_conv_kernels(sites, results)
     time_radon_kernels(states, dense, results)
@@ -2167,7 +2528,8 @@ def main(argv=None) -> int:
             launches=fits[path]["launches"][k.name], path=path,
             launches_per_step=fits[path]["launches_per_step"][k.name],
             launches_by_path={p: fits[p]["launches"][k.name]
-                              for p in ("ct", "den", "lrt_den", "dense_ct")},
+                              for p in ("ct", "den", "lrt_den", "dense_ct",
+                                        "bo_ct")},
             max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
@@ -2183,7 +2545,7 @@ def main(argv=None) -> int:
                            details=results, fits=fits,
                            seconds=time.perf_counter() - t_start), f,
                       indent=1, default=float)
-    log(f"[5] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[6] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,19 @@ NVIDIA H100 (sm_90a).
 
 It runs the system's main path, one MFVI fit of the DIP skip U-Net for CT
 (with the banded Radon operator) and denoising, on hand-written CUDA kernels
-(csrc/) that replace the JAX package's Pallas TPU kernels:
+(csrc/) that replace the JAX package's Pallas TPU kernels, and the
+Bayesian-optimisation sweep of those fits (``cli``, ``eval_cli``):
 
   * ``nn``     — the NCHW skip U-Net and its layers
   * ``bayes``  — mean-field VI on a flat [mu | rho | det] buffer
   * ``ops``    — the Radon operator, losses, metrics, and ``ops.kernels``
                  (the CUDA kernels' wrappers and their plain versions)
   * ``optim``  — flat AdamW with the analytic KL gradient
-  * ``tasks``  — data, problems and the trainer
-  * ``utils``  — host images, device resolution, the JAX weight bridge
+  * ``tasks``  — data, problems, the trainer and the runners
+  * ``bo``     — the exact GP, acquisition and the BO loop (f64, host CPU)
+  * ``parallel`` — the candidate fanout (one process, one card)
+  * ``utils``  — host images, device resolution, CUDA graph capture, the
+                 JAX weight bridge
 
 Entry points run on the card unless the caller passes ``device="cpu"``; the
 JAX package and JAX itself are never imported.

@@ -99,7 +99,7 @@ def build_problem(task: str, method: str, img: int, *, p_sigma: float = 0.1,
     if method != "mfvi" or task not in ("ct", "den"):
         raise NotImplementedError(
             f"task {task!r} / method {method!r} is not ported yet: the port "
-            "covers ct/mfvi and den/mfvi (ROADMAP Queue 1 item 10)")
+            "covers ct/mfvi and den/mfvi (ROADMAP Queue 1 items 4-5)")
     dev = resolve_device(device)
     if rng is None:
         rng = np.random.default_rng(42)

@@ -108,11 +108,10 @@ def run_task(task: str, method_name: str, *, img: int = 0,
     if (task, method_name) not in _PORTED:
         raise NotImplementedError(
             f"run_{task}_{method_name} is not ported yet: the port runs "
-            "den/mfvi and ct/mfvi (ROADMAP Queue 1 item 10)")
+            "den/mfvi and ct/mfvi (ROADMAP Queue 1 items 4-5)")
     if early_stop is not None:
         raise NotImplementedError(
-            "early_stop is not ported yet (ROADMAP Queue 1, left from items "
-            "1-9)")
+            "early_stop is not ported yet (ROADMAP Queue 1 item 6)")
     # reference quirks: ct and dip/mfvi runners zero weight_decay
     if task == "ct" or method_name in ("dip", "mfvi"):
         weight_decay = 0.0

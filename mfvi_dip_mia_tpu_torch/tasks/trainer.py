@@ -43,6 +43,7 @@ from ..ops import kernels
 from ..optim.fused_adamw import flat_adamw_update
 from ..utils import images as I
 from ..utils.device import resolve_device
+from ..utils.graphs import capture, capture_stream
 from .problems import Problem
 
 MC_RING = 25
@@ -242,19 +243,6 @@ def prepare_fit(problem: Problem, method: Method, *, iterations: int,
     return Prepared(step, state, params, z_np, gen)
 
 
-_CAPTURE_STREAMS: dict = {}
-
-
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """One side stream per card for every fit's warm-up and capture, as
-    ``torch.cuda.graph`` keeps one: PyTorch keeps a cuBLAS workspace for
-    each stream cuBLAS has run on until the process ends, so a new stream
-    per fit would leave more device memory allocated after every fit."""
-    if device not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
-    return _CAPTURE_STREAMS[device]
-
-
 def capture_step(step: Callable, state: StepState,
                  gen: torch.Generator) -> dict:
     """``step``'s two variants captured as CUDA graphs on ``state``:
@@ -268,7 +256,7 @@ def capture_step(step: Callable, state: StepState,
     is reset to where it was, so the fit's random stream starts where the
     eager step's would. Raises if a capture fails."""
     dev = state.flat.device
-    side = _capture_stream(dev)
+    side = capture_stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     start = gen.get_state()
     with torch.cuda.stream(side):
@@ -289,12 +277,9 @@ def capture_variant(step: Callable, state: StepState, gen: torch.Generator,
     launches one replay makes). ``gen`` is registered with the graph, so
     each replay draws the next numbers of the fit's stream, as the eager
     step would."""
-    graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(gen)
-    before = kernels.counts()
-    with torch.cuda.graph(graph, stream=stream):
-        step(state, with_metrics)
-    return graph, kernels.take_counts_since(before)
+    graph, launches, _ = capture(lambda: step(state, with_metrics), gen,
+                                 stream)
+    return graph, launches
 
 
 def _sync(device: torch.device) -> None:
@@ -328,7 +313,7 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
     if method.name != "mfvi":
         raise NotImplementedError(
             f"method {method.name!r} is not ported yet (ROADMAP Queue 1 "
-            "item 10)")
+            "item 4)")
     num_iter = num_iter + 1
     chunk = chunk_iters or show_every
     if collect_snapshots and chunk != show_every:

@@ -1,4 +1,5 @@
-"""Carry parameters and noise across from the JAX package (mfvi_dip_mia_tpu).
+"""Carry parameters, noise and fitted GPs across from the JAX package
+(mfvi_dip_mia_tpu).
 
 The JAX parameter tree arrives as nested dicts / lists of numpy arrays (the
 caller converts it with np.asarray; this module never sees JAX). HWIO conv
@@ -40,3 +41,15 @@ def params_from_jax(tree) -> dict:
     """The JAX parameter tree -> the port's parameter dict (name -> tensor),
     in the tree's own order."""
     return {name: leaf_from_jax(name, v) for name, v in named_leaves(tree)}
+
+
+def gp_from_jax(params, x_train, y_train):
+    """A GP fitted by the JAX package -> the port's ``bo.gp.ExactGP``.
+    ``params`` are the four values of JAX's ``GPParams`` in its field order
+    (raw_lengthscale, raw_outputscale, raw_noise, mean_const), the training
+    arrays (n, 2) and (n,); all numpy. The Cholesky factor and the weights
+    are computed anew from them, in float64 on the CPU."""
+    from ..bo.gp import ExactGP, GPParams
+    return ExactGP.fitted(
+        GPParams(*(np.asarray(v, np.float64) for v in params)),
+        x_train, y_train)

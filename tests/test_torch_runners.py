@@ -121,7 +121,7 @@ def test_unported_runners_raise(tmp_path):
                 if n not in ("run_den_mfvi", "run_ct_mfvi")]
     assert len(unported) == 14
     for name in unported:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="Queue 1 items 4-5"):
             TR.ALL_RUNNERS[name](device="cpu", save_path=str(tmp_path))
     with pytest.raises(NotImplementedError, match="early_stop"):
         TR.run_den_mfvi(device="cpu", early_stop={"patience": 5},
