@@ -72,6 +72,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    must observe the sweep's round 0) and ``eval_cli.main`` on a copy of
    configs/test_mfvi_ct.json (200 iterations): a finite PSNR and a
    save.npz with the CT and MC keys.
+7. (run after 5, before 6's timing) The other methods: plain DIP, MC
+   dropout and SGLD on den and ct at 256^2, f32, seed 1, each with
+   configs/test_{method}_{task}.json's candidate and lr, through ``fit``: a
+   300-iteration graph fit (it/s over the last 200, every iteration a
+   replay, the final smoothed PSNR above iteration 0's, launches exactly
+   the conv and fused kernels on den and those and the banded Radon pair
+   on ct; mcd's skip sites on the fused block and more conv launches per
+   step than dip), then two 60-iteration graph fits and an eager one with
+   equal bits (masks and parameter noise drawn inside the graph). mcd's
+   25-sample MC forward as a graph against its eager loop (equal bits,
+   fresh masks every sample). ``run_den_mcd`` and ``run_ct_sgld`` (the
+   save.npz keys with the MC summary's) and ``run_den_dip`` (none of
+   them), 101 iterations each. ``cli.main`` on configs/bo_sgld_den.json
+   (one round, 200 iterations, every candidate kept) and ``eval_cli.main``
+   on configs/test_mcd_ct.json and configs/test_dip_den.json (200
+   iterations). ``--profile-steps`` also profiles mcd den and sgld den.
 6. Each kernel's time at the paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
    off; timed here only, never called by the port), printed as one JSON
@@ -1995,6 +2011,310 @@ def sweep_phase() -> dict:
     return out
 
 
+# -- phase 7: dip, MC dropout and SGLD on the den and ct tasks -------------------
+
+METHOD_PAIRS = tuple((task, name) for name in ("dip", "mcd", "sgld")
+                     for task in ("den", "ct"))
+METHOD_ITERS = 300            # each pair's timed graph fit: 100 warm + 200
+METHOD_SHOW = 100
+METHOD_BITS_ITERS = 60        # the two graph fits and the eager one held
+METHOD_BITS_SHOW = 20         # equal bit for bit; the eager it/s over 40
+METHOD_RUNNER_ITERS = 100     # run_den_mcd / run_ct_sgld / run_den_dip
+METHOD_CLI_ITERS = 200        # the CLIs' fits
+METHOD_KERNELS = {"den": CONV | FUSED, "ct": CONV | BANDED | FUSED}
+MC_KEYS = {"mc_mean_recon", "mc_mean_psnr", "mc_mean_ssim", "mc_ale",
+           "mc_epi"}
+
+
+def method_of(task: str, name: str) -> tuple:
+    """(Method, lr, candidate keywords) of configs/test_{name}_{task}.json's
+    candidate, with the runners' weight-decay quirks (runners.py::
+    method_for: ct and dip zero it)."""
+    from mfvi_dip_mia_tpu_torch.parallel.fanout import candidate_kwargs
+    from mfvi_dip_mia_tpu_torch.tasks.runners import method_for
+    from mfvi_dip_mia_tpu_torch.utils.config import load_config
+    cfg = load_config(os.path.join(REPO, "configs",
+                                   f"test_{name}_{task}.json"))
+    cand = candidate_kwargs(name, [v.candidates[0]
+                                   for v in cfg.bo_params.values()])
+    return method_for(task, name, cand), cfg.run_params["lr"], cand
+
+
+def same_bits(a, b) -> bool:
+    """Whether two fits' metric rows and final parameters are equal bit for
+    bit."""
+    import numpy as np
+    return (all(np.array_equal(getattr(a, f), getattr(b, f), equal_nan=True)
+                for f in METRIC_ROWS)
+            and a.params.keys() == b.params.keys()
+            and all(np.array_equal(a.params[k], b.params[k], equal_nan=True)
+                    for k in a.params))
+
+
+def method_fits() -> dict:
+    """Each (task, method) pair of METHOD_PAIRS at 256^2, f32, seed 1, with
+    its test config's candidate and lr, through ``fit`` on the card: a graph
+    fit of METHOD_ITERS iterations (it/s over the last 200; every iteration
+    a replay; its final smoothed PSNR finite and above iteration 0's; the
+    launches exactly METHOD_KERNELS[task]); then two graph fits and one
+    eager fit of METHOD_BITS_ITERS iterations, all three with equal bits in
+    every metric row and final parameter: the dropout masks and the
+    parameter noise are drawn in the graph from the registered generator,
+    not frozen at capture. mcd must launch the fused block (its skip sites)
+    and more conv kernels per step than dip."""
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import fit
+
+    use_bench_images()
+    out = {}
+    for task, name in METHOD_PAIRS:
+        label = f"{task}/{name}"
+        method, lr, _ = method_of(task, name)
+        problem = P.build_problem(task, name, 0, input_depth=16,
+                                  dropout_p=method.dropout_p, device=DEVICE)
+        kw = dict(lr=lr, seed=1, metrics_every=1, compute_dtype="f32",
+                  collect_snapshots=False, device=DEVICE)
+        kernels.reset_launches()
+        res = fit(problem, method, num_iter=METHOD_ITERS - 1,
+                  show_every=METHOD_SHOW, **kw)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        per_step = {k: n / steps_run(res) for k, n in launches.items()}
+        bits = dict(num_iter=METHOD_BITS_ITERS - 1,
+                    show_every=METHOD_BITS_SHOW, **kw)
+        a, b = (fit(problem, method, **bits) for _ in range(2))
+        eager = fit(problem, method, eager=True, **bits)
+        equal, vs_eager = same_bits(a, b), same_bits(a, eager)
+        log(f"[7] {label} f32 {SIZE}^2 (lr {lr}, dropout_p "
+            f"{method.dropout_p}, weight_decay {method.weight_decay}, gamma "
+            f"{method.gamma}): graph {res.iters_per_sec:.2f} it/s over the "
+            f"last {METHOD_ITERS - METHOD_SHOW}, eager "
+            f"{eager.iters_per_sec:.2f} it/s over "
+            f"{METHOD_BITS_ITERS - METHOD_BITS_SHOW}; final smoothed PSNR "
+            f"{res.final_psnr:.3f} dB (iteration 0: {res.psnrs[0, 2]:.3f}); "
+            f"two {METHOD_BITS_ITERS}-iteration graph fits "
+            + ("equal" if equal else "DIFFER") + ", graph against eager "
+            + ("equal" if vs_eager else "DIFFER"))
+        log(f"    launches per step {per_step}")
+        hold_replays(f"{label}'s fit", res)
+        for r in (a, b):
+            hold_replays(f"{label}'s bit-equality fit", r)
+        if eager.replays:
+            raise AssertionError("an eager fit replayed a graph")
+        hold_launches(f"{label}'s fit", launches, METHOD_KERNELS[task])
+        if not (np.isfinite(res.final_psnr)
+                and res.final_psnr > res.psnrs[0, 2]):
+            raise AssertionError(f"{label}'s fit did not improve on "
+                                 "iteration 0")
+        if not (equal and vs_eager):
+            raise AssertionError(f"{label}: fits at one seed gave different "
+                                 "bits")
+        out[label] = dict(iters_per_sec=res.iters_per_sec,
+                          eager_iters_per_sec=eager.iters_per_sec,
+                          final_psnr=res.final_psnr,
+                          psnr_it0=float(res.psnrs[0, 2]),
+                          executed=res.executed, steps_run=steps_run(res),
+                          launches=launches, launches_per_step=per_step,
+                          graph_fits_equal=equal, graph_equals_eager=vs_eager)
+    for task in ("den", "ct"):
+        mcd, dip = (out[f"{task}/{m}"]["launches_per_step"]
+                    for m in ("mcd", "dip"))
+        if not (mcd["fused_block_fwd"] > 0
+                and mcd["cf_conv_fwd"] > dip["cf_conv_fwd"]):
+            raise AssertionError(f"{task}/mcd: expected its skip sites on the "
+                                 "fused block and more conv launches per "
+                                 "step than dip")
+    return out
+
+
+def mcd_mc_graph() -> dict:
+    """mcd's MC summary forward (den, 256^2, the test config's dropout_p)
+    through ``mc_predict`` on random deterministic parameters (seed 1):
+    one eager call against one graph call from the same generator seed.
+    Raises unless the two give equal bits, the samples differ from one
+    another (fresh masks on every replay), and the graph call launches the
+    conv and fused forward kernels only."""
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    import mfvi_dip_mia_tpu_torch.utils.images as I
+    from mfvi_dip_mia_tpu_torch.bayes import vi
+    from mfvi_dip_mia_tpu_torch.bayes.uncertainty import mc_predict
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import init_params
+
+    method, _, _ = method_of("den", "mcd")
+    problem = P.build_problem("den", "mcd", 0, input_depth=16,
+                              dropout_p=method.dropout_p, device=DEVICE)
+    params = vi.flatten(init_params(problem, method, 1), device=DEVICE)
+    z = I.get_noise(16, (SIZE, SIZE), rng=np.random.default_rng(1))
+    x = torch.from_numpy(z).permute(0, 3, 1, 2).contiguous().to(DEVICE)
+
+    def apply_fn(leaves, x, generator, **kw):
+        return problem.net(leaves, x, generator, dropout_p=method.dropout_p,
+                           **kw)
+
+    def timed(**kw):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = mc_predict(apply_fn, params, x,
+                          torch.Generator(device=DEVICE).manual_seed(5),
+                          MC_SAMPLES, **kw)
+        torch.cuda.synchronize()
+        return (outs, MC_SAMPLES / (time.perf_counter() - t0),
+                {k.name: k.launches for k in kernels.KERNELS})
+
+    ref, eager_rate, _ = timed(eager=True)
+    got, rate, launches = timed()
+    equal = torch.equal(got, ref)
+    fresh = not torch.equal(got[0], got[1])
+    log(f"[7] mcd den MC summary forward, {MC_SAMPLES} samples at {SIZE}^2: "
+        f"graph against eager " + ("equal bits" if equal else "DIFFER")
+        + (", samples differ from one another" if fresh else
+           ", samples EQUAL") + f"; graph {rate:.1f} samples/s, eager "
+        f"{eager_rate:.1f} (whole calls); launches {launches}")
+    hold_launches("mcd's MC graph", launches,
+                  {"cf_conv_fwd", "fused_block_fwd"})
+    if not (equal and fresh):
+        raise AssertionError("mcd's MC graph failed its checks against the "
+                             "eager samples")
+    return dict(equal=equal, fresh_masks=fresh, graph_samples_per_sec=rate,
+                eager_samples_per_sec=eager_rate, launches=launches)
+
+
+def method_runners(tmp: str) -> dict:
+    """run_den_mcd and run_ct_sgld (save.npz with the task's keys and the MC
+    summary's), run_den_dip (no MC summary, so no mc_* keys), each
+    METHOD_RUNNER_ITERS iterations with its test config's candidate, plots
+    off: a finite final PSNR and finite arrays."""
+    import glob
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.tasks.runners as R
+
+    out = {}
+    for task, name, keys in (("den", "mcd", DEN_KEYS), ("ct", "sgld", CT_KEYS),
+                             ("den", "dip", DEN_KEYS - MC_KEYS)):
+        _, lr, cand = method_of(task, name)
+        save = os.path.join(tmp, f"run_{task}_{name}")
+        t0 = time.perf_counter()
+        psnr = R.ALL_RUNNERS[f"run_{task}_{name}"](
+            device=DEVICE, num_iter=METHOD_RUNNER_ITERS, lr=lr, seed=1,
+            input_depth=16, show_every=METHOD_RUNNER_ITERS // 2, plot=False,
+            save=True, save_path=save, **cand)
+        wall = time.perf_counter() - t0
+        (path,) = glob.glob(os.path.join(save, "*", "save.npz"))
+        z = np.load(path, allow_pickle=True)
+        arrays = {k: z[k].item() if z[k].dtype == object else z[k]
+                  for k in z.files}
+        finite = all(np.isfinite(np.asarray(a, np.float64)).all()
+                     for v in arrays.values()
+                     for a in (v.values() if isinstance(v, dict) else [v]))
+        log(f"[7] run_{task}_{name} ({METHOD_RUNNER_ITERS + 1} it, {cand}): "
+            f"{wall:.1f} s, final PSNR {psnr:.3f} dB, save.npz keys "
+            f"{sorted(arrays)}")
+        if set(arrays) != keys or not finite or not np.isfinite(psnr):
+            raise AssertionError(f"run_{task}_{name} failed its checks")
+        out[f"run_{task}_{name}"] = dict(seconds=wall, final_psnr=psnr,
+                                         keys=sorted(arrays))
+    return out
+
+
+def method_clis(tmp: str) -> dict:
+    """``cli.main`` on a copy of configs/bo_sgld_den.json (one round of its
+    2 x 2 gamma / weight-decay candidates, METHOD_CLI_ITERS iterations a
+    fit, plots off, paths in ``tmp``): every candidate kept with a finite
+    PSNR; ``eval_cli.main`` on copies of configs/test_mcd_ct.json and
+    configs/test_dip_den.json: a finite PSNR and a save.npz with the task's
+    keys (and the MC summary's for mcd only)."""
+    import glob
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch import cli, eval_cli
+
+    def copy(name, **over):
+        with open(os.path.join(REPO, "configs", name)) as f:
+            raw = json.load(f)
+        raw["run_params"].update(over)
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        return path
+
+    t0 = time.perf_counter()
+    X, Y = cli.main(["--task", "denoising", "--bayes", "sgld", "--num-iter",
+                     str(METHOD_CLI_ITERS), "--rounds", "1", "--no-plot",
+                     "--config", copy(
+                         "bo_sgld_den.json", plot=False,
+                         save_path=os.path.join(tmp, "cli_logs"),
+                         bo_results_path=os.path.join(tmp, "cli_bo"))])
+    cli_s = time.perf_counter() - t0
+    log(f"[7] cli.main (1 round of bo_sgld_den, {METHOD_CLI_ITERS} it): "
+        f"{cli_s:.1f} s, X {[tuple(map(float, x)) for x in X]}, Y "
+        f"{[float(y) for y in Y]}")
+    if len(Y) != 4 or not np.isfinite(Y).all():
+        raise AssertionError("the bo_sgld_den round did not keep all four "
+                             "candidates")
+    out = dict(cli_seconds=cli_s, cli_Y=[float(y) for y in Y])
+    for cfg, task, name, keys in (
+            ("test_mcd_ct.json", "ct", "mcd", CT_KEYS),
+            ("test_dip_den.json", "denoising", "dip", DEN_KEYS - MC_KEYS)):
+        save = os.path.join(tmp, f"eval_{name}")
+        t0 = time.perf_counter()
+        kept_c, kept_y = eval_cli.main([
+            "--task", task, "--bayes", name, "--num-iter",
+            str(METHOD_CLI_ITERS), "--config",
+            copy(cfg, plot=False, save_path=save)])
+        wall = time.perf_counter() - t0
+        (path,) = glob.glob(os.path.join(save, "*", "save.npz"))
+        z = np.load(path, allow_pickle=True)
+        log(f"[7] eval_cli.main ({cfg}, {METHOD_CLI_ITERS} it): {wall:.1f} "
+            f"s, candidate {kept_c} PSNR {kept_y}, save.npz keys "
+            f"{len(z.files)}")
+        if (len(kept_y) != 1 or not np.isfinite(kept_y[0])
+                or set(z.files) != keys):
+            raise AssertionError(f"eval_cli.main on {cfg} failed its checks")
+        out[f"eval_{name}"] = dict(seconds=wall, psnr=float(kept_y[0]))
+    return out
+
+
+def methods_phase() -> dict:
+    """Phase 7: the six pairs' fits, mcd's MC graph, three runners and the
+    two CLIs; everything written goes to a temporary directory, removed
+    after."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"fits": method_fits(), "mcd_mc_graph": mcd_mc_graph()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_methods_")
+    try:
+        out["runners"] = method_runners(tmp)
+        out["clis"] = method_clis(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[7] phase 7 took {out['seconds']:.1f} s")
+    return out
+
+
+def profile_methods(steps: int, fits: dict) -> dict:
+    """mcd den and sgld den (phase 7's configurations) profiled, each beside
+    its own unprofiled it/s from phase 7, as graph replays and eagerly."""
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+
+    out = {}
+    for name in ("mcd", "sgld"):
+        method, lr, _ = method_of("den", name)
+        problem = P.build_problem("den", name, 0, input_depth=16,
+                                  dropout_p=method.dropout_p)
+        out[f"den/{name}"] = profile_fit(
+            f"{name} den", problem, method,
+            dict(lr=lr, seed=1, metrics_every=1, compute_dtype="f32",
+                 collect_snapshots=False), steps,
+            step_ms_of(fits[f"den/{name}"]))
+    return out
+
+
 # -- phase 6: times beside bounds -----------------------------------------
 
 def time_conv_kernels(sites, results: dict) -> None:
@@ -2500,6 +2820,7 @@ def main(argv=None) -> int:
     fits["graph_vs_eager"] = graph_against_eager()
     fits["sweep"] = sweep_phase()
     fits["bo_ct"] = fits["sweep"]["bo_ct"]
+    fits["methods"] = methods_phase()
 
     time_conv_kernels(sites, results)
     time_radon_kernels(states, dense, results)
@@ -2512,6 +2833,8 @@ def main(argv=None) -> int:
         fits["profile"] = profile_ct(args.profile_steps, fits["ct"])
         fits["profile_den"] = profile_den(args.profile_steps)
         fits["profile_paths"] = profile_paths(args.profile_steps, fits)
+        fits["profile_methods"] = profile_methods(
+            args.profile_steps, fits["methods"]["fits"])
 
     line = []
     for k in kernels.KERNELS:

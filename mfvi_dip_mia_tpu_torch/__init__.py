@@ -1,16 +1,19 @@
 """mfvi_dip_mia_tpu_torch: the PyTorch / CUDA port of mfvi_dip_mia_tpu for an
 NVIDIA H100 (sm_90a).
 
-It runs the system's main path, one MFVI fit of the DIP skip U-Net for CT
-(with the banded Radon operator) and denoising, on hand-written CUDA kernels
-(csrc/) that replace the JAX package's Pallas TPU kernels, and the
-Bayesian-optimisation sweep of those fits (``cli``, ``eval_cli``):
+It runs the DIP skip U-Net's fits for CT (with the banded Radon operator)
+and denoising under plain DIP, mean-field VI, MC dropout and SGLD, on
+hand-written CUDA kernels (csrc/) that replace the JAX package's Pallas TPU
+kernels, and the Bayesian-optimisation sweep of those fits (``cli``,
+``eval_cli``):
 
-  * ``nn``     — the NCHW skip U-Net and its layers
-  * ``bayes``  — mean-field VI on a flat [mu | rho | det] buffer
+  * ``nn``     — the NCHW skip U-Net and its layers (MC dropout included)
+  * ``bayes``  — mean-field VI on a flat [mu | rho | det] buffer, MC
+                 dropout at a function's output, the MC posterior summary
   * ``ops``    — the Radon operator, losses, metrics, and ``ops.kernels``
                  (the CUDA kernels' wrappers and their plain versions)
-  * ``optim``  — flat AdamW with the analytic KL gradient
+  * ``optim``  — flat AdamW with the analytic KL gradient, SGLD's parameter
+                 noise and floored lr decay
   * ``tasks``  — data, problems, the trainer and the runners
   * ``bo``     — the exact GP, acquisition and the BO loop (f64, host CPU)
   * ``parallel`` — the candidate fanout (one process, one card)

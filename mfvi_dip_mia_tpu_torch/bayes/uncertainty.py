@@ -19,14 +19,18 @@ def mc_predict(apply_fn, params: vi.FlatParams, x: torch.Tensor,
                reparam: str = "rt", eager: bool = False) -> torch.Tensor:
     """``n_samples`` stochastic forwards under no_grad, as
     uncertainty.py:41-50 draws them: under ``reparam='rt'`` each on one
-    whole-tree RT draw (vi.sample_mfvi_tree), ``apply_fn(leaves, x)``; under
-    'lrt' each on the unsampled mu / rho tree with fresh activation noise,
-    ``apply_fn(leaves, x, generator, reparam='lrt')``. apply_fn returns
-    (N, C, H, W); the result is (S, N, C, H, W).
+    whole-tree RT draw (vi.sample_mfvi_tree) of a variational tree, or on a
+    deterministic tree as it is, ``apply_fn(leaves, x, generator)``: the
+    generator reaches the forward for its dropout masks, as JAX's key does;
+    under 'lrt' each on the unsampled mu / rho tree with fresh activation
+    noise, ``apply_fn(leaves, x, generator, reparam='lrt')``. apply_fn
+    returns (N, C, H, W); the result is (S, N, C, H, W).
 
     On the card one sample's forward is captured as a CUDA graph, the
     counterpart of the one compiled graph JAX maps the samples through, and
-    replayed once per sample (``_replayed``), with the eager loop's bits;
+    replayed once per sample (``_replayed``), with the eager loop's bits
+    (each replay draws fresh RT weights, activation noise or dropout masks
+    from the registered generator);
     ``eager=True`` runs the samples one after another instead, as the CPU
     always does."""
     if reparam not in REPARAMS:
@@ -35,7 +39,9 @@ def mc_predict(apply_fn, params: vi.FlatParams, x: torch.Tensor,
     def one():
         if reparam == "lrt":
             return apply_fn(params.leaves(), x, generator, reparam="lrt")
-        return apply_fn(vi.sample_mfvi_tree(params, generator), x)
+        leaves = (vi.sample_mfvi_tree(params, generator) if params.n_var
+                  else params.leaves())
+        return apply_fn(leaves, x, generator)
 
     with torch.no_grad():
         if eager or x.device.type != "cuda":

@@ -94,3 +94,29 @@ def concat_center_crop(xs: list[torch.Tensor]) -> torch.Tensor:
         dw = (x.shape[3] - tw) // 2
         cropped.append(x[:, :, dh:dh + th, dw:dw + tw])
     return torch.cat(cropped, dim=1)
+
+
+def dropout_keep(shape, keep_prob: float,
+                 generator: torch.Generator) -> torch.Tensor:
+    """The boolean keep mask of one dropout draw (True with probability
+    ``keep_prob``), on the generator's device. Every dropout mask is drawn
+    here, so a caller can hold dropout to a fixed mask; JAX draws
+    bernoulli(key, 1 - p) (layers.py:216-227)."""
+    return torch.rand(tuple(shape), generator=generator,
+                      device=generator.device) < keep_prob
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Element-wise dropout with 1/(1-p) scaling (F.dropout, training=True),
+    in JAX's order of operations: where(keep, x / (1 - p), 0)."""
+    keep = dropout_keep(x.shape, 1.0 - p, generator)
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def dropout2d(x: torch.Tensor, p: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """Channel dropout (F.dropout2d): one draw per (sample, channel) of an
+    NCHW tensor zeroes or keeps the whole map, scaled by 1/(1-p)."""
+    keep = dropout_keep((x.shape[0], x.shape[1], 1, 1), 1.0 - p, generator)
+    return torch.where(keep, x / (1.0 - p), 0.0)

@@ -1,14 +1,19 @@
 """Task definitions: data -> operator -> loss / transform / metrics
-(counterpart of mfvi_dip_mia_tpu/tasks/problems.py) for the slice's two
-task/method pairs:
+(counterpart of mfvi_dip_mia_tpu/tasks/problems.py) for the ct and den
+tasks under the four methods:
 
-  task | method | data loss                              | post-loss transform
-  -----+--------+----------------------------------------+--------------------
-  ct   | mfvi   | mse(radon(out), radon(gt))             | none (1 channel)
-  den  | mfvi   | gaussian_nll(out[:1], out[1:], noisy)  | ch1 -> exp(-ch1)
+  task | method    | data loss                              | transform
+  -----+-----------+----------------------------------------+--------------
+  ct   | all       | mse(radon(out), radon(gt))             | none (1 ch)
+  den  | dip       | mse(out[:1], noisy)                    | none
+  den  | sgld      | mse(out[:1], noisy)                    | ch1 -> exp(-ch1)
+  den  | mfvi, mcd | gaussian_nll(out[:1], out[1:], noisy)  | ch1 -> exp(-ch1)
 
-Net (both): 5-scale [16,32,64,128,128], skip 4, bilinear up, reflection pad,
-n_out = 1 (ct) / 2 (den). Tensors are NCHW on the problem's device.
+Net (both tasks): 5-scale [16,32,64,128,128], skip 4, bilinear up,
+reflection pad, n_out = 1 (ct) / 2 (den); mcd adds always-on dropout2d on
+the down and up sites (problems.py:166-174). The sr and inp tasks are not
+ported yet (ROADMAP Queue 1 item 5). Tensors are NCHW on the problem's
+device.
 """
 
 from __future__ import annotations
@@ -28,12 +33,13 @@ from ..utils.device import resolve_device
 from . import data as D
 
 _CT_THETA = np.arange(0.0, 180.0, 4.0)
+METHODS = ("dip", "mfvi", "mcd", "sgld")
 
 
 @dataclasses.dataclass
 class Problem:
     task: str                     # 'den' | 'ct'
-    method: str                   # 'mfvi'
+    method: str                   # 'dip' | 'mfvi' | 'mcd' | 'sgld'
     net: SkipNet
     input_depth: int
     imsize: tuple                 # (H, W)
@@ -49,10 +55,12 @@ class Problem:
     def data_loss(self, out: torch.Tensor) -> torch.Tensor:
         if self.task == "ct":
             return losses.mse_loss(self.operator(out), self.target)
+        if self.method in ("dip", "sgld"):
+            return losses.mse_loss(out[:, :1], self.target)
         return losses.gaussian_nll(out[:, :1], out[:, 1:], self.target)
 
     def transform(self, out: torch.Tensor) -> torch.Tensor:
-        if self.task == "ct":
+        if self.task == "ct" or self.method == "dip":
             return out
         return torch.cat([out[:, :1], torch.exp(-out[:, 1:])], dim=1)
 
@@ -77,11 +85,15 @@ class Problem:
             ssim(self.gt, oa)])
 
 
-def _standard_net(n_channels, input_depth=16):
+def _standard_net(n_channels, method, dropout_p, input_depth=16):
+    kwargs = {}
+    if method == "mcd":
+        kwargs = dict(dropout_mode_down="2d", dropout_p_down=dropout_p,
+                      dropout_mode_up="2d", dropout_p_up=dropout_p)
     return build_skip_net(
         input_depth, n_channels=n_channels, pad="reflection",
         skip_n33d=[16, 32, 64, 128, 128], skip_n33u=[16, 32, 64, 128, 128],
-        skip_n11=4, num_scales=5, upsample_mode="bilinear")
+        skip_n11=4, num_scales=5, upsample_mode="bilinear", **kwargs)
 
 
 def _chw(img_np: np.ndarray, device) -> torch.Tensor:
@@ -89,17 +101,22 @@ def _chw(img_np: np.ndarray, device) -> torch.Tensor:
 
 
 def build_problem(task: str, method: str, img: int, *, p_sigma: float = 0.1,
-                  input_depth: int = 16, device=None,
-                  radon_mode: str = "auto",
+                  input_depth: int = 16, dropout_p: float = 0.3,
+                  device=None, radon_mode: str = "auto",
                   rng: np.random.Generator | None = None) -> Problem:
-    """Load data, corrupt it, build the operator and the net on ``device``
-    (default: the card). ``radon_mode`` picks the CT operator
-    (ops/radon.py). ``rng`` draws the noise (default ``default_rng(42)``);
-    a runner passes the stream it then hands to ``fit`` (problems.py:180)."""
-    if method != "mfvi" or task not in ("ct", "den"):
+    """Load data, corrupt it, build the operator and the net for (task,
+    method) on ``device`` (default: the card). ``dropout_p`` is mcd's
+    dropout rate. ``radon_mode`` picks the CT operator (ops/radon.py).
+    ``rng`` draws the noise (default ``default_rng(42)``); a runner passes
+    the stream it then hands to ``fit`` (problems.py:180)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    if task in ("sr", "inp"):
         raise NotImplementedError(
-            f"task {task!r} / method {method!r} is not ported yet: the port "
-            "covers ct/mfvi and den/mfvi (ROADMAP Queue 1 items 4-5)")
+            f"task {task!r} is not ported yet: the port covers ct and den "
+            "(ROADMAP Queue 1 item 5)")
+    if task not in ("ct", "den"):
+        raise ValueError(f"unknown task {task!r}")
     dev = resolve_device(device)
     if rng is None:
         rng = np.random.default_rng(42)
@@ -107,10 +124,11 @@ def build_problem(task: str, method: str, img: int, *, p_sigma: float = 0.1,
     if task == "den":
         img_np, _ = D.get_image_denoising(img)
         noisy_np = I.add_gaussian_noise(img_np, p_sigma, rng)
-        return Problem(task, method, _standard_net(2, input_depth),
+        return Problem(task, method,
+                       _standard_net(2, method, dropout_p, input_depth),
                        input_depth, tuple(img_np.shape[1:]), 1,
                        _chw(img_np, dev), _chw(noisy_np, dev), None, dev,
-                       img_np, noisy_np, has_ale=True)
+                       img_np, noisy_np, has_ale=method != "dip")
 
     img_np, _ = D.get_img_ct(img)
     gt = _chw(img_np, dev)
@@ -118,6 +136,7 @@ def build_problem(task: str, method: str, img: int, *, p_sigma: float = 0.1,
                                device=dev)
     with torch.no_grad():
         target = radon(gt)
-    return Problem(task, method, _standard_net(1, input_depth), input_depth,
-                   tuple(img_np.shape[1:]), 1, gt, target, radon, dev, img_np,
-                   target[0].cpu().numpy())
+    return Problem(task, method,
+                   _standard_net(1, method, dropout_p, input_depth),
+                   input_depth, tuple(img_np.shape[1:]), 1, gt, target, radon,
+                   dev, img_np, target[0].cpu().numpy())

@@ -2,10 +2,12 @@
 mfvi_dip_mia_tpu/tasks/runners.py), each a thin closure over ``run_task``.
 
 A run creates ``save_path/<timestamp>/`` with ``locals.txt``, fits, takes a
-25-sample MC posterior summary from the final parameters, optionally plots,
-writes ``save.npz`` in the reference's per-task key schema, and returns the
-final smoothed-reconstruction PSNR (the BO objective). The port runs
-(den, mfvi) and (ct, mfvi); the other 14 raise NotImplementedError.
+25-sample MC posterior summary from the final parameters (every method but
+dip, runners.py:179), optionally plots, writes ``save.npz`` in the
+reference's per-task key schema, and returns the final
+smoothed-reconstruction PSNR (the BO objective). The port runs the den and
+ct tasks under dip, mfvi, mcd and sgld; the 8 sr / inp runners raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,11 +24,11 @@ from ..bayes.uncertainty import mc_predict, uncert_regression_gal
 from ..ops.metrics import psnr, ssim
 from ..utils.config import dump_locals
 from ..utils.device import resolve_device
-from .problems import build_problem
+from .problems import METHODS, build_problem
 from .trainer import Method, fit
 
 MC_SAMPLES = 25
-_PORTED = {("den", "mfvi"), ("ct", "mfvi")}
+_PORTED = {(t, m) for t in ("den", "ct") for m in METHODS}
 
 
 def method_for(task: str, method_name: str, overrides: dict) -> Method:
@@ -60,11 +62,14 @@ def _npz_payload(task, problem, res, method_name):
 
 
 def mc_summary(problem, params: dict, net_input: np.ndarray, seed: int,
-               n_samples: int = MC_SAMPLES, reparam: str = "rt") -> dict:
+               n_samples: int = MC_SAMPLES, reparam: str = "rt",
+               dropout_p=None) -> dict:
     """The posterior-predictive summary of a fit: ``n_samples`` stochastic
     forwards of the final parameters (RT draws, or LRT activation noise with
-    ``reparam='lrt'``) from a generator seeded ``seed`` (the runner passes
-    seed + 77, as JAX's PRNGKey(seed + 77)), transformed and decomposed.
+    ``reparam='lrt'``, or dropout masks at ``dropout_p`` on an mcd net; a
+    deterministic net without dropout gives equal samples) from a generator
+    seeded ``seed`` (the runner passes seed + 77, as JAX's PRNGKey(seed +
+    77)), transformed and decomposed.
     Returns the mean reconstruction clipped to [0, 1] and its PSNR / SSIM,
     and the aleatoric / epistemic maps, each (C, H, W)."""
     dev = problem.device
@@ -72,7 +77,11 @@ def mc_summary(problem, params: dict, net_input: np.ndarray, seed: int,
                       device=dev)
     x = torch.from_numpy(net_input).permute(0, 3, 1, 2).contiguous().to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    outs = mc_predict(problem.net, flat, x, gen, n_samples, reparam=reparam)
+
+    def apply_fn(leaves, x, generator, **kw):
+        return problem.net(leaves, x, generator, dropout_p=dropout_p, **kw)
+
+    outs = mc_predict(apply_fn, flat, x, gen, n_samples, reparam=reparam)
     outs = problem.transform(outs[:, 0])[:, None]
     mean, ale, epi = uncert_regression_gal(outs, problem.mean_ch)
     mean_c = torch.clamp(mean, 0, 1)
@@ -107,8 +116,8 @@ def run_task(task: str, method_name: str, *, img: int = 0,
 
     if (task, method_name) not in _PORTED:
         raise NotImplementedError(
-            f"run_{task}_{method_name} is not ported yet: the port runs "
-            "den/mfvi and ct/mfvi (ROADMAP Queue 1 items 4-5)")
+            f"run_{task}_{method_name} is not ported yet: the port runs the "
+            "den and ct tasks (ROADMAP Queue 1 item 5)")
     if early_stop is not None:
         raise NotImplementedError(
             "early_stop is not ported yet (ROADMAP Queue 1 item 6)")
@@ -135,7 +144,8 @@ def run_task(task: str, method_name: str, *, img: int = 0,
         # one stream draws the noisy image, then the net input
         rng = np.random.default_rng(seed)
         problem = build_problem(task, method_name, img, p_sigma=p_sigma,
-                                input_depth=input_depth, device=dev, rng=rng)
+                                input_depth=input_depth, dropout_p=dropout_p,
+                                device=dev, rng=rng)
         method = Method(name=method_name, temp=temp, sigma=sigma,
                         dropout_p=dropout_p, weight_decay=weight_decay,
                         gamma=gamma)
@@ -150,9 +160,11 @@ def run_task(task: str, method_name: str, *, img: int = 0,
 
         def snapshot_fn(i, recon, epi, ale):
             viz.save_image_png(recon, str(out_dir / "out_avg.png"))
-            viz.save_normalized_png(epi, str(out_dir / "out_var.png"))
-            if problem.has_ale:
-                viz.save_normalized_png(ale, str(out_dir / "out_ale.png"))
+            if method_name != "dip":
+                viz.save_normalized_png(epi, str(out_dir / "out_var.png"))
+                if problem.has_ale:
+                    viz.save_normalized_png(ale,
+                                            str(out_dir / "out_ale.png"))
 
         res = fit(problem, method, num_iter=num_iter, lr=lr, seed=seed,
                   show_every=show_every, rng=rng, device=dev,
@@ -171,7 +183,11 @@ def run_task(task: str, method_name: str, *, img: int = 0,
                                  {method_name: res.psnrs},
                                  {method_name: res.ssims}, str(out_dir),
                                  file=f)
-        summary = mc_summary(problem, res.params, res.net_input, seed + 77)
+        summary = {}
+        if method_name != "dip":
+            summary = mc_summary(
+                problem, res.params, res.net_input, seed + 77,
+                dropout_p=dropout_p if method_name == "mcd" else None)
 
     if save:
         np.savez(str(out_dir / "save.npz"),
@@ -190,11 +206,10 @@ def _make_runner(task, method):
 
 
 _TASKS = ("ct", "den", "sr", "inp")
-_METHODS = ("dip", "mfvi", "mcd", "sgld")
 
 for _t in _TASKS:
-    for _m in _METHODS:
+    for _m in METHODS:
         globals()[f"run_{_t}_{_m}"] = _make_runner(_t, _m)
 
 ALL_RUNNERS = {f"run_{t}_{m}": globals()[f"run_{t}_{m}"]
-               for t in _TASKS for m in _METHODS}
+               for t in _TASKS for m in METHODS}

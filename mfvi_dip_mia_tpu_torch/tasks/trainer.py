@@ -1,15 +1,28 @@
-"""The DIP trainer (counterpart of mfvi_dip_mia_tpu/tasks/trainer.py) for the
-MFVI method.
+"""The DIP trainer (counterpart of mfvi_dip_mia_tpu/tasks/trainer.py) for
+the four methods: plain DIP ('dip'), mean-field VI ('mfvi'), MC dropout
+('mcd') and SGLD ('sgld').
 
 Semantics kept from the JAX step (each with its reference line there):
   * ``num_iter + 1`` total iterations
   * input jitter: z + 0.1 * N(0, 1), fresh every iteration
-  * one whole-tree RT draw per step (bayes/vi.py::sample_mfvi_tree); under
-    ``reparam='lrt'`` none: the net samples each site in activation space
-    from the fit's generator (trainer.py:198, :251-254)
-  * prior sigma = sqrt(temp) * sigma; the KL value under no_grad, its
-    gradient fused into the flat AdamW (optim/fused_adamw.py)
-  * NaN guard: a non-finite loss skips the parameter AND optimizer update
+  * mfvi: one whole-tree RT draw per step (bayes/vi.py::sample_mfvi_tree);
+    under ``reparam='lrt'`` none: the net samples each site in activation
+    space from the fit's generator (trainer.py:198, :251-254). Prior sigma
+    = sqrt(temp) * sigma; the KL value under no_grad, its gradient fused
+    into the flat AdamW (optim/fused_adamw.py)
+  * dip / mcd / sgld: the torch-default init, no draw and no KL; mcd's
+    forward draws its dropout masks from the fit's generator at
+    ``dropout_p`` (trainer.py:253)
+  * sgld: before the forward, noise N(0, 1) * param_noise_sigma * lr on
+    every conv kernel, at the constant base lr (trainer.py:215-220); the
+    gradient and the AdamW step are taken at the noised parameters. The
+    step's lr decays as lr * gamma^min(it, n_stop) with the 1e-8 floor
+    (``optim/sgld.py::DecayedLR``), except on ct, which keeps the constant
+    lr (the reference quirk of trainer.py:275-287)
+  * AdamW's weight decay is the Method's (trainer.py:275; the runners zero
+    it for dip, mfvi and ct)
+  * NaN guard: a non-finite loss skips the parameter AND optimizer update;
+    under sgld the parameters keep their noise either way (trainer.py:299)
   * EMA out_avg = 0.99 * out_avg + 0.01 * out_t, seeded with the first
     iterate (a select on the device's iteration index, trainer.py:303)
   * a 25-slot flat MC ring (unbiased variance at snapshots), PSNR/SSIM
@@ -40,11 +53,12 @@ import torch
 
 from ..bayes import vi
 from ..ops import kernels
+from ..optim import sgld
 from ..optim.fused_adamw import flat_adamw_update
 from ..utils import images as I
 from ..utils.device import resolve_device
 from ..utils.graphs import capture, capture_stream
-from .problems import Problem
+from .problems import METHODS, Problem
 
 MC_RING = 25
 EXP_WEIGHT = 0.99
@@ -53,15 +67,14 @@ REG_NOISE_STD = 0.1
 
 @dataclasses.dataclass(frozen=True)
 class Method:
-    """Inference-mode hyperparameters (the two BO axes of MFVI). The other
-    methods' fields ride along for the runners (tasks/runners.py::
-    method_for); MFVI uses none of them and its weight decay is 0."""
-    name: str                      # 'mfvi'
-    temp: float = 0.0
-    sigma: float = 0.0
+    """Inference-mode hyperparameters (the two BO axes per method)."""
+    name: str                      # 'dip' | 'mfvi' | 'mcd' | 'sgld'
+    temp: float = 0.0              # mfvi
+    sigma: float = 0.0             # mfvi prior scale multiplier
     dropout_p: float = 0.3         # mcd
-    weight_decay: float = 0.0      # mcd / sgld
+    weight_decay: float = 0.0      # AdamW's decoupled weight decay
     gamma: float = 0.9999          # sgld lr decay
+    param_noise_sigma: float = 2.0 # sgld (trainer.py:86)
 
     @property
     def prior_sigma(self) -> float:
@@ -76,10 +89,17 @@ class HyperParams(NamedTuple):
     lr: float
     temp: float
     prior_sigma: float
+    weight_decay: float
+    gamma: float
+    dropout_p: float
+    param_noise_sigma: float
 
     @staticmethod
     def of(method: Method, lr: float) -> "HyperParams":
-        return HyperParams(float(lr), float(method.temp), method.prior_sigma)
+        return HyperParams(float(lr), float(method.temp), method.prior_sigma,
+                           float(method.weight_decay), float(method.gamma),
+                           float(method.dropout_p),
+                           float(method.param_noise_sigma))
 
 
 @dataclasses.dataclass
@@ -116,16 +136,19 @@ def resolve_compute_dtype(dtype) -> torch.dtype:
 
 def init_params(problem: Problem, method: Method, seed: int) -> dict:
     """The fit's initial parameters (CPU tensors): torch-default conv init,
-    then the MFVI re-initialization, from one seeded generator."""
+    then for mfvi the MFVI re-initialization, from one seeded generator
+    (trainer.py:443-450)."""
     gen = torch.Generator().manual_seed(seed)
-    return vi.to_mfvi(problem.net.init_params(gen), gen)
+    params = problem.net.init_params(gen)
+    return vi.to_mfvi(params, gen) if method.name == "mfvi" else params
 
 
 @dataclasses.dataclass
 class StepState:
     """Everything a step reads and writes besides the problem: tensors whose
     storage stays where it is, since every step updates them in place."""
-    flat: torch.Tensor        # the [mu | rho | det] parameters
+    flat: torch.Tensor        # the [mu | rho | det] parameters (all det
+                              # outside mfvi)
     m: torch.Tensor           # AdamW's moments
     v: torch.Tensor
     count: torch.Tensor       # AdamW's step count, int32 ()
@@ -152,23 +175,39 @@ class Prepared(NamedTuple):
 
 def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
               gen: torch.Generator, hp: HyperParams, dtype: torch.dtype,
-              reparam: str) -> Callable:
-    """The fit's step: ``step(state, with_metrics)`` runs one iteration on
-    ``state`` in place (the one at ``state.it``) and writes its metric row
-    when ``with_metrics``. It reads nothing back to the host, so the same
-    calls can be captured as a CUDA graph."""
+              reparam: str, method_name: str) -> Callable:
+    """The fit's step: ``step(state, with_metrics)`` runs one iteration of
+    ``method_name`` on ``state`` in place (the one at ``state.it``) and
+    writes its metric row when ``with_metrics``. It reads nothing back to
+    the host, so the same calls can be captured as a CUDA graph: whatever
+    it needs besides the state (sgld's kernel positions and decay
+    constants) is made here, before any capture."""
+    if method_name not in METHODS:
+        raise ValueError(f"unknown method {method_name!r}")
     h, w = problem.imsize
     mc = problem.mean_ch
     low = None if dtype == torch.float32 else dtype
     noise_std = REG_NOISE_STD
+    is_mfvi = method_name == "mfvi"
+    is_sgld = method_name == "sgld"
+    dropout_p = hp.dropout_p if method_name == "mcd" else None
+    noise_at = sgld.kernel_index(params) if is_sgld else None
+    # ct sgld keeps the constant lr (trainer.py:275-287)
+    decay = (sgld.DecayedLR(hp.lr, hp.gamma, z.device)
+             if is_sgld and problem.task != "ct" else None)
 
     def step(s: StepState, with_metrics: bool) -> None:
         x = z
         if noise_std:
             x = z + noise_std * torch.randn(z.shape, generator=gen,
                                             device=z.device)
+        if is_sgld:
+            # noise at the constant base lr, before the forward; it stays in
+            # the parameters whatever the NaN guard decides
+            sgld.add_param_noise(s.flat, noise_at, gen, hp.param_noise_sigma,
+                                 hp.lr)
         p = s.flat.detach().requires_grad_(True)
-        if reparam == "lrt":
+        if not is_mfvi or reparam == "lrt":
             leaves = params.with_flat(p).leaves()
         else:
             leaves = vi.sample_mfvi_tree(params.with_flat(p), gen,
@@ -176,16 +215,23 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
         if low is not None:
             leaves = {k: t.to(dtype) for k, t in leaves.items()}
             x = x.to(dtype)
-        out = problem.net(leaves, x, gen, reparam=reparam).float()
+        out = problem.net(leaves, x, gen, reparam=reparam,
+                          dropout_p=dropout_p).float()
         loss = problem.data_loss(out)
         loss.backward()
         with torch.no_grad():
-            kl = vi.kl_mfvi(params.with_flat(s.flat), 0.0, hp.prior_sigma)
-            ok = torch.isfinite(loss + hp.temp * kl)
+            if is_mfvi:
+                kl = vi.kl_mfvi(params.with_flat(s.flat), 0.0,
+                                hp.prior_sigma)
+                ok = torch.isfinite(loss + hp.temp * kl)
+            else:
+                ok = torch.isfinite(loss)
             new = flat_adamw_update(
-                s.flat, p.grad, s.m, s.v, s.count, lr=hp.lr,
-                n_var=params.n_var, kl_temp=hp.temp,
-                kl_prior_sigma=hp.prior_sigma, use_kl=True)
+                s.flat, p.grad, s.m, s.v, s.count,
+                lr=hp.lr if decay is None else decay.at(s.it),
+                n_var=params.n_var, weight_decay=hp.weight_decay,
+                kl_temp=hp.temp, kl_prior_sigma=hp.prior_sigma,
+                use_kl=is_mfvi)
             for old, upd in zip((s.flat, s.m, s.v, s.count), new):
                 old.copy_(torch.where(ok, upd, old))
 
@@ -239,7 +285,7 @@ def prepare_fit(problem: Problem, method: Method, *, iterations: int,
         rows=torch.full((iterations, 8), float("nan"), device=dev),
         it=torch.zeros(1, dtype=torch.int64, device=dev))
     step = make_step(problem, params, z, gen, HyperParams.of(method, lr),
-                     dtype, reparam)
+                     dtype, reparam, method.name)
     return Prepared(step, state, params, z_np, gen)
 
 
@@ -296,24 +342,20 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         log_fn: Optional[Callable] = None,
         reparam: str = "rt", chunk_iters: Optional[int] = None,
         eager: bool = False) -> FitResult:
-    """Run one MFVI DIP fit on ``device`` (default: the card). Returns the
-    per-iteration metric traces, the snapshot stacks and the final smoothed
-    PSNR as ``final_psnr``. ``snapshot_fn(i, recon, epi, ale)`` fires at
-    every snapshot, ``log_fn(i, metrics_row)`` once per chunk of
-    ``chunk_iters`` iterations (default ``show_every``; snapshots need the
-    two equal), at the chunk's last iteration. ``rng`` draws the net input
-    (default ``default_rng(seed)``); a runner passes the stream that drew
-    the problem's noise (trainer.py:502-513). ``reparam`` is 'rt'
+    """Run one DIP fit of ``method`` on ``device`` (default: the card).
+    Returns the per-iteration metric traces, the snapshot stacks and the
+    final smoothed PSNR as ``final_psnr``. ``snapshot_fn(i, recon, epi,
+    ale)`` fires at every snapshot, ``log_fn(i, metrics_row)`` once per
+    chunk of ``chunk_iters`` iterations (default ``show_every``; snapshots
+    need the two equal), at the chunk's last iteration. ``rng`` draws the
+    net input (default ``default_rng(seed)``); a runner passes the stream
+    that drew the problem's noise (trainer.py:502-513). ``reparam`` is 'rt'
     (weight-space draws) or 'lrt' (local reparameterization, on the LRT
     double-conv kernel).
 
     On the card every iteration is a replay of the step's CUDA graph
     (``capture_step``); ``eager=True`` runs the step eagerly instead, with
     the same bits. The graphs and their memory are released on return."""
-    if method.name != "mfvi":
-        raise NotImplementedError(
-            f"method {method.name!r} is not ported yet (ROADMAP Queue 1 "
-            "item 4)")
     num_iter = num_iter + 1
     chunk = chunk_iters or show_every
     if collect_snapshots and chunk != show_every:
@@ -333,6 +375,8 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
     recons = np.zeros((n_snaps, mc, h, w), np.float32)
     unc_epi = np.zeros((n_snaps, mc, h, w), np.float32)
     unc_ale = np.zeros((n_snaps, mc, h, w), np.float32)
+    # dip's uncertainty maps stay zero (trainer.py:725)
+    maps = method.name != "dip"
 
     t0 = time.perf_counter()
     graphs = (capture_step(prep.step, state, prep.generator)
@@ -355,14 +399,16 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
             if collect_snapshots and it % show_every == 0:
                 # the maps right after this iteration, read with the chunk
                 snaps.append((it, torch.clamp(state.out_avg[0, :mc], 0, 1),
-                              state.ring_epi.var(dim=0, unbiased=True),
+                              state.ring_epi.var(dim=0, unbiased=True)
+                              if maps else None,
                               state.ring_ale.mean(dim=0)
-                              if problem.has_ale else None))
+                              if maps and problem.has_ale else None))
         rows[start:end] = state.rows[start:end].cpu().numpy()
         for it, recon, epi, ale in snaps:
             k = it // show_every
             recons[k] = recon.cpu().numpy()
-            unc_epi[k] = epi.reshape(mc, h, w).cpu().numpy()
+            if epi is not None:
+                unc_epi[k] = epi.reshape(mc, h, w).cpu().numpy()
             if ale is not None:
                 unc_ale[k] = ale.reshape(mc, h, w).cpu().numpy()
             if snapshot_fn is not None:

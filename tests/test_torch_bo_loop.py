@@ -37,7 +37,7 @@ from mfvi_dip_mia_tpu_torch.nn import build_skip_net as tbuild
 from mfvi_dip_mia_tpu_torch.parallel import fanout as TF
 from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, init_params
 
-from torch_port_helpers import SMALL_NET
+from torch_port_helpers import SMALL_NET, dropout_kwargs
 
 torch.set_num_threads(1)
 
@@ -283,8 +283,10 @@ def test_plots_without_matplotlib_fail_before_a_fit(tmp_path, monkeypatch):
 
 
 def _configs(prefix):
-    return sorted(glob.glob(os.path.join(REPO, "configs",
-                                         f"{prefix}_mfvi*.json")))
+    """Every configs/{prefix}_{method}[_{task}].json of the four methods."""
+    return sorted(p for m in ("dip", "mfvi", "mcd", "sgld")
+                  for p in glob.glob(os.path.join(REPO, "configs",
+                                                  f"{prefix}_{m}*.json")))
 
 
 def _task_of(path):
@@ -293,15 +295,20 @@ def _task_of(path):
             "inp": "inpainting"}[stem[2]] if len(stem) > 2 else "denoising"
 
 
+def _bayes_of(path):
+    return os.path.splitext(os.path.basename(path))[0].split("_")[1]
+
+
 @pytest.mark.parametrize("path", _configs("bo"), ids=os.path.basename)
 def test_cli_config_gives_jax_bo_arguments(path, monkeypatch):
     got = {}
     for mod, key in ((tcli, "t"), (jcli, "j")):
         monkeypatch.setattr(mod, "bo", lambda key=key, **kw:
                             got.__setitem__(key, kw))
-        mod.main(["--task", _task_of(path), "--bayes", "mfvi", "--config",
-                  path, "--num-iter", "200", "--rounds", "2", "--no-plot",
-                  "--metrics-every", "10", "--screen-iters", "100"])
+        mod.main(["--task", _task_of(path), "--bayes", _bayes_of(path),
+                  "--config", path, "--num-iter", "200", "--rounds", "2",
+                  "--no-plot", "--metrics-every", "10", "--screen-iters",
+                  "100"])
     assert got["t"] == got["j"]
     assert got["t"]["run_params"]["num_iter"] == 200
     assert got["t"]["n_rounds"] == 2 and got["t"]["plot"] is False
@@ -313,8 +320,8 @@ def test_eval_cli_config_gives_jax_arguments(path, monkeypatch):
     for mod, key in ((teval, "t"), (jeval, "j")):
         monkeypatch.setattr(mod, "evaluate_candidates",
                             lambda *a, key=key: got.__setitem__(key, a))
-        mod.main(["--task", _task_of(path), "--bayes", "mfvi", "--config",
-                  path, "--num-iter", "200", "--no-save"])
+        mod.main(["--task", _task_of(path), "--bayes", _bayes_of(path),
+                  "--config", path, "--num-iter", "200", "--no-save"])
     assert got["t"] == got["j"]
     assert got["t"][3]["num_iter"] == 200
     assert got["t"][3]["save"] is False and got["t"][3]["plot"] is False
@@ -330,8 +337,9 @@ def small(monkeypatch):
             D.synthetic_xray(i, SIZE), (SIZE, SIZE)))
         monkeypatch.setattr(D, "get_img_ct", lambda i, D=D: (
             D.synthetic_ct(i, SIZE), (SIZE, SIZE)))
-    monkeypatch.setattr(TP, "_standard_net", lambda n, input_depth=16:
-                        tbuild(input_depth, n_channels=n, **SMALL_NET))
+    monkeypatch.setattr(TP, "_standard_net", lambda n, m, dp, input_depth=16:
+                        tbuild(input_depth, n_channels=n, **SMALL_NET,
+                               **dropout_kwargs(m, dp)))
 
 
 def test_one_bo_round_of_real_fits_on_cpu(small, tmp_path, capsys):

@@ -34,7 +34,8 @@ import mfvi_dip_mia_tpu_torch.utils.images as TI
 from mfvi_dip_mia_tpu_torch.nn import build_skip_net as tbuild
 from mfvi_dip_mia_tpu_torch.utils import bridge
 
-from torch_port_helpers import SMALL_NET, eps_pair, jax_sample_with_eps
+from torch_port_helpers import SMALL_NET, dropout_kwargs, eps_pair, \
+    jax_sample_with_eps
 
 torch.set_num_threads(1)
 
@@ -59,9 +60,11 @@ def _patch_problems(monkeypatch, size):
         monkeypatch.setattr(D, "get_image_denoising", lambda i, D=D: (
             D.synthetic_xray(i, size), (size, size)))
     monkeypatch.setattr(JP, "_standard_net", lambda n, m, dp, input_depth=16:
-                        jbuild(input_depth, n_channels=n, **SMALL_NET))
-    monkeypatch.setattr(TP, "_standard_net", lambda n, input_depth=16:
-                        tbuild(input_depth, n_channels=n, **SMALL_NET))
+                        jbuild(input_depth, n_channels=n, **SMALL_NET,
+                               **dropout_kwargs(m, dp)))
+    monkeypatch.setattr(TP, "_standard_net", lambda n, m, dp, input_depth=16:
+                        tbuild(input_depth, n_channels=n, **SMALL_NET,
+                               **dropout_kwargs(m, dp)))
 
 
 @pytest.fixture
@@ -234,7 +237,7 @@ def test_host_data_is_bit_equal_to_the_jax_package():
 
 
 def test_unported_combinations_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
         TP.build_problem("sr", "mfvi", 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.build_problem("ct", "sgld", 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+        TP.build_problem("inp", "sgld", 0, device="cpu")

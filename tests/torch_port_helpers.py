@@ -81,6 +81,92 @@ def eps_pair(jax_tree, port_params: tvi.FlatParams, seed=0):
     return np.concatenate(chunks), torch.cat(port)
 
 
+def dropout_kwargs(method, p):
+    """The skip net's dropout keywords of ``method`` (problems.py:166-174):
+    dropout2d on the down and up sites for mcd, none otherwise."""
+    if method != "mcd":
+        return {}
+    return dict(dropout_mode_down="2d", dropout_p_down=p,
+                dropout_mode_up="2d", dropout_p_up=p)
+
+
+class MaskTable:
+    """Fixed dropout2d keep masks, one per dropout call of a forward
+    (``n_sites`` calls), drawn from numpy at the port's first forward (NCHW,
+    (1, C, 1, 1)) in its call order, which the JAX net shares. With
+    ``n_tables`` > 1 forward k takes table k % n_tables (the port's MC
+    samples); a JAX trace reads the table ``jax_dropout2d`` names. The
+    port's ``nn/layers.py::dropout_keep`` is replaced by ``port_keep``, the
+    JAX op sets' ``dropout2d`` by ``jax_dropout2d``."""
+
+    def __init__(self, seed, n_sites, n_tables=1, keep=0.6):
+        self.rng = np.random.default_rng(seed)
+        self.n_sites, self.n_tables, self.keep = n_sites, n_tables, keep
+        self.masks = [[] for _ in range(n_tables)]
+        self.port_calls = 0
+
+    def port_keep(self, shape, keep_prob, generator):
+        forward, site = divmod(self.port_calls, self.n_sites)
+        table = self.masks[forward % self.n_tables]
+        self.port_calls += 1
+        if len(table) == site:
+            table.append(self.rng.uniform(size=tuple(shape)) < self.keep)
+        assert table[site].shape == tuple(shape), (site, shape)
+        return torch.from_numpy(table[site])
+
+    def jax_dropout2d(self, table=0, channels_last=True):
+        calls = [0]
+
+        def dropout2d(x, p, key):
+            keep = self.masks[table][calls[0] % self.n_sites]
+            calls[0] += 1
+            if channels_last:
+                keep = keep.transpose(0, 2, 3, 1)
+            return jnp.where(jnp.asarray(keep), x / (1.0 - p), 0.0)
+
+        return dropout2d
+
+
+def jax_leaf_name(path) -> str:
+    """A jax tree path as the port's leaf name ('levels.0.down1.conv.w')."""
+    return ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
+class NoiseTable:
+    """One fixed standard-normal SGLD parameter noise per conv kernel, keyed
+    by leaf name (HWIO, as the JAX tree holds it), reused every step: the
+    JAX trainer's add_param_noise is replaced by ``jax_add_param_noise``,
+    the port's ``optim/sgld.py::param_noise_eps`` by ``port_eps`` of the
+    port's buffer layout."""
+
+    def __init__(self, jax_tree, seed):
+        rng = np.random.default_rng(seed)
+        self.by_name = {}
+        for path, leaf in jax.tree_util.tree_flatten_with_path(jax_tree)[0]:
+            if np.ndim(leaf) == 4:
+                self.by_name[jax_leaf_name(path)] = rng.standard_normal(
+                    np.shape(leaf)).astype(np.float32)
+
+    def jax_add_param_noise(self, params, key, sigma, lr):
+        def add(path, p):
+            if p.ndim != 4:
+                return p
+            eps = jnp.asarray(self.by_name[jax_leaf_name(path)])
+            return p + eps * sigma * lr
+        return jax.tree_util.tree_map_with_path(add, params)
+
+    def port_eps(self, port_params: tvi.FlatParams):
+        eps = torch.cat([bridge.leaf_from_jax(n, self.by_name[n]).reshape(-1)
+                         for n, s in zip(port_params.names,
+                                         port_params.shapes) if len(s) == 4])
+
+        def param_noise_eps(n, generator):
+            assert n == eps.numel()
+            return eps
+        return param_noise_eps
+
+
 def rel(got, ref):
     """max |got - ref| over max |ref|."""
     return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
