@@ -25,6 +25,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the dense bf16-matrix Radon forward and adjoint at 256^2 / 45 angles and
    on two odd random matrices, at 1 and 3 image columns, each launched
    for the same bits (40 times at 256^2, twice on the odd matrices).
+   Besides, at every site shape of phase 8's nets (sr: the 5-scale net on
+   384^2 with input depth 32; inp: the 6-scale k5 / k3 net and the mcd
+   skip-0 net on 256^2): the conv, its dx and dw in f32 and bf16 (k5 as
+   it is at stride 1, as k3 parity planes at stride 2), the four fused
+   kernels at the sr net's 20 fused sites and the inp net's 6, and the
+   LRT double conv, with the same tolerances.
 3. One f32 CT, one f32 den and one f32 LRT den loss and gradient through
    the 256^2 nets on the card against the CPU's plain path. Then the paths,
    each a fit on the card, where every iteration is a replay of the step's
@@ -88,6 +94,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (one round, 200 iterations, every candidate kept) and ``eval_cli.main``
    on configs/test_mcd_ct.json and configs/test_dip_den.json (200
    iterations). ``--profile-steps`` also profiles mcd den and sgld den.
+8. (run after 7, before 6's timing) The sr and inp tasks under the four
+   methods, full width: sr (configs/test_{method}_sr.json: img 1, the
+   384^2 synthetic MRI, its 96^2 low-resolution image by a x1/4 resize,
+   the 5-scale skip net with input depth 32; mcd re-draws its convs from
+   N(0, 0.1)) and inp (img 1, the 256^2 synthetic skin with its hair mask,
+   the 6-scale no-skip k5 / k3 net, or for mcd the 5-scale skip-0 net),
+   f32, seed 1, each with its test config's candidate and lr, through
+   ``fit``: a 300-iteration graph fit (it/s over the last 200, every
+   iteration a replay, the final smoothed PSNR above iteration 0's, the
+   launches per step exactly ``STEP_LAUNCHES``, as PERF.md predicts), then
+   two 60-iteration graph fits and an eager one with equal bits; inp/mfvi
+   under ``reparam="lrt"`` (its k5 sites on ``lrt_conv_fwd``), a graph fit
+   and an eager one of 60 iterations with equal bits. The MC summaries of
+   the sr and inp mfvi fits (twice, equal bits). ``run_sr_mcd`` and
+   ``run_inp_mfvi`` (101 iterations; save.npz with the task's keys and
+   the MC summary's), ``cli.main`` on configs/bo_mfvi_sr.json and
+   configs/bo_mfvi_inp.json (one round of 4 candidates, 200 iterations a
+   fit, plots off). Last, the profiler's device time of the kernels at
+   the nets' new shapes (the inp k5 sites, the sr net's 384^2 sites, the
+   LRT k5 sites) beside cuDNN's. ``--profile-steps`` also profiles sr/mfvi
+   and inp/mfvi as graph replays.
 6. Each kernel's time at the paths' shapes beside its bound, its plain
    version's time and one PyTorch library call's time (cuDNN / cuBLAS, TF32
    off; timed here only, never called by the port), printed as one JSON
@@ -100,6 +127,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    The dense Radon pair also gives the GB/s of A and the share of the bytes
    bound of the kernel and of cuBLAS. With ``--profile-steps``, each path's
    fit is profiled as graph replays (from the first replay on) and eagerly.
+   ``launches_by_path`` adds "sr" and "inp": the launches of phase 8's
+   four sr fits and of its four inp fits and the LRT inp fit.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -551,7 +580,7 @@ def check_radon_kernels(results: dict) -> dict:
 
 def fused_sites(net, size: int) -> list[dict]:
     """Every site of ``net`` on a size^2 f32 input that runs as the fused
-    block (nn/skip.py: stride 1, k in {1, 3}): (Ci, Co, H, W, k), and
+    block (nn/skip.py: stride 1, k in {1, 3}, no dropout): (Ci, Co, H, W, k), and
     whether the backward needs its dx (level 0's skip reads the input z)."""
     sites = []
     for i, cfg in enumerate(net.levels):
@@ -559,7 +588,8 @@ def fused_sites(net, size: int) -> list[dict]:
         for name, site, s_in in (("skip", cfg.skip_conv, s),
                                  ("down2", cfg.down2, s // 2),
                                  ("up", cfg.up, s), ("up1x1", cfg.up1x1, s)):
-            if site is None or site.stride != 1 or site.kernel not in (1, 3):
+            if (site is None or site.stride != 1 or site.kernel not in (1, 3)
+                    or site.dropout_mode != "None"):
                 continue
             sites.append(dict(name=f"levels.{i}.{name}", ci=site.c_in,
                               co=site.c_out, h=s_in, w=s_in, k=site.kernel,
@@ -651,6 +681,7 @@ def check_fused_kernels(sites, results: dict) -> None:
         f"{len(sites)} fused sites and {len(EXTRA_FUSED_SHAPES)} odd shapes, "
         f"the dc also at {len(DC_WIDE_SHAPES)} shape(s) of 512^2")
     worst = {}
+    mu_f64 = {"kernel": 0.0, "plain": 0.0}
     for shape, s in shapes.items():
         xp, wk, gamma, beta, g = fused_operands(s, gen)
         k = s["k"]
@@ -674,6 +705,14 @@ def check_fused_kernels(sites, results: dict) -> None:
             if not torch.equal(first, second):
                 raise AssertionError(f"{kname} at {shape}: two calls gave "
                                      "different bits")
+        # both batch means against the float64 conv's: the kernel's error
+        # beside the plain version's own
+        mu64 = torch.nn.functional.conv2d(xp[None].double(), wk.double())[
+            0].mean(dim=(1, 2))
+        for who, mu in (("kernel", stats[:, 0]), ("plain", stats_p[:, 0])):
+            r64 = float((mu.double() - mu64).abs().max()
+                        / mu64.abs().max())
+            mu_f64[who] = max(mu_f64[who], r64)
         checks = [
             ("fused_block_fwd", "out", out, out_p),
             ("fused_block_fwd", "mu", stats[:, 0], stats_p[:, 0]),
@@ -697,6 +736,9 @@ def check_fused_kernels(sites, results: dict) -> None:
         res = results.setdefault(kname, {})
         res["max_abs_err_f32"] = max(res.get("max_abs_err_f32", 0.0), a)
         res.setdefault("errors", {})[what] = dict(max_abs_err=a, rel=r)
+    log(f"    fused_block_fwd mu against the float64 conv's mean, worst rel: "
+        f"kernel {mu_f64['kernel']:.3e}, plain {mu_f64['plain']:.3e}")
+    results["fused_block_fwd"]["mu_rel_err_vs_f64"] = mu_f64
 
 
 def lrt_operands(site: dict, dtype, gen):
@@ -2315,6 +2357,479 @@ def profile_methods(steps: int, fits: dict) -> dict:
     return out
 
 
+# -- phase 8: the sr and inp tasks under the four methods ----------------------
+
+def sr_inp_nets() -> dict:
+    """The full-width nets of phase 8: "sr" the 5-scale skip-4 net with
+    input depth 32 and 2 outputs (configs/test_*_sr.json), "inp" the
+    6-scale no-skip k5 / k3 net with 4 outputs, "inp mcd" the 5-scale
+    skip-0 net with dropout (tasks/problems.py)."""
+    from mfvi_dip_mia_tpu_torch.nn import build_skip_net
+    from mfvi_dip_mia_tpu_torch.nn.skip import SkipNet
+    widths = [16, 32, 64, 128, 128]
+    return {
+        "sr": build_skip_net(32, n_channels=2, pad="reflection",
+                             skip_n33d=widths, skip_n33u=widths, skip_n11=4,
+                             num_scales=5, upsample_mode="bilinear"),
+        "inp": SkipNet(
+            num_input_channels=16, num_output_channels=4,
+            num_channels_down=widths + [128], num_channels_up=widths + [128],
+            num_channels_skip=[0] * 6, filter_size_down=5, filter_size_up=3,
+            filter_skip_size=1, need1x1_up=False, upsample_mode="nearest",
+            pad="reflection", need_sigmoid=False),
+        "inp mcd": build_skip_net(
+            16, n_channels=4, pad="reflection", skip_n33d=widths,
+            skip_n33u=widths, skip_n11=0, num_scales=5,
+            upsample_mode="bilinear", dropout_mode_down="2d",
+            dropout_mode_up="2d"),
+    }
+
+
+SR_INP_PAIRS = tuple((task, name) for task in ("sr", "inp")
+                     for name in ("dip", "mfvi", "mcd", "sgld"))
+SR_INP_ITERS = 300            # each pair's timed graph fit: 100 warm + 200
+SR_INP_SHOW = 100
+SR_INP_BITS_ITERS = 60        # the two graph fits and the eager one held
+SR_INP_BITS_SHOW = 20         # equal bit for bit; the eager it/s over 40
+SR_INP_RUNNER_ITERS = 100     # run_sr_mcd / run_inp_mfvi
+SR_INP_CLI_ITERS = 200        # the bo_mfvi_sr / bo_mfvi_inp rounds' fits
+SR_KEYS = {"mse_gt", "recons", "uncerts", "uncerts_ale", "psnrs", "ssims",
+           "img_hr", "img_lr", "mse_noisy"} | MC_KEYS
+INP_KEYS = {"mse_gt", "recons", "uncerts", "uncerts_ale", "psnrs", "ssims",
+            "img_inpainting", "img_mask", "mse_corrupted"} | MC_KEYS
+# Launches per step of each phase-8 fit, predicted from the nets (PERF.md
+# §6): the 5-scale skip net (sr; den's counts) fuses its 20 stride-1 sites
+# and runs the 5 stride-2 down1 sites and the output conv on the conv kernel
+# (6 forwards, 5 dx, 6 dw); under mcd only its 5 skip sites fuse. The
+# 6-scale inp net fuses its 6 k3 up sites and runs 6 k5 down1 sites (as k3
+# parity planes), 6 k5 down2 sites and the output conv on the conv kernel
+# (13 forwards, 12 dx, 13 dw); inp mcd's net has dropout at every site and
+# fuses none (21 sites, 20 dx). Under LRT every one of the 6-scale net's 19
+# sites is one lrt_conv_fwd launch, its backward two dx (18 sites) and two
+# dw per site on the conv kernels.
+_FUSED = ("fused_block_fwd", "fused_block_bwd_dc", "fused_block_bwd_dw",
+          "fused_block_bwd_dx")
+STEP_LAUNCHES = {
+    "5-scale": dict(cf_conv_fwd=11, cf_conv_dw=6,
+                    **dict(zip(_FUSED, (20, 20, 20, 19)))),
+    "5-scale mcd": dict(cf_conv_fwd=41, cf_conv_dw=21,
+                        **dict(zip(_FUSED, (5, 5, 5, 4)))),
+    "6-scale": dict(cf_conv_fwd=25, cf_conv_dw=13,
+                    **dict(zip(_FUSED, (6, 6, 6, 6)))),
+    "5-scale skip-0 mcd": dict(cf_conv_fwd=41, cf_conv_dw=21),
+    "6-scale LRT": dict(lrt_conv_fwd=19, cf_conv_fwd=36, cf_conv_dw=38),
+}
+
+
+def net_of(task: str, name: str) -> str:
+    if task == "sr":
+        return "5-scale mcd" if name == "mcd" else "5-scale"
+    return "5-scale skip-0 mcd" if name == "mcd" else "6-scale"
+
+
+def run_params_of(task: str, name: str) -> dict:
+    from mfvi_dip_mia_tpu_torch.utils.config import load_config
+    return load_config(os.path.join(REPO, "configs",
+                                    f"test_{name}_{task}.json")).run_params
+
+
+def hold_step_launches(label: str, launches: dict, steps: int,
+                       expected: dict) -> dict:
+    """Each kernel's launches per step equal to ``expected`` (0 where it is
+    not named); returns the launches per step."""
+    per_step = {k: n / steps for k, n in launches.items()}
+    wrong = {k: v for k, v in per_step.items() if v != expected.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"{label}: launches per step {wrong}, predicted "
+                             f"{ {k: expected.get(k, 0) for k in wrong} }")
+    return per_step
+
+
+def sr_inp_problem(task: str, name: str, method):
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    rp = run_params_of(task, name)
+    return P.build_problem(task, name, rp["img"],
+                           input_depth=rp["input_depth"],
+                           dropout_p=method.dropout_p, device=DEVICE)
+
+
+def sr_inp_fits() -> dict:
+    """Each (task, method) pair of SR_INP_PAIRS at full size (sr: 384^2 ->
+    96^2, input depth 32; inp: 256^2 RGB with its mask), f32, seed 1, with
+    configs/test_{method}_{task}.json's candidate, lr, img and input depth,
+    through ``fit`` on the card: a graph fit of SR_INP_ITERS iterations
+    (it/s over the last 200; every iteration a replay; its final smoothed
+    PSNR finite and above iteration 0's; the launches per step exactly
+    STEP_LAUNCHES of its net); then two graph fits and one eager fit of
+    SR_INP_BITS_ITERS iterations with equal bits in every metric row and
+    final parameter. Last, inp/mfvi under ``reparam="lrt"`` (the k5 sites
+    on lrt_conv_fwd): one graph fit and one eager fit of SR_INP_BITS_ITERS
+    iterations, equal bits, the LRT launches per step."""
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import fit
+
+    out = {}
+    for task, name in SR_INP_PAIRS:
+        label = f"{task}/{name}"
+        method, lr, _ = method_of(task, name)
+        problem = sr_inp_problem(task, name, method)
+        kw = dict(lr=lr, seed=1, metrics_every=1, compute_dtype="f32",
+                  collect_snapshots=False, device=DEVICE)
+        kernels.reset_launches()
+        res = fit(problem, method, num_iter=SR_INP_ITERS - 1,
+                  show_every=SR_INP_SHOW, **kw)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        bits = dict(num_iter=SR_INP_BITS_ITERS - 1,
+                    show_every=SR_INP_BITS_SHOW, **kw)
+        a, b = (fit(problem, method, **bits) for _ in range(2))
+        eager = fit(problem, method, eager=True, **bits)
+        equal, vs_eager = same_bits(a, b), same_bits(a, eager)
+        h, w = problem.imsize
+        log(f"[8] {label} f32 {h}x{w}, {net_of(task, name)} net, input "
+            f"depth {problem.input_depth} (lr {lr}, {method}): graph "
+            f"{res.iters_per_sec:.2f} it/s over the last "
+            f"{SR_INP_ITERS - SR_INP_SHOW}, eager {eager.iters_per_sec:.2f} "
+            f"it/s over {SR_INP_BITS_ITERS - SR_INP_BITS_SHOW}; final "
+            f"smoothed PSNR {res.final_psnr:.3f} dB (iteration 0: "
+            f"{res.psnrs[0, 2]:.3f}); two {SR_INP_BITS_ITERS}-iteration "
+            "graph fits " + ("equal" if equal else "DIFFER")
+            + ", graph against eager " + ("equal" if vs_eager else "DIFFER"))
+        per_step = hold_step_launches(f"{label}'s fit", launches,
+                                      steps_run(res),
+                                      STEP_LAUNCHES[net_of(task, name)])
+        log(f"    launches per step {per_step} (as predicted)")
+        hold_replays(f"{label}'s fit", res)
+        for r in (a, b):
+            hold_replays(f"{label}'s bit-equality fit", r)
+        if eager.replays:
+            raise AssertionError("an eager fit replayed a graph")
+        if not (np.isfinite(res.final_psnr)
+                and res.final_psnr > res.psnrs[0, 2]):
+            raise AssertionError(f"{label}'s fit did not improve on "
+                                 "iteration 0")
+        if not (equal and vs_eager):
+            raise AssertionError(f"{label}: fits at one seed gave different "
+                                 "bits")
+        out[label] = dict(iters_per_sec=res.iters_per_sec,
+                          eager_iters_per_sec=eager.iters_per_sec,
+                          final_psnr=res.final_psnr,
+                          psnr_it0=float(res.psnrs[0, 2]),
+                          executed=res.executed, steps_run=steps_run(res),
+                          launches=launches, launches_per_step=per_step,
+                          graph_fits_equal=equal, graph_equals_eager=vs_eager,
+                          result=res, problem=problem)
+
+    # inp under LRT: the k5 down2 sites on lrt_conv_fwd
+    method, lr, _ = method_of("inp", "mfvi")
+    problem = sr_inp_problem("inp", "mfvi", method)
+    kw = dict(num_iter=SR_INP_BITS_ITERS - 1, show_every=SR_INP_BITS_SHOW,
+              lr=lr, seed=1, metrics_every=1, compute_dtype="f32",
+              collect_snapshots=False, device=DEVICE, reparam="lrt")
+    kernels.reset_launches()
+    res = fit(problem, method, **kw)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    eager = fit(problem, method, eager=True, **kw)
+    vs_eager = same_bits(res, eager)
+    per_step = hold_step_launches("inp/mfvi LRT fit", launches,
+                                  steps_run(res), STEP_LAUNCHES["6-scale LRT"])
+    hold_replays("inp/mfvi LRT fit", res)
+    log(f"[8] inp/mfvi LRT f32 256x256: graph {res.iters_per_sec:.2f} it/s, "
+        f"eager {eager.iters_per_sec:.2f} it/s over the last "
+        f"{SR_INP_BITS_ITERS - SR_INP_BITS_SHOW}; final smoothed PSNR "
+        f"{res.final_psnr:.3f} dB (iteration 0: {res.psnrs[0, 2]:.3f}); "
+        "graph against eager " + ("equal" if vs_eager else "DIFFER")
+        + f"; launches per step {per_step} (as predicted)")
+    if not (vs_eager and np.isfinite(res.final_psnr)):
+        raise AssertionError("inp/mfvi LRT: the graph fit is not the eager "
+                             "fit's bits, or its PSNR is not finite")
+    out["inp/mfvi lrt"] = dict(iters_per_sec=res.iters_per_sec,
+                               eager_iters_per_sec=eager.iters_per_sec,
+                               final_psnr=res.final_psnr,
+                               psnr_it0=float(res.psnrs[0, 2]),
+                               executed=res.executed,
+                               steps_run=steps_run(res), launches=launches,
+                               launches_per_step=per_step,
+                               graph_equals_eager=vs_eager)
+    return out
+
+
+def sr_inp_mc(fits: dict) -> dict:
+    """The runner's 25-sample MC summary (runners.py::mc_summary) of the sr
+    and inp mfvi fits' final parameters on the card, twice from one seed:
+    equal bits, the maps' shapes (inp: 3 mean channels, one aleatoric), a
+    finite mean PSNR, and the forward kernels only."""
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.tasks.runners import mc_summary
+
+    out = {}
+    for task in ("sr", "inp"):
+        f = fits[f"{task}/mfvi"]
+        res, problem = f["result"], f["problem"]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        a = mc_summary(problem, res.params, res.net_input, 78)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        b = mc_summary(problem, res.params, res.net_input, 78)
+        equal = all(np.array_equal(a[k], b[k]) for k in a)
+        h, w = problem.imsize
+        mc = problem.mean_ch
+        shapes = {k: np.shape(a[k]) for k in ("mc_mean_recon", "mc_epi",
+                                              "mc_ale")}
+        log(f"[8] {task}/mfvi MC summary ({MC_SAMPLES} samples): "
+            f"{wall:.2f} s, mean PSNR {a['mc_mean_psnr']:.3f} dB, SSIM "
+            f"{a['mc_mean_ssim']:.4f}, shapes {shapes}; two calls "
+            + ("equal" if equal else "DIFFER") + f"; launches {launches}")
+        hold_launches(f"{task}'s MC summary", launches,
+                      {"cf_conv_fwd", "fused_block_fwd"})
+        if not (equal and np.isfinite(a["mc_mean_psnr"])
+                and shapes == {"mc_mean_recon": (mc, h, w),
+                               "mc_epi": (mc, h, w), "mc_ale": (1, h, w)}):
+            raise AssertionError(f"{task}'s MC summary failed its checks")
+        out[task] = dict(seconds=wall, mc_mean_psnr=a["mc_mean_psnr"],
+                         mc_mean_ssim=a["mc_mean_ssim"], equal=equal,
+                         launches=launches)
+    return out
+
+
+def sr_inp_runners(tmp: str) -> dict:
+    """run_sr_mcd and run_inp_mfvi, SR_INP_RUNNER_ITERS iterations each with
+    its test config's candidate, lr, img and input depth, plots off: a
+    finite final PSNR and a save.npz of the task's keys (and the MC
+    summary's), all finite."""
+    import glob
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.tasks.runners as R
+
+    out = {}
+    for task, name, keys in (("sr", "mcd", SR_KEYS), ("inp", "mfvi",
+                                                      INP_KEYS)):
+        _, lr, cand = method_of(task, name)
+        rp = run_params_of(task, name)
+        save = os.path.join(tmp, f"run_{task}_{name}")
+        t0 = time.perf_counter()
+        psnr = R.ALL_RUNNERS[f"run_{task}_{name}"](
+            device=DEVICE, img=rp["img"], num_iter=SR_INP_RUNNER_ITERS,
+            lr=lr, seed=1, input_depth=rp["input_depth"],
+            show_every=SR_INP_RUNNER_ITERS // 2, plot=False, save=True,
+            save_path=save, **cand)
+        wall = time.perf_counter() - t0
+        (path,) = glob.glob(os.path.join(save, "*", "save.npz"))
+        z = np.load(path, allow_pickle=True)
+        arrays = {k: z[k].item() if z[k].dtype == object else z[k]
+                  for k in z.files}
+        finite = all(np.isfinite(np.asarray(a, np.float64)).all()
+                     for v in arrays.values()
+                     for a in (v.values() if isinstance(v, dict) else [v]))
+        log(f"[8] run_{task}_{name} ({SR_INP_RUNNER_ITERS + 1} it, {cand}): "
+            f"{wall:.1f} s, final PSNR {psnr:.3f} dB, save.npz keys "
+            f"{sorted(arrays)}")
+        if set(arrays) != keys or not finite or not np.isfinite(psnr):
+            raise AssertionError(f"run_{task}_{name} failed its checks")
+        out[f"run_{task}_{name}"] = dict(seconds=wall, final_psnr=psnr,
+                                         keys=sorted(arrays))
+    return out
+
+
+def sr_inp_clis(tmp: str) -> dict:
+    """``cli.main`` on copies of configs/bo_mfvi_sr.json and
+    configs/bo_mfvi_inp.json: one round of each one's 2 x 2 temp / sigma
+    candidates, SR_INP_CLI_ITERS iterations a fit, plots off, paths in
+    ``tmp``: every candidate kept with a finite PSNR, and the round's
+    launches."""
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch import cli
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+
+    out = {}
+    for task, long in (("sr", "super-resolution"), ("inp", "inpainting")):
+        cfg = f"bo_mfvi_{task}.json"
+        with open(os.path.join(REPO, "configs", cfg)) as f:
+            raw = json.load(f)
+        raw["run_params"].update(
+            plot=False, save_path=os.path.join(tmp, f"cli_logs_{task}"),
+            bo_results_path=os.path.join(tmp, f"cli_bo_{task}"))
+        path = os.path.join(tmp, cfg)
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        X, Y = cli.main(["--task", long, "--bayes", "mfvi", "--num-iter",
+                         str(SR_INP_CLI_ITERS), "--rounds", "1", "--no-plot",
+                         "--config", path])
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        log(f"[8] cli.main (1 round of {cfg}, {SR_INP_CLI_ITERS} it): "
+            f"{wall:.1f} s, X {[tuple(map(float, x)) for x in X]}, Y "
+            f"{[float(y) for y in Y]}; launches {launches}")
+        if len(Y) != 4 or not np.isfinite(Y).all():
+            raise AssertionError(f"the {cfg} round did not keep all four "
+                                 "candidates")
+        out[f"bo_mfvi_{task}"] = dict(seconds=wall, Y=[float(y) for y in Y],
+                                      launches=launches)
+    return out
+
+
+def sr_inp_site_times(nets: dict) -> dict:
+    """The profiler's device time of one step's calls of each kernel at the
+    sr and inp nets' own shapes, beside the same calls through cuDNN (TF32
+    off): cf_conv_fwd (forward and dx) and cf_conv_dw at the 6-scale inp
+    net's k5 sites (down1 as k3 parity planes, down2 as k5) and at the
+    5-scale sr net's unfused sites (384^2, input depth 32), the four fused
+    kernels at the sr net's 20 fused sites (the forward against the cuDNN
+    conv + batch_norm + leaky_relu chain, the dc against leaky_relu_backward
+    + native_batch_norm_backward), and lrt_conv_fwd at the inp net's 19
+    sites (against two cuDNN convs). f32, as the fits run."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
+    from mfvi_dip_mia_tpu_torch.ops.kernels import lrt_conv as tlrt
+
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    f32 = torch.float32
+    out = {}
+
+    def pair(label, kern, lib):
+        k_ms = device_ms(lambda: [f() for f in kern])
+        l_ms = device_ms(lambda: [f() for f in lib])
+        out[label] = dict(calls=len(kern), device_ms=k_ms,
+                          library_device_ms=l_ms)
+        log(f"[8] {label}: {len(kern)} calls, device {k_ms:.4f} ms, "
+            f"library {l_ms:.4f} ms")
+
+    inp_k5 = [s for s in conv_sites(nets["inp"], 256)
+              if s["name"].endswith(("down1", "down2"))]
+    sr_unfused = [s for s in conv_sites(nets["sr"], 384)
+                  if s["name"].endswith("down1") or s["name"] == "out"]
+    for label, group in (("inp k5 sites", inp_k5),
+                         ("sr unfused sites", sr_unfused)):
+        fwd, fwd_l, dw, dw_l, plans = [], [], [], [], []
+        for s in group:
+            xp, w, g = conv_operands(s, f32, gen)
+            k = w.shape[2]
+            fwd.append(lambda xp=xp, w=w: tcf.conv_valid_fwd(xp, w))
+            fwd_l.append(lambda xp=xp, w=w: F.conv2d(xp[None], w))
+            if s["needs_dx"]:
+                fwd.append(lambda g=g, w=w: tcf.conv_dx(g, w))
+                fwd_l.append(lambda xp=xp, g=g, w=w: conv2d_input(
+                    (1,) + tuple(xp.shape), w, g[None]))
+            dw.append(lambda xp=xp, g=g, k=k: tcf.conv_dw(xp, g, k, k))
+            dw_l.append(lambda xp=xp, g=g, w=w: conv2d_weight(
+                xp[None], w.shape, g[None]))
+            p = tcf.tile_plan(g.shape[1], g.shape[2], w.shape[0], w.shape[1],
+                              f32, k)
+            plans.append((s["name"], list(s["xp"]), list(s["w"]),
+                          tcf.TILES[p.tile], p.split))
+        pair(f"cf_conv_fwd (fwd + dx), {label}", fwd, fwd_l)
+        pair(f"cf_conv_dw, {label}", dw, dw_l)
+        out[f"plans, {label}"] = plans
+
+    kern = {n: [] for n in _FUSED}
+    lib = {n: [] for n in _FUSED}
+    for s in fused_sites(nets["sr"], 384):
+        xp, wk, gamma, beta, g = fused_operands(s, gen)
+        k = s["k"]
+        o, stats = tfb.fwd_plain(xp, wk, gamma, beta)
+        dc = tfb.bwd_dc_plain(g, o, stats, gamma, beta)[0]
+        conv = F.conv2d(xp[None], wk)
+        mu, inv = stats[:, 0].contiguous(), stats[:, 1].contiguous()
+        kern["fused_block_fwd"].append(
+            lambda xp=xp, wk=wk, ga=gamma, be=beta: tfb.fwd(xp, wk, ga, be))
+        lib["fused_block_fwd"].append(
+            lambda xp=xp, wk=wk, ga=gamma, be=beta: F.leaky_relu(
+                F.batch_norm(F.conv2d(xp[None], wk), None, None, ga, be,
+                             training=True), 0.2))
+        kern["fused_block_bwd_dc"].append(
+            lambda g=g, o=o, st=stats, ga=gamma, be=beta: tfb.bwd_dc(
+                g, o, st, ga, be))
+        lib["fused_block_bwd_dc"].append(
+            lambda g=g, o=o, conv=conv, ga=gamma, mu=mu, inv=inv:
+            torch.ops.aten.native_batch_norm_backward(
+                torch.ops.aten.leaky_relu_backward(g[None], o[None],
+                                                   tfb.SLOPE, True),
+                conv, ga, None, None, mu, inv, True, tfb.EPS,
+                [True, True, True]))
+        kern["fused_block_bwd_dw"].append(
+            lambda dc=dc, xp=xp, k=k: tfb.bwd_dw(dc, xp, k))
+        lib["fused_block_bwd_dw"].append(
+            lambda dc=dc, xp=xp, wk=wk: conv2d_weight(xp[None], wk.shape,
+                                                      dc[None]))
+        if s["needs_dx"]:
+            kern["fused_block_bwd_dx"].append(
+                lambda dc=dc, wk=wk: tfb.bwd_dx(dc, wk))
+            lib["fused_block_bwd_dx"].append(
+                lambda dc=dc, wk=wk, xp=xp: conv2d_input(
+                    (1,) + tuple(xp.shape), wk, dc[None]))
+    for n in _FUSED:
+        pair(f"{n}, sr fused sites", kern[n], lib[n])
+
+    kern, lib = [], []
+    for s in conv_sites(nets["inp"], 256):
+        xp, w_mu, w_var, _ = lrt_operands(s, f32, gen)
+        xp2 = xp * xp
+        kern.append(lambda xp=xp, a=w_mu, b=w_var: tlrt.double_conv_fwd(
+            xp, a, b))
+        lib.append(lambda xp=xp, xp2=xp2, a=w_mu, b=w_var: (
+            F.conv2d(xp[None], a), F.conv2d(xp2[None], b)))
+    pair("lrt_conv_fwd, inp sites", kern, lib)
+    return out
+
+
+def sr_inp_phase(nets: dict) -> dict:
+    """Phase 8: the eight pairs' fits and inp's LRT fit, the MC summaries,
+    two runners, the two CLI rounds and the kernels' device times at the
+    nets' shapes; everything written goes to a temporary directory, removed
+    after. Returns the phase's results, with "sr" and "inp" the launches of
+    their paths (the four pairs' SR_INP_ITERS-iteration fits; inp also its
+    LRT fit)."""
+    import shutil
+    import tempfile
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    fits = sr_inp_fits()
+    out = {"fits": fits, "mc": sr_inp_mc(fits)}
+    for task in ("sr", "inp"):
+        labels = [k for k in fits if k.startswith(f"{task}/")]
+        out[task] = dict(launches={k.name: sum(fits[lb]["launches"][k.name]
+                                               for lb in labels)
+                                   for k in kernels.KERNELS},
+                         launches_per_step={
+                             lb: fits[lb]["launches_per_step"]
+                             for lb in labels})
+    for f in fits.values():
+        f.pop("result", None)
+        f.pop("problem", None)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sr_inp_")
+    try:
+        out["runners"] = sr_inp_runners(tmp)
+        out["clis"] = sr_inp_clis(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["times"] = sr_inp_site_times(nets)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[8] phase 8 took {out['seconds']:.1f} s")
+    return out
+
+
+def profile_sr_inp(steps: int, fits: dict) -> dict:
+    """sr/mfvi and inp/mfvi (phase 8's configurations) profiled as graph
+    replays, each beside its own unprofiled it/s from phase 8."""
+    out = {}
+    for task in ("sr", "inp"):
+        method, lr, _ = method_of(task, "mfvi")
+        problem = sr_inp_problem(task, "mfvi", method)
+        out[f"{task}/mfvi"] = profile_fit(
+            f"{task}/mfvi", problem, method,
+            dict(lr=lr, seed=1, metrics_every=1, compute_dtype="f32",
+                 collect_snapshots=False),
+            steps, {"graph": 1e3 / fits[f"{task}/mfvi"]["iters_per_sec"]})
+    return out
+
+
 # -- phase 6: times beside bounds -----------------------------------------
 
 def time_conv_kernels(sites, results: dict) -> None:
@@ -2796,13 +3311,21 @@ def main(argv=None) -> int:
     # every LRT site of the den net, as the kernel sees it (stride-2 sites
     # on parity planes): the conv sites' geometry
     l_sites = conv_sites(nets[2], SIZE)
+    # phase 8's nets: sr's 5-scale net on 384^2 with input depth 32, inp's
+    # 6-scale k5 / k3 net and its mcd net (skip 0, dropout) on 256^2
+    p8_nets = sr_inp_nets()
+    p8_conv = (conv_sites(p8_nets["sr"], 384) + conv_sites(p8_nets["inp"], 256)
+               + conv_sites(p8_nets["inp mcd"], 256))
+    p8_fused = (fused_sites(p8_nets["sr"], 384)
+                + fused_sites(p8_nets["inp"], 256))
     # the dw runs at every conv site of the CT net (bf16), of the den net
     # (f32, the non-fused sites) and of path A (f32, 2 per site): every
-    # distinct shape of both nets, in both dtypes
-    check_conv_kernels(sites + l_sites, results)
+    # distinct shape of both nets, in both dtypes; and at every site of the
+    # sr and inp nets
+    check_conv_kernels(sites + l_sites + p8_conv, results)
     states = check_radon_kernels(results)
-    check_fused_kernels(f_sites, results)
-    check_lrt_kernel(l_sites, results)
+    check_fused_kernels(f_sites + p8_fused, results)
+    check_lrt_kernel(l_sites + p8_conv, results)
     dense = check_dense_radon(results)
 
     steps = {label: check_step_against_cpu(nets[n_out], task, reparam)
@@ -2821,6 +3344,8 @@ def main(argv=None) -> int:
     fits["sweep"] = sweep_phase()
     fits["bo_ct"] = fits["sweep"]["bo_ct"]
     fits["methods"] = methods_phase()
+    fits["sr_inp"] = sr_inp_phase(p8_nets)
+    fits["sr"], fits["inp"] = fits["sr_inp"]["sr"], fits["sr_inp"]["inp"]
 
     time_conv_kernels(sites, results)
     time_radon_kernels(states, dense, results)
@@ -2835,6 +3360,8 @@ def main(argv=None) -> int:
         fits["profile_paths"] = profile_paths(args.profile_steps, fits)
         fits["profile_methods"] = profile_methods(
             args.profile_steps, fits["methods"]["fits"])
+        fits["profile_sr_inp"] = profile_sr_inp(args.profile_steps,
+                                                fits["sr_inp"]["fits"])
 
     line = []
     for k in kernels.KERNELS:
@@ -2852,7 +3379,7 @@ def main(argv=None) -> int:
             launches_per_step=fits[path]["launches_per_step"][k.name],
             launches_by_path={p: fits[p]["launches"][k.name]
                               for p in ("ct", "den", "lrt_den", "dense_ct",
-                                        "bo_ct")},
+                                        "bo_ct", "sr", "inp")},
             max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],

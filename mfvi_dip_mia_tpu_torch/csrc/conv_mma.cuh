@@ -371,7 +371,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 // acc[wi][mf][nf][e]: output channel n0 + warp_n * NF * 8 + nf * 8 + 2t +
 // (e & 1), pixel (y0 + kMF * warp_m + mf, x0 + g + (e >> 1) * 8), with
 // g = lane / 4, t = lane % 4.
-template <typename T, class TL, int NW, bool FULL, class At, class Epi>
+// PROMOTE: each channel chunk's MMAs accumulate from zero and the chunk's
+// sum is added to acc in f32 on the CUDA cores, so no MMA chain runs longer
+// than one chunk's taps. The tensor cores' f32 accumulation drops the bits
+// of each product that fall below the running sum, the same way every time,
+// so a long chain drifts from the exact sum with a sign that the pixels of
+// a channel share; their mean (the fused forward's batch statistic) keeps
+// that drift where the pixels' other errors cancel.
+template <typename T, class TL, int NW, bool FULL, bool PROMOTE = false,
+          class At, class Epi>
 __device__ __forceinline__ void conv_tile_mma_at(
     const T* __restrict__ x, const T* __restrict__ w0,
     const T* __restrict__ w1, int I, int Hs, int Ws, int O, int K, int Hout,
@@ -416,8 +424,20 @@ __device__ __forceinline__ void conv_tile_mma_at(
                                           Ws, O, K, y0, x0, n0, c);
     cp_async_commit();
   }
+  float part[NW][kMF][NF][4];  // PROMOTE: this chunk's MMA sums
+  float (&sum)[NW][kMF][NF][4] = PROMOTE ? part : acc;
   int j = 0;
   for (int c = rank; c < nch; c += split, ++j) {
+    if constexpr (PROMOTE) {
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi)
+#pragma unroll
+        for (int mf = 0; mf < kMF; ++mf)
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[wi][mf][nf][e] = 0.f;
+    }
     const char* cur = smem + (j % ns) * sbytes;
     const int ahead = c + (ns - 1) * split;
     if (ahead < nch)
@@ -455,16 +475,27 @@ __device__ __forceinline__ void conv_tile_mma_at(
             b[wi][2 * p + 1][0] = r[2];
             b[wi][2 * p + 1][1] = r[3];
           }
-        products<T, NF>(acc[0], a, b[0]);
+        products<T, NF>(sum[0], a, b[0]);
         if constexpr (NW == 2) {
           uint32_t a2[kMF][4];
 #pragma unroll
           for (int mf = 0; mf < kMF; ++mf)
 #pragma unroll
             for (int e = 0; e < 4; ++e) a2[mf][e] = square<T>(a[mf][e]);
-          products<T, NF>(acc[1], a2, b[1]);
+          products<T, NF>(sum[1], a2, b[1]);
         }
       }
+    }
+    if constexpr (PROMOTE) {
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi)
+#pragma unroll
+        for (int mf = 0; mf < kMF; ++mf)
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[wi][mf][nf][e] += part[wi][mf][nf][e];
     }
     __syncthreads();
   }

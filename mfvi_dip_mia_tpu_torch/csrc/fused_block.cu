@@ -31,6 +31,9 @@
 //     the tiles), its epilogue storing the tile and summing it per channel
 //     in a fixed order. The deep sites (8^2-32^2) have few tiles, each
 //     walking all of K = Ci * k^2 in order: they take the most time.
+//     Each channel chunk's MMAs start from zero and the chunk's sum is
+//     added in f32 (conv_mma.cuh's PROMOTE): a chain of MMAs over all of K
+//     drifted the deep sites' batch means by ~1e-5 of their largest value.
 //     Passes 2 and 3 walk (channel, 2048-pixel chunk) items: the exact
 //     two-pass biased variance over H*W (not the shifted one-pass moments of
 //     the unfused chain), stats = [mu, inv] per channel, then normalize +
@@ -116,7 +119,7 @@ fused_fwd_mma_kernel(const float* __restrict__ xp,
   // tree (lane g = 0's result), then the tile's WM warp rows in order
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int my = item % m_tiles, nz = item / m_tiles;
-    conv_mma::conv_tile_mma_at<float, TL, 1, false>(
+    conv_mma::conv_tile_mma_at<float, TL, 1, false, true>(
         xp, w, nullptr, I, H + K - 1, W + K - 1, O, K, H, W,
         conv_mma::AtTile{(unsigned)my, (unsigned)nz},
         [&](const float (&acc)[1][conv_mma::kMF][TL::NF][4], int y0, int x0,

@@ -76,7 +76,7 @@ int lrt_conv_fwd(const void* xp, const void* w_mu, const void* w_var, void* act_
                  void* act_var, int dtype, int I, int Hp, int Wp, int O, int K,
                  int tile, int split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K < 1 || K > 3 || split < 1 || split > conv_mma::kMaxSplit)
+  if (K < 1 || K > 5 || split < 1 || split > conv_mma::kMaxSplit)
     return (int)cudaErrorInvalidValue;
   const int chunk = dtype == 0 ? 8 : 16;
   if (split > (I + chunk - 1) / chunk) return (int)cudaErrorInvalidValue;

@@ -1,9 +1,10 @@
 """NCHW building blocks of the skip U-Net (counterpart of
 mfvi_dip_mia_tpu/nn/layers.py and nn/cf.py, which collapse into this one op
 set): train-mode BatchNorm with shifted one-pass moments, LeakyReLU(0.2),
-the x2 upsample through interpolation matrices, and the center-cropping
-concat; reflection padding is the conv site's (ops/kernels/cf_conv.py::
-conv2d_cf). Every function takes batch-first NCHW tensors."""
+the bilinear and nearest resizes (the x2 upsample, the sr operator), and
+the center-cropping concat; reflection padding is the conv site's
+(ops/kernels/cf_conv.py::conv2d_cf). Every function takes batch-first NCHW
+tensors."""
 
 from __future__ import annotations
 
@@ -58,29 +59,73 @@ def _bilinear_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _nearest_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
+    """(out, in) 0/1 matrix with torch's legacy 'nearest' mapping
+    src = floor(dst / scale) (layers.py::_nearest_matrix)."""
+    dst = np.arange(out_size, dtype=np.float64)
+    src = np.minimum((dst / scale).astype(np.int64), in_size - 1)
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    m[np.arange(out_size), src] = 1.0
+    return m
+
+
+_MATRICES = {"bilinear": _bilinear_matrix, "nearest": _nearest_matrix}
+
+
 @device_cache
-def _matrix_on(in_size: int, out_size: int, scale: float, device: str,
-               dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(_bilinear_matrix(in_size, out_size, scale)).to(
+def _matrix_on(mode: str, in_size: int, out_size: int, scale: float,
+               device: str, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(_MATRICES[mode](in_size, out_size, scale)).to(
         device=device, dtype=dtype)
 
 
-def resize_bilinear(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """F.interpolate(x, scale_factor=scale, mode='bilinear',
-    align_corners=False) as two interpolation-matrix products."""
+def _resize_with_matrices(x: torch.Tensor, mode: str, scale: float,
+                          out_hw) -> torch.Tensor:
+    """Two interpolation-matrix products, rows then columns, in true f32
+    (TF32 off for them, as JAX's Precision.HIGHEST): a matrix product has
+    one summation order, so the resize and its backward are deterministic."""
     _, _, h, w = x.shape
-    oh, ow = int(h * scale), int(w * scale)
-    mh = _matrix_on(h, oh, scale, str(x.device), x.dtype)
-    mw = _matrix_on(w, ow, scale, str(x.device), x.dtype)
-    x = torch.einsum("oh,nchw->ncow", mh, x)
-    return torch.einsum("pw,nchw->nchp", mw, x)
+    oh, ow = out_hw if out_hw is not None else (int(h * scale),
+                                                int(w * scale))
+    mh = _matrix_on(mode, h, oh, scale, str(x.device), x.dtype)
+    mw = _matrix_on(mode, w, ow, scale, str(x.device), x.dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x = torch.einsum("oh,nchw->ncow", mh, x)
+        return torch.einsum("pw,nchw->nchp", mw, x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def resize_bilinear(x: torch.Tensor, scale: float,
+                    out_hw: tuple[int, int] | None = None) -> torch.Tensor:
+    """F.interpolate(x, scale_factor=scale, mode='bilinear',
+    align_corners=False, recompute_scale_factor=False), to ``out_hw`` if
+    given."""
+    return _resize_with_matrices(x, "bilinear", scale, out_hw)
+
+
+def resize_nearest(x: torch.Tensor, scale: float,
+                   out_hw: tuple[int, int] | None = None) -> torch.Tensor:
+    """F.interpolate(..., mode='nearest'). x2 to twice the size is the
+    exact out[i] = in[i // 2], as a broadcast and a copy (its backward a
+    plain sum, no scatter); other scales are 0/1-matrix products."""
+    n, c, h, w = x.shape
+    oh, ow = out_hw if out_hw is not None else (int(h * scale),
+                                                int(w * scale))
+    if scale == 2.0 and oh == 2 * h and ow == 2 * w:
+        return x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(
+            n, c, oh, ow)
+    return _resize_with_matrices(x, "nearest", scale, (oh, ow))
 
 
 def upsample2x(x: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "bilinear":
         return resize_bilinear(x, 2.0)
     if mode == "nearest":
-        return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        return resize_nearest(x, 2.0)
     raise ValueError(f"unknown upsample mode {mode!r}")
 
 

@@ -1,5 +1,6 @@
 """The DIP skip-connection encoder-decoder U-Net (counterpart of
-mfvi_dip_mia_tpu/nn/skip.py, 5-scale skip topology), NCHW.
+mfvi_dip_mia_tpu/nn/skip.py: the 5-scale skip topology, and the inpainting
+task's 6-scale no-skip k5 / k3 net with nearest up and no 1x1 up), NCHW.
 
   level i (of n scales), input x with c_i channels:
     skip branch (if skip_ch[i] > 0):  conv1x1 -> BN -> act
@@ -27,8 +28,9 @@ Every stride-1 conv -> BN -> act site on a batch-1 f32 input with k in
 {1, 3} runs as one fused block (ops/kernels/fused_block.py), as JAX routes
 its channels-first sites (skip.py:325-343); JAX's further W % 128 / H % 8 /
 VMEM gate was about the TPU, so at 256^2 the port fuses 20 sites where JAX
-fuses 5. The stride-2 down1 sites, the bn_cat BatchNorms and every bf16 site
-keep the conv kernel + shifted one-pass BN + LeakyReLU chain, and so does
+fuses 5. The stride-2 down1 sites (k5 ones as k3 parity planes), the k5
+stride-1 sites, the bn_cat BatchNorms and every bf16 site keep the conv
+kernel + shifted one-pass BN + LeakyReLU chain, and so does
 every site with dropout (skip.py:322-343): the dropout sits between the conv
 and the BN, so the site keeps its bias and does not fuse. Under mcd only the
 skip sites fuse.

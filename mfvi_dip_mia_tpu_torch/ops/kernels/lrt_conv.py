@@ -11,7 +11,7 @@ forward of a conv site needs two convolutions over the same input patches
 
 One kernel (``csrc/lrt_conv.cu``), ``lrt_conv_fwd``, replaces
 ``_double_conv_fwd``: both VALID stride-1 contractions from one read of the
-padded input, batch 1, square k in {1, 2, 3}, f32 or bf16 storage with f32
+padded input, batch 1, square k in {1, 2, 3, 5}, f32 or bf16 storage with f32
 accumulation, outputs in the input's dtype: the tensor-core implicit GEMM of
 csrc/conv_mma.cuh with a w_mu and a w_var operand (f32 as 3xTF32), on the
 tile and cluster split of K that ``cf_conv.tile_plan`` picks. Bound on the
@@ -26,9 +26,13 @@ reflect(x)^2 == reflect(x^2), so the squared stream needs no pad of its own
 parity planes with the plane kernels of both weights; squaring commutes with
 the plane shuffle and with its zero fill, so every LRT site of the U-Net is
 one launch. JAX keeps its stride-2 sites and the shapes its TPU gate refuses
-(``supported``: H_out % 8, W_out >= 16, W_out % 8, a 48 MB VMEM budget) on
-the block-diagonal XLA conv, the same function; those gates are the TPU's,
-so here every site with k in {1, 3} runs the kernel.
+(``supported``: H_out % 8, W_out >= 16, W_out % 8, a 48 MB VMEM budget) and
+every k = 5 site (lrt_conv_pallas.py:63) on the block-diagonal XLA conv, the
+same function; those gates are the TPU's, so here every site with k in
+{1, 3, 5} runs the kernel (the inpainting net's k5 sites: stride 1 as it
+is, stride 2 as k3 parity planes). At k = 5 a stage holds the 12 x 20 halo'd
+slab and both 5 x 5 weight tiles, 107-110 KB at the 64-wide tiles, so the
+ring is 2 stages, within a block's 227 KB.
 
 Beside the kernel is its plain PyTorch version, ``fused_double_conv`` (the
 counterpart of ``_fused_double_conv`` without its block-diagonal zeros). The
@@ -53,7 +57,7 @@ FWD = build.Kernel(
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_SIZES = (1, 2, 3)
+_KERNEL_SIZES = (1, 2, 3, 5)
 
 
 def _check_shapes(xp: torch.Tensor, w_mu: torch.Tensor,

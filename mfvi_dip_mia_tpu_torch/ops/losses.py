@@ -16,5 +16,15 @@ def gaussian_nll(mu: torch.Tensor, neg_logvar: torch.Tensor,
     return loss.mean() if reduction == "mean" else loss.sum()
 
 
+def gaussian_nll_masked(mu: torch.Tensor, neg_logvar: torch.Tensor,
+                        target: torch.Tensor, mask: torch.Tensor,
+                        reduction: str = "mean") -> torch.Tensor:
+    """The inpainting NLL: gaussian_nll's terms times the mask; the mean is
+    over all pixels, known or not, as the reference takes it."""
+    neg_logvar = torch.clamp(neg_logvar, -20.0, 20.0)
+    loss = (torch.exp(neg_logvar) * (target - mu) ** 2 - neg_logvar) * mask
+    return loss.mean() if reduction == "mean" else loss.sum()
+
+
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - target) ** 2)

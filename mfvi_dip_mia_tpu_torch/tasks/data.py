@@ -1,10 +1,11 @@
 """Task data with deterministic synthetic fallbacks (counterpart of
-mfvi_dip_mia_tpu/tasks/data.py, for the ct and denoising tasks).
+mfvi_dip_mia_tpu/tasks/data.py, for the four tasks).
 
 The reference's data directory is not distributed, so every loader falls back
 to a deterministic synthetic image of the right modality and size; img 9 is
 the real MRI slice vendored at data/real/s1045.ima.gz. All loaders return
-float32 (C, H, W) arrays in [0, 1], bit-equal to the JAX package's.
+float32 (C, H, W) arrays in [0, 1] (the inpainting mask too), bit-equal to
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,6 +24,20 @@ _DEN_FILES = {
     4: ("denoising/CNV-13823-2_res.png", (256, 256)),
     5: ("denoising/NORMAL-293382-0001_res.png", (256, 256)),
 }
+
+_SR_FILES = {
+    0: "super-resolution/img_139_res384.png",
+    1: "super-resolution/test_mri_1.png",
+    2: "super-resolution/test_mri_2.png",
+    3: "super-resolution/test_mri_3.png",
+    4: "super-resolution/test_mri_4.png",
+    5: "super-resolution/test_mri_5.png",
+    6: "super-resolution/test_mri_6.png",
+    7: "super-resolution/test_mri_7.png",
+}
+
+_INP_FILES = {i: (f"inpainting/hair_{i}_res.png",
+                  f"inpainting/hair_{i}_res_mask.png") for i in range(6)}
 
 _CT_FILES = {i: f"ct/coronacases_org_00{i}.npy" for i in range(1, 6)}
 
@@ -59,6 +74,21 @@ def synthetic_xray(img: int, size: int = 256) -> np.ndarray:
         yy * 40 + 3 * _smooth(rng.standard_normal((size, size)), size / 8))
     vign = 1.0 - 0.8 * ((xx - 0.5) ** 2 + (yy - 0.5) ** 2)
     return _norm01(_norm01(base) * 0.6 + ribs + 0.3 * vign)[None]
+
+
+def synthetic_mri(img: int, size: int = 384) -> np.ndarray:
+    """Brain-MRI-like grayscale image: skull ring + smooth internal
+    structure."""
+    rng = np.random.default_rng(2000 + img)
+    yy, xx = np.mgrid[0:size, 0:size]
+    cy, cx = size / 2, size / 2
+    r = np.hypot((yy - cy) / (0.45 * size), (xx - cx) / (0.38 * size))
+    skull = np.exp(-((r - 0.95) ** 2) / 0.002)
+    interior = (r < 0.9).astype(np.float32)
+    tissue = _smooth(rng.standard_normal((size, size)), size / 24)
+    folds = np.sin(12 * np.arctan2(yy - cy, xx - cx) + 20 * r)
+    return _norm01(skull + interior * (0.45 + 0.3 * _norm01(tissue)
+                                       + 0.08 * folds))[None]
 
 
 def shepp_logan(size: int = 256) -> np.ndarray:
@@ -108,6 +138,30 @@ def synthetic_ct(img: int, size: int = 256) -> np.ndarray:
     return _smooth(out, 1.2).astype(np.float32)[None]
 
 
+def synthetic_hair(img: int, size: int = 256):
+    """RGB skin-like texture (3, size, size) and a thin-curve occlusion mask
+    of the same shape (1 = known pixel), like the reference's dilated hair
+    masks."""
+    rng = np.random.default_rng(4000 + img)
+    base = np.stack([
+        _norm01(_smooth(rng.standard_normal((size, size)), size / 10)) * 0.25
+        + c for c in (0.65, 0.45, 0.35)])
+    base = np.clip(base, 0, 1).astype(np.float32)
+    mask = np.ones((size, size), np.float32)
+    for _ in range(12):
+        x = rng.uniform(0, size)
+        y = rng.uniform(0, size)
+        ang = rng.uniform(0, np.pi)
+        curv = rng.uniform(-0.02, 0.02)
+        for _ in range(2 * size):
+            xi, yi = int(x) % size, int(y) % size
+            mask[max(yi - 1, 0):yi + 2, max(xi - 1, 0):xi + 2] = 0.0
+            ang += curv
+            x += np.cos(ang)
+            y += np.sin(ang)
+    return base, np.repeat(mask[None], 3, axis=0)
+
+
 def real_mri_slice() -> np.ndarray:
     """(1, 256, 256) float32 in [0, 1]: the vendored real MRI head slice
     (uint16 raw, gzip); img index 9 of the ct and denoising tasks."""
@@ -123,8 +177,9 @@ def _warn_fallback(task, img, rel):
         "using a deterministic synthetic fallback")
 
 
-def _load_image(path: str, imsize) -> np.ndarray:
-    """PIL load + resize to ``imsize`` -> float32 (C, H, W) in [0, 1]."""
+def _load_image(path: str, imsize=(-1, -1)) -> np.ndarray:
+    """PIL load + resize to ``imsize`` (-1: as stored) -> float32 (C, H, W)
+    in [0, 1]."""
     from PIL import Image
     img = Image.open(path)
     if imsize[0] != -1 and img.size != imsize:
@@ -155,6 +210,39 @@ def get_image_denoising(img: int):
         _warn_fallback("denoising", img, rel)
         img_np = synthetic_xray(img, imsize[0])
     return img_np, imsize
+
+
+def get_img_superresolution(img: int):
+    """-> (img_np CHW, imsize): the high-resolution image (384^2 synthetic
+    MRI as the fallback); img 9 is the vendored real MRI slice."""
+    if img == 9:
+        im = real_mri_slice()
+        return im, im.shape[1:]
+    rel = _SR_FILES[img]
+    if _exists(rel):
+        img_np = _load_image(os.path.join(data_root(), rel))
+    else:
+        _warn_fallback("super-resolution", img, rel)
+        img_np = synthetic_mri(img, 384)
+    return img_np, img_np.shape[1:]
+
+
+def get_img_inpainting(img: int):
+    """-> (img_np CHW, mask_np CHW, imsize): an RGB image and its mask
+    (256^2 synthetic skin and hair curves as the fallback); img 9 is the
+    real MRI slice repeated to 3 channels under img 0's hair mask."""
+    if img == 9:
+        im = np.repeat(real_mri_slice(), 3, axis=0)
+        _, mask = synthetic_hair(0, im.shape[1])
+        return im, mask, im.shape[1:]
+    rel, mask_rel = _INP_FILES[img]
+    if _exists(rel) and _exists(mask_rel):
+        img_np = _load_image(os.path.join(data_root(), rel))
+        mask_np = _load_image(os.path.join(data_root(), mask_rel))
+    else:
+        _warn_fallback("inpainting", img, rel)
+        img_np, mask_np = synthetic_hair(img, 256)
+    return img_np, mask_np, img_np.shape[1:]
 
 
 def get_img_ct(img: int):

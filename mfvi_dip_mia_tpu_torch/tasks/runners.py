@@ -5,9 +5,8 @@ A run creates ``save_path/<timestamp>/`` with ``locals.txt``, fits, takes a
 25-sample MC posterior summary from the final parameters (every method but
 dip, runners.py:179), optionally plots, writes ``save.npz`` in the
 reference's per-task key schema, and returns the final
-smoothed-reconstruction PSNR (the BO objective). The port runs the den and
-ct tasks under dip, mfvi, mcd and sgld; the 8 sr / inp runners raise
-NotImplementedError.
+smoothed-reconstruction PSNR (the BO objective). All 16 (task, method)
+pairs run; ``early_stop`` is refused (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -28,7 +27,6 @@ from .problems import METHODS, build_problem
 from .trainer import Method, fit
 
 MC_SAMPLES = 25
-_PORTED = {(t, m) for t in ("den", "ct") for m in METHODS}
 
 
 def method_for(task: str, method_name: str, overrides: dict) -> Method:
@@ -58,6 +56,12 @@ def _npz_payload(task, problem, res, method_name):
     elif task == "ct":
         d.update(img_gt=problem.gt_np[None], img_radon=problem.target_np[None],
                  mse_noisy={method_name: res.mse_corrupted})
+    elif task == "sr":
+        d.update(img_hr=problem.gt_np, img_lr=np.squeeze(problem.target_np),
+                 mse_noisy={method_name: res.mse_corrupted})
+    elif task == "inp":
+        d.update(img_inpainting=problem.gt_np, img_mask=problem.target_np,
+                 mse_corrupted={method_name: res.mse_corrupted})
     return d
 
 
@@ -71,7 +75,8 @@ def mc_summary(problem, params: dict, net_input: np.ndarray, seed: int,
     seeded ``seed`` (the runner passes seed + 77, as JAX's PRNGKey(seed +
     77)), transformed and decomposed.
     Returns the mean reconstruction clipped to [0, 1] and its PSNR / SSIM,
-    and the aleatoric / epistemic maps, each (C, H, W)."""
+    and the aleatoric / epistemic maps, each (C, H, W): the problem's
+    ``mean_ch`` mean channels (3 for inp), the rest its neg-logvar."""
     dev = problem.device
     flat = vi.flatten({k: torch.from_numpy(v) for k, v in params.items()},
                       device=dev)
@@ -114,10 +119,6 @@ def run_task(task: str, method_name: str, *, img: int = 0,
     port is NCHW. ``compute_dtype`` is 'f32' (default) or 'bf16'."""
     from ..utils import viz
 
-    if (task, method_name) not in _PORTED:
-        raise NotImplementedError(
-            f"run_{task}_{method_name} is not ported yet: the port runs the "
-            "den and ct tasks (ROADMAP Queue 1 item 5)")
     if early_stop is not None:
         raise NotImplementedError(
             "early_stop is not ported yet (ROADMAP Queue 1 item 6)")

@@ -31,9 +31,11 @@ Semantics kept from the JAX step (each with its reference line there):
     leaves, before any softplus, as cast_tree does) and the input are cast
     once; the master parameters, the KL and the loss stay f32
 
-The step is static, as JAX's scanned step is (``make_step``): it updates a
-state of fixed tensors in place, the iteration index lives on the device,
-the ring slot and the metric row are index copies. On the card ``fit``
+The step is static, as JAX's scanned step is (``make_step``): it reads the
+problem's fixed device tensors (the target, the inpainting mask, the
+operator's matrices) and updates a state of fixed tensors in place, the
+iteration index lives on the device, the ring slot and the metric row are
+index copies. On the card ``fit``
 captures it once as a CUDA graph per variant (the step, and the step with
 its metric row) and every iteration is a replay: the counterpart of JAX's
 compiled chunk (trainer.py:386-424). ``eager=True`` runs the same step
@@ -58,7 +60,7 @@ from ..optim.fused_adamw import flat_adamw_update
 from ..utils import images as I
 from ..utils.device import resolve_device
 from ..utils.graphs import capture, capture_stream
-from .problems import METHODS, Problem
+from .problems import METHODS, Problem, reinit_conv_weights_normal
 
 MC_RING = 25
 EXP_WEIGHT = 0.99
@@ -136,10 +138,13 @@ def resolve_compute_dtype(dtype) -> torch.dtype:
 
 def init_params(problem: Problem, method: Method, seed: int) -> dict:
     """The fit's initial parameters (CPU tensors): torch-default conv init,
-    then for mfvi the MFVI re-initialization, from one seeded generator
-    (trainer.py:443-450)."""
+    then sr mcd's N(0, init_normal_std) conv re-init, then for mfvi the MFVI
+    re-initialization, all from one seeded generator (trainer.py:428-450)."""
     gen = torch.Generator().manual_seed(seed)
     params = problem.net.init_params(gen)
+    if problem.init_normal_std is not None:
+        params = reinit_conv_weights_normal(params, gen,
+                                            problem.init_normal_std)
     return vi.to_mfvi(params, gen) if method.name == "mfvi" else params
 
 
@@ -268,7 +273,7 @@ def prepare_fit(problem: Problem, method: Method, *, iterations: int,
     dtype = resolve_compute_dtype(compute_dtype)
     h, w = problem.imsize
     mc = problem.mean_ch
-    n_out = {"ct": 1, "den": 2}[problem.task]
+    n_out = {"ct": 1, "den": 2, "sr": 2, "inp": 4}[problem.task]
 
     z_np = I.get_noise(problem.input_depth, (h, w),
                        rng=np.random.default_rng(seed) if rng is None else rng)

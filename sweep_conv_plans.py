@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time every tile plan of the tensor-core conv kernels at the U-Net's sites.
 
-    python3 sweep_conv_plans.py [--out plans.json] [--check] [--dw]
+    python3 sweep_conv_plans.py [--out plans.json] [--check] [--dw | --inp-k5]
     python3 sweep_conv_plans.py --fit plans.json
 
 On one NVIDIA GPU: for every launch of a 256^2 5-scale step (chip_smoke.py's
@@ -15,7 +15,11 @@ every distinct conv-site shape of the CT and den nets in bf16 and f32, and
 ``fused_block_bwd_dw`` at the den net's 20 fused sites, at each (tile, split
 of the pixels) of ``dw_candidates``, beside ``dw_plan``'s pick; and
 ``fused_block_fwd`` at the 20 fused sites with each conv tile (no split of
-K), beside ``fused_block.py::fwd_plan``'s pick. Its output is what the
+K), beside ``fused_block.py::fwd_plan``'s pick. With ``--inp-k5`` instead:
+``cf_conv_fwd`` (forward and FULL dx) and ``lrt_conv_fwd`` in f32 at the
+12 k5 sites of the 6-scale inpainting net on 256^2 (stride-2 down1 as k3
+parity planes, stride-1 down2 as k5), the sites the cost model was not
+fitted to. Its output is what the
 plans' cost models are fitted to; the port never reads it. With ``--check``
 it first holds the kernels it times against their plain versions at every
 site shape (chip_smoke.py's phase-2 checks). Prints one JSON summary line.
@@ -166,6 +170,9 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--dw", action="store_true",
                     help="time the dw plans and the fused forward's tiles")
+    ap.add_argument("--inp-k5", action="store_true",
+                    help="time the conv and LRT plans at the inpainting "
+                    "net's k5 sites")
     ap.add_argument("--fit", default=None,
                     help="fit the cost model to this sweep's output")
     args = ap.parse_args(argv)
@@ -208,16 +215,21 @@ def main(argv=None) -> int:
         cs.check_lrt_kernel(l_sites, results)
         cs.check_fused_kernels(f_sites, results)
 
+    groups = (("conv", torch.bfloat16, "bf16", sites),
+              ("conv", torch.float32, "f32", sites),
+              ("lrt", torch.float32, "f32", l_sites))
+    if args.inp_k5:
+        k5 = [s for s in cs.conv_sites(cs.sr_inp_nets()["inp"], 256)
+              if s["name"].endswith(("down1", "down2"))]
+        groups = (("conv", torch.float32, "f32", k5),
+                  ("lrt", torch.float32, "f32", k5))
     chosen = tcf.tile_plan
     forced = {}
     tcf.tile_plan = lambda *a, **kw: forced.get("plan") or chosen(*a, **kw)
     gen = torch.Generator(device=cs.DEVICE).manual_seed(12)
     rows = []
     try:
-        for kind, dtype, dname, group in (
-                ("conv", torch.bfloat16, "bf16", sites),
-                ("conv", torch.float32, "f32", sites),
-                ("lrt", torch.float32, "f32", l_sites)):
+        for kind, dtype, dname, group in groups:
             for s in group:
                 i, hp, wp = s["xp"]
                 o, _, k, _ = s["w"]
@@ -256,6 +268,9 @@ def main(argv=None) -> int:
                            f"{best['ms'] * 1e3:7.1f} us")
     finally:
         tcf.tile_plan = chosen
+    if args.inp_k5:
+        return report(cs, smi, rows, (("conv", "f32"), ("lrt", "f32")),
+                      args.out, t0)
     rows += sweep_fused_dx(cs, f_sites, gen)
     return report(cs, smi, rows, (("conv", "bf16"), ("conv", "f32"),
                                   ("lrt", "f32"), ("fused_dx", "f32")),

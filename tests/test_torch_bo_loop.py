@@ -377,7 +377,8 @@ def test_mc_predict_on_the_cpu_runs_eagerly(reparam):
     same draws as one forward per sample from the same generator."""
     net = tbuild(4, n_channels=2, **SMALL_NET)
     params = tvi.flatten(init_params(
-        type("P", (), {"net": net})(), Method("mfvi"), 0))
+        type("P", (), {"net": net, "init_normal_std": None})(),
+        Method("mfvi"), 0))
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (1, 4, 16, 16)).astype(np.float32))
     outs = [TU.mc_predict(net, params, x, torch.Generator().manual_seed(7),

@@ -179,5 +179,9 @@ def test_shape_checks():
         tlrt.double_conv_fwd(xp, torch.zeros(2, 4, 3, 3),
                              torch.zeros(2, 4, 1, 1))
     with pytest.raises(ValueError, match="square kernel"):
-        tlrt.double_conv_fwd(xp, torch.zeros(2, 4, 5, 5),
-                             torch.zeros(2, 4, 5, 5))
+        tlrt.double_conv_fwd(xp, torch.zeros(2, 4, 4, 4),
+                             torch.zeros(2, 4, 4, 4))
+    # k = 5 (the inpainting net's sites) is taken
+    mu, var = tlrt.double_conv_fwd(xp, torch.zeros(2, 4, 5, 5),
+                                   torch.zeros(2, 4, 5, 5))
+    assert mu.shape == var.shape == (2, 4, 4)

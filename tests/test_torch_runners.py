@@ -117,17 +117,14 @@ def test_den_run_with_plots(small, tmp_path):
 
 
 def test_unported_runners_raise(tmp_path):
+    """All 16 runners are ported; each still refuses early_stop (ROADMAP
+    Queue 1 item 6) before it writes anything."""
     assert len(TR.ALL_RUNNERS) == 16
     assert set(TR.ALL_RUNNERS) == set(JR.ALL_RUNNERS)
-    unported = [n for n in TR.ALL_RUNNERS
-                if n.split("_")[1] not in ("den", "ct")]
-    assert len(unported) == 8
-    for name in unported:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            TR.ALL_RUNNERS[name](device="cpu", save_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="early_stop"):
-        TR.run_den_mfvi(device="cpu", early_stop={"patience": 5},
-                        save_path=str(tmp_path))
+    for name, runner in TR.ALL_RUNNERS.items():
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            runner(device="cpu", early_stop={"patience": 5},
+                   save_path=str(tmp_path))
     assert os.listdir(tmp_path) == []
 
 

@@ -237,7 +237,13 @@ def test_host_data_is_bit_equal_to_the_jax_package():
 
 
 def test_unported_combinations_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        TP.build_problem("sr", "mfvi", 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        TP.build_problem("inp", "sgld", 0, device="cpu")
+    """Every task is ported: sr and inp build (at their full sizes and
+    widths), and only an unknown task or method raises."""
+    sr = TP.build_problem("sr", "mfvi", 0, device="cpu")
+    inp = TP.build_problem("inp", "sgld", 0, device="cpu")
+    assert (sr.task, sr.imsize, sr.mean_ch) == ("sr", (384, 384), 1)
+    assert (inp.task, inp.imsize, inp.mean_ch) == ("inp", (256, 256), 3)
+    with pytest.raises(ValueError, match="unknown task"):
+        TP.build_problem("deblur", "mfvi", 0, device="cpu")
+    with pytest.raises(ValueError, match="unknown method"):
+        TP.build_problem("sr", "vi", 0, device="cpu")
