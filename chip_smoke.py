@@ -128,7 +128,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bound of the kernel and of cuBLAS. With ``--profile-steps``, each path's
    fit is profiled as graph replays (from the first replay on) and eagerly.
    ``launches_by_path`` adds "sr" and "inp": the launches of phase 8's
-   four sr fits and of its four inp fits and the LRT inp fit.
+   four sr fits and of its four inp fits and the LRT inp fit, and "tail"
+   those of phase 9's three fits.
+9. (run last) The trainer's tail and the evaluation report, at bench.py's
+   den widths (256^2, input depth 16, f32, lr 1e-3, seed 1): den/MFVI
+   under the reference's scale-mixture prior (two graph fits of 300
+   iterations and an eager one, equal bits, the final smoothed PSNR above
+   iteration 0's, den's launches per step exactly), and with ELU and Swish
+   nets (a graph fit and an eager one, equal bits, cf_conv_fwd 50 and
+   cf_conv_dw 26 launches per step and no fused one); a den/MFVI graph fit
+   of 301 iterations in 7 chunks with checkpoints after chunks 2, 4 and 6,
+   fits resumed from the chunk-2 and chunk-6 files with the uninterrupted
+   fit's bits (rows, snapshots, parameters), and an eager fit's chunk-2
+   file equal to the graph fit's (generator state included);
+   ``run_den_dip`` stopped early (``executed`` as ``_EarlyStop`` decides
+   on the fit's rows, NaN rows after it, replays and launches per step
+   for exactly the iterations executed); ``write_report`` (no maps) on one
+   101-iteration run of each ``run_{den,ct,sr,inp}_mfvi`` on the card
+   against the same report on the CPU (PSNR 1e-4 dB, SSIM 1e-6, UCE 1e-6
+   relative), each classical baseline and FBP timed on the card, and
+   ``evaluation.main`` once.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3258,6 +3277,399 @@ def time_dense_radon(a, results: dict) -> None:
             library_device_share_of_bound=b_ms / d_l)
 
 
+# -- phase 9: the trainer's tail and the evaluation report ---------------------
+
+TAIL_ITERS = 300              # each tail fit: 100 warm + 200 timed
+TAIL_SHOW = 100
+# the reference's scale-mixture prior schema (JAX tests/test_vi.py:209)
+MIXTURE = {"mu": [0.0, 0.0], "sigma": [0.1, 0.0005], "pi": [0.75, 0.25]}
+# launches per step of phase 9's fits (PERF.md §6): the mixture prior's den
+# step is den/MFVI's; an ELU or Swish net fuses no site, so each of its 26
+# sites runs cf_conv_fwd (24 with a dx) and cf_conv_dw, as the CT net's do
+ACT_LAUNCHES = dict(cf_conv_fwd=50, cf_conv_dw=26)
+CKPT_ITERS = 300              # 301 iterations in 7 chunks of 50 (the last 1)
+CKPT_SHOW = 50
+CKPT_EVERY = 2                # checkpoints after chunks 2, 4 and 6
+EARLY_ITERS = 2000            # run_den_dip's budget; the stop must fire
+EARLY_STOP = {"patience": 200, "min_delta": 2.0}
+EARLY_SHOW = 100
+REPORT_ITERS = 100            # each report run: 101 iterations
+# the report on the card against the same report on the CPU
+REPORT_PSNR_DB, REPORT_SSIM, REPORT_UCE_REL = 1e-4, 1e-6, 1e-6
+
+
+def den_tail_problem(act_fun: str = "LeakyReLU"):
+    """bench.py's den problem (256^2 synthetic x-ray, input depth 16) on the
+    card; with another ``act_fun`` its net is the same 5-scale net built
+    with that activation."""
+    import dataclasses
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    from mfvi_dip_mia_tpu_torch.nn import build_skip_net
+    use_bench_images()
+    problem = P.build_problem("den", "mfvi", 0, input_depth=16,
+                              device=DEVICE)
+    if act_fun != "LeakyReLU":
+        widths = [16, 32, 64, 128, 128]
+        problem = dataclasses.replace(problem, net=build_skip_net(
+            16, n_channels=2, pad="reflection", skip_n33d=widths,
+            skip_n33u=widths, skip_n11=4, num_scales=5,
+            upsample_mode="bilinear", act_fun=act_fun))
+    return problem
+
+
+def tail_fits() -> dict:
+    """den/MFVI f32 at SIZE^2 (temp 5.66e-7, sigma 1.46e-5, lr 1e-3, seed
+    1) with the mixture prior MIXTURE, and with ELU and Swish nets under
+    the scalar prior: for each a graph fit of TAIL_ITERS iterations (every
+    iteration a replay, the launches per step exactly predicted, a finite
+    final smoothed PSNR, the mixture fit's above iteration 0's) and the
+    same fit eagerly, equal bit for bit; the mixture fit also a second
+    graph fit, equal too."""
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+
+    out = {}
+    for label, act, prior, expected, graphs in (
+            ("mixture prior", "LeakyReLU", MIXTURE,
+             STEP_LAUNCHES["5-scale"], 2),
+            ("ELU", "ELU", None, ACT_LAUNCHES, 1),
+            ("Swish", "Swish", None, ACT_LAUNCHES, 1)):
+        problem = den_tail_problem(act)
+        method = Method("mfvi", temp=5.66e-7, sigma=1.46e-5, prior=prior)
+        kw = dict(num_iter=TAIL_ITERS - 1, show_every=TAIL_SHOW, lr=1e-3,
+                  seed=1, metrics_every=1, collect_snapshots=False,
+                  device=DEVICE)
+        kernels.reset_launches()
+        res = fit(problem, method, **kw)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        again = [fit(problem, method, **kw) for _ in range(graphs - 1)]
+        eager = fit(problem, method, eager=True, **kw)
+        equal = all(same_bits(res, r) for r in again + [eager])
+        log(f"[9] den/mfvi f32 {SIZE}^2, {label}: graph "
+            f"{res.iters_per_sec:.2f} it/s, eager {eager.iters_per_sec:.2f} "
+            f"it/s over the last {TAIL_ITERS - TAIL_SHOW}; final smoothed "
+            f"PSNR {res.final_psnr:.3f} dB (iteration 0: "
+            f"{res.psnrs[0, 2]:.3f}); {graphs} graph fit(s) and the eager "
+            "fit " + ("equal" if equal else "DIFFER"))
+        per_step = hold_step_launches(f"the {label} fit", launches,
+                                      steps_run(res), expected)
+        log(f"    launches per step {per_step} (as predicted)")
+        for r in [res] + again:
+            hold_replays(f"the {label} fit", r)
+        if eager.replays:
+            raise AssertionError("an eager fit replayed a graph")
+        if not np.isfinite(res.final_psnr) or (
+                prior is not None and res.final_psnr <= res.psnrs[0, 2]):
+            raise AssertionError(f"the {label} fit's PSNR is not finite, or "
+                                 "the mixture fit's not above iteration 0's")
+        if not equal:
+            raise AssertionError(f"the {label} fits gave different bits")
+        out[label] = dict(iters_per_sec=res.iters_per_sec,
+                          eager_iters_per_sec=eager.iters_per_sec,
+                          final_psnr=res.final_psnr,
+                          psnr_it0=float(res.psnrs[0, 2]),
+                          steps_run=steps_run(res), launches=launches,
+                          launches_per_step=per_step, equal_bits=equal)
+    return out
+
+
+def _same_snapshots(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in SNAPSHOTS)
+
+
+def checkpoint_resume(tmp: str) -> dict:
+    """A den/MFVI graph fit of CKPT_ITERS iterations with snapshots every
+    CKPT_SHOW (7 chunks), uninterrupted, then again with a checkpoint every
+    CKPT_EVERY chunks (after chunks 2, 4 and 6; the chunk-2 file copied
+    before the fit overwrites it). Fits resumed from the chunk-2 copy and
+    from the chunk-6 file must give the uninterrupted fit's bits in every
+    row, snapshot and final parameter, replaying only the iterations after
+    their chunk. The chunk-2 file of an eager fit must hold the graph
+    fit's generator state and state tensors bit for bit: the replays
+    advance the generator's offset as the eager steps do."""
+    import shutil
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.tasks.trainer as T
+
+    problem = den_tail_problem()
+    method = T.Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
+    kw = dict(num_iter=CKPT_ITERS, show_every=CKPT_SHOW, lr=1e-3, seed=1,
+              metrics_every=1, device=DEVICE)
+    full = T.fit(problem, method, **kw)
+    path = os.path.join(tmp, "fit.npz")
+    copy2 = os.path.join(tmp, "fit_chunk2.npz")
+    saves = []
+    save = T.save_fit_checkpoint
+
+    def timed_save(*args):
+        t0 = time.perf_counter()
+        save(*args)
+        saves.append((args[3], time.perf_counter() - t0))
+
+    def copy_chunk2(i, row):
+        # the log of chunk 3 (iterations 100-149) comes before any later save
+        if i == 3 * CKPT_SHOW - 1:
+            shutil.copy(path, copy2)
+
+    T.save_fit_checkpoint = timed_save
+    try:
+        written = T.fit(problem, method, checkpoint_path=path,
+                        checkpoint_every_chunks=CKPT_EVERY,
+                        log_fn=copy_chunk2, **kw)
+    finally:
+        T.save_fit_checkpoint = save
+    if [c for c, _ in saves] != [2, 4, 6]:
+        raise AssertionError(f"checkpoints after chunks {saves}, expected "
+                             "2, 4, 6")
+    size = os.path.getsize(path)
+    out = dict(file_bytes=size, save_seconds=[s for _, s in saves])
+    checks = {"with checkpoints": (written, full.executed)}
+    for label, src in (("resumed at chunk 2", copy2),
+                       ("resumed at chunk 6", path)):
+        with np.load(src) as z:
+            chunk = int(z["chunk"])
+        res = T.fit(problem, method, checkpoint_path=src, resume=True, **kw)
+        checks[label] = (res, full.executed - chunk * CKPT_SHOW)
+    for label, (res, replays) in checks.items():
+        equal = same_bits(res, full) and _same_snapshots(res, full)
+        log(f"[9] checkpoint / resume, {label}: "
+            + ("equal" if equal else "DIFFER") + " to the uninterrupted "
+            f"graph fit; {res.replays} replays ({res.iters_per_sec:.2f} "
+            "it/s)")
+        if not equal or res.replays != replays:
+            raise AssertionError(f"{label}: not the uninterrupted fit's bits, "
+                                 f"or {res.replays} replays for {replays}")
+        out[label] = dict(equal=equal, replays=res.replays)
+
+    # the eager fit's chunk-2 file against the graph fit's
+    eager_path = os.path.join(tmp, "eager.npz")
+    T.fit(problem, method, eager=True, checkpoint_path=eager_path,
+          checkpoint_every_chunks=CKPT_EVERY,
+          **dict(kw, num_iter=3 * CKPT_SHOW))
+    with np.load(copy2) as g, np.load(eager_path) as e:
+        same = {k: np.array_equal(g[k], e[k], equal_nan=True)
+                for k in ("chunk", "generator", "state_flat", "state_m",
+                          "state_v", "state_count", "state_it",
+                          "state_out_avg", "state_ring_epi")}
+    log(f"[9] checkpoint file {size / 2 ** 20:.2f} MiB, each save "
+        + ", ".join(f"{s:.3f}" for s in out["save_seconds"]) + " s; the "
+        "eager fit's chunk-2 file against the graph fit's: "
+        + ("equal" if all(same.values()) else f"DIFFER {same}"))
+    if not all(same.values()):
+        raise AssertionError(f"the eager and graph checkpoints differ: {same}")
+    out["eager_file_equal"] = same
+    return out
+
+
+def early_stop_run(tmp: str) -> dict:
+    """run_den_dip on the card with EARLY_STOP over EARLY_ITERS iterations
+    (save.npz, no plots): the stop must fire; ``executed`` must equal what
+    _EarlyStop decides on the fit's own rows, chunk by chunk; the rows
+    after it NaN; the replays and the launches per step (den dip's) must
+    count exactly the iterations executed."""
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.tasks.runners as R
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import _EarlyStop
+
+    use_bench_images()
+    seen = {}
+    fit = R.fit
+
+    def keep(problem, method, **kw):
+        seen["res"] = fit(problem, method, **kw)
+        return seen["res"]
+
+    R.fit = keep
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        psnr = R.run_den_dip(device=0, num_iter=EARLY_ITERS,
+                             early_stop=EARLY_STOP, save=True, plot=False,
+                             save_path=tmp, lr=1e-3, seed=1, input_depth=16,
+                             show_every=EARLY_SHOW)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+    finally:
+        R.fit = fit
+    res = seen["res"]
+    col = res.psnrs[:, 2]
+    stop, expected = _EarlyStop(EARLY_STOP), EARLY_ITERS + 1
+    for start in range(0, EARLY_ITERS + 1, EARLY_SHOW):
+        end = min(start + EARLY_SHOW, EARLY_ITERS + 1)
+        if stop.should_stop(col[start:end], start):
+            expected = end
+            break
+    log(f"[9] run_den_dip with early_stop {EARLY_STOP}: executed "
+        f"{res.executed} of {EARLY_ITERS + 1} (the rows give {expected}), "
+        f"best smoothed PSNR {stop.best:.3f} dB at iteration "
+        f"{stop.best_iter}, final {psnr:.3f} dB, {res.replays} replays, "
+        f"{wall:.1f} s")
+    if not (res.executed == expected < EARLY_ITERS + 1):
+        raise AssertionError("the early stop did not fire where the rows say")
+    if not (np.isfinite(res.psnrs[:res.executed]).all()
+            and np.isnan(res.psnrs[res.executed:]).all()
+            and psnr == col[res.executed - 1]):
+        raise AssertionError("the early-stopped rows are not NaN after it")
+    hold_replays("the early-stopped run", res)
+    per_step = hold_step_launches("the early-stopped run", launches,
+                                  steps_run(res), STEP_LAUNCHES["5-scale"])
+    return dict(executed=res.executed, expected=expected,
+                replays=res.replays, best_iter=stop.best_iter,
+                final_psnr=psnr, seconds=wall, launches_per_step=per_step)
+
+
+def _hold_reports(card: dict, cpu: dict) -> dict:
+    """The largest differences between the card's report and the CPU's:
+    PSNR in dB, SSIM, UCE relative; raises beyond the tolerances."""
+    worst = dict(psnr_db=0.0, ssim=0.0, uce_rel=0.0)
+    for path, c in cpu["runs"].items():
+        g = card["runs"][path]
+        if g["summary"] != c["summary"] or g.get("mc_mean") != c.get(
+                "mc_mean"):
+            raise AssertionError(f"{path}: the summary tables differ")
+        if g["calibration"].keys() != c["calibration"].keys() or \
+                g["classical"].keys() != c["classical"].keys():
+            raise AssertionError(f"{path}: the report's rows differ")
+        for name, cal in c["calibration"].items():
+            worst["uce_rel"] = max(worst["uce_rel"], abs(
+                g["calibration"][name]["uce"] - cal["uce"]) / cal["uce"])
+        for name, row in c["classical"].items():
+            worst["psnr_db"] = max(worst["psnr_db"], abs(
+                g["classical"][name]["psnr"] - row["psnr"]))
+            worst["ssim"] = max(worst["ssim"], abs(
+                g["classical"][name]["ssim"] - row["ssim"]))
+    if (worst["psnr_db"] > REPORT_PSNR_DB or worst["ssim"] > REPORT_SSIM
+            or worst["uce_rel"] > REPORT_UCE_REL):
+        raise AssertionError(f"the card's report is off the CPU's: {worst}")
+    return worst
+
+
+def report_phase(tmp: str) -> dict:
+    """One REPORT_ITERS-iteration run each of run_den_mfvi, run_ct_mfvi (the
+    FBP row), run_sr_mfvi (384^2, the bicubic row) and run_inp_mfvi (no
+    classical row) on the card, with the test configs' candidates, img,
+    input depth and lr (den, ct: bench.py's 256^2 images); write_report on
+    their save.npz files with with_maps=False on the card and on the CPU,
+    held within REPORT_*; each classical baseline and FBP timed on the card;
+    and evaluation.main once on the card."""
+    import glob
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.tasks.runners as R
+    from mfvi_dip_mia_tpu_torch.ops import classical as C
+    from mfvi_dip_mia_tpu_torch.ops.radon import fbp
+    from mfvi_dip_mia_tpu_torch.tasks import evaluation as E
+
+    use_bench_images()
+    paths = {}
+    for task in ("den", "ct", "sr", "inp"):
+        _, lr, cand = method_of(task, "mfvi")
+        rp = run_params_of(task, "mfvi")
+        save = os.path.join(tmp, f"run_{task}")
+        img = rp["img"] if task in ("sr", "inp") else 0
+        R.ALL_RUNNERS[f"run_{task}_mfvi"](
+            device=DEVICE, img=img, num_iter=REPORT_ITERS, lr=lr, seed=1,
+            input_depth=rp["input_depth"], show_every=REPORT_ITERS // 2,
+            plot=False, save=True, save_path=save, **cand)
+        (paths[task],) = glob.glob(os.path.join(save, "*", "save.npz"))
+    files = list(paths.values())
+    t0 = time.perf_counter()
+    card = E.write_report(files, os.path.join(tmp, "card"), with_maps=False,
+                          device=DEVICE)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = E.write_report(files, os.path.join(tmp, "cpu"), with_maps=False,
+                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+    worst = _hold_reports(card, cpu)
+    rows = {t: card["runs"][p]["classical"] for t, p in paths.items()}
+    if {t: set(r) for t, r in rows.items()} != {
+            "den": {"wavelet", "tv_chambolle", "bilateral"},
+            "ct": {"fbp_shepp_logan"}, "sr": {"bicubic"}, "inp": set()}:
+        raise AssertionError(f"the report's classical rows: {rows}")
+    for t, p in paths.items():
+        run = card["runs"][p]
+        if not (set(run["calibration"]) == {"mfvi"}
+                and np.isfinite(run["calibration"]["mfvi"]["uce"])
+                and np.isfinite(run["summary"]["mfvi"]["psnr_converged"])):
+            raise AssertionError(f"{t}: the report's rows are not finite")
+    log(f"[9] write_report on 4 runs: card {card_s:.2f} s, CPU {cpu_s:.2f} "
+        f"s; largest differences PSNR {worst['psnr_db']:.2e} dB, SSIM "
+        f"{worst['ssim']:.2e}, UCE {worst['uce_rel']:.2e} relative (held "
+        f"to {REPORT_PSNR_DB}, {REPORT_SSIM}, {REPORT_UCE_REL})")
+    log("    " + "; ".join(
+        f"{t} " + ", ".join(f"{n} {r['psnr']:.3f} dB" for n, r in
+                            rows[t].items())
+        + f", UCE {card['runs'][p]['calibration']['mfvi']['uce']:.5f}"
+        for t, p in paths.items()))
+
+    # each baseline on the card, timed alone (after one warm call)
+    with np.load(paths["den"]) as z:
+        noisy = np.asarray(z["img_noisy"], np.float32)
+    with np.load(paths["sr"]) as z:
+        lr_img = np.asarray(z["img_lr"], np.float32)[None]
+    with np.load(paths["ct"]) as z:
+        sino = torch.from_numpy(np.asarray(z["img_radon"], np.float32)).to(
+            DEVICE)
+    t_ang = sino.shape[2]
+    theta = np.arange(t_ang, dtype=np.float32) * (180.0 / t_ang)
+    calls = {
+        "wavelet": lambda: C.wavelet_denoise(noisy, device=DEVICE),
+        "tv_chambolle": lambda: C.tv_denoise_chambolle(noisy, device=DEVICE),
+        "bilateral": lambda: C.bilateral_denoise(noisy, device=DEVICE),
+        "bicubic": lambda: C.bicubic_upscale(lr_img, 4, device=DEVICE),
+        "fbp": lambda: fbp(sino, theta, SIZE),
+    }
+    seconds = {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    log("[9] on the card: " + ", ".join(f"{n} {s * 1e3:.1f} ms"
+                                        for n, s in seconds.items()))
+    t0 = time.perf_counter()
+    main_report = E.main([paths["den"], paths["ct"], "--out",
+                          os.path.join(tmp, "main"), "--no-maps"])
+    main_s = time.perf_counter() - t0
+    if main_report["runs"].keys() != {paths["den"], paths["ct"]}:
+        raise AssertionError("evaluation.main reported other runs")
+    return dict(card_seconds=card_s, cpu_seconds=cpu_s, worst=worst,
+                classical=rows, baseline_seconds=seconds,
+                main_seconds=main_s)
+
+
+def tail_phase() -> dict:
+    """Phase 9: the mixture-prior, ELU and Swish fits, checkpoint / resume,
+    early stop and the evaluation report, everything written to a temporary
+    directory, removed after. Returns the phase's results, with "launches"
+    the launches of its three tail fits' graph fits."""
+    import shutil
+    import tempfile
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    out = {"fits": tail_fits()}
+    out["launches"] = {k.name: sum(f["launches"][k.name]
+                                   for f in out["fits"].values())
+                       for k in kernels.KERNELS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tail_")
+    try:
+        out["checkpoint"] = checkpoint_resume(tmp)
+        out["early_stop"] = early_stop_run(tmp)
+        out["report"] = report_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[9] phase 9 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3362,6 +3774,9 @@ def main(argv=None) -> int:
             args.profile_steps, fits["methods"]["fits"])
         fits["profile_sr_inp"] = profile_sr_inp(args.profile_steps,
                                                 fits["sr_inp"]["fits"])
+    # phase 9 last: phase 6's timings and profiles run in the process they
+    # ran in before it (a profile now and then loses kernels: device_ms)
+    fits["tail"] = tail_phase()
 
     line = []
     for k in kernels.KERNELS:
@@ -3379,7 +3794,7 @@ def main(argv=None) -> int:
             launches_per_step=fits[path]["launches_per_step"][k.name],
             launches_by_path={p: fits[p]["launches"][k.name]
                               for p in ("ct", "den", "lrt_den", "dense_ct",
-                                        "bo_ct", "sr", "inp")},
+                                        "bo_ct", "sr", "inp", "tail")},
             max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],

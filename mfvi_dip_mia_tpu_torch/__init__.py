@@ -1,20 +1,28 @@
 """mfvi_dip_mia_tpu_torch: the PyTorch / CUDA port of mfvi_dip_mia_tpu for an
 NVIDIA H100 (sm_90a).
 
-It runs the DIP skip U-Net's fits for CT (with the banded Radon operator)
-and denoising under plain DIP, mean-field VI, MC dropout and SGLD, on
-hand-written CUDA kernels (csrc/) that replace the JAX package's Pallas TPU
-kernels, and the Bayesian-optimisation sweep of those fits (``cli``,
-``eval_cli``):
+It runs the DIP skip U-Net's fits for all four tasks (CT with the banded or
+dense Radon operator, denoising, super-resolution and inpainting) under
+plain DIP, mean-field VI (with a scalar or scale-mixture prior), MC dropout
+and SGLD, on hand-written CUDA kernels (csrc/) that replace the JAX
+package's Pallas TPU kernels; the Bayesian-optimisation sweep of those fits
+(``cli``, ``eval_cli``); and the evaluation report that scores a run's
+save.npz against the classical baselines (``tasks.evaluation``):
 
-  * ``nn``     — the NCHW skip U-Net and its layers (MC dropout included)
-  * ``bayes``  — mean-field VI on a flat [mu | rho | det] buffer, MC
-                 dropout at a function's output, the MC posterior summary
-  * ``ops``    — the Radon operator, losses, metrics, and ``ops.kernels``
-                 (the CUDA kernels' wrappers and their plain versions)
+  * ``nn``     — the NCHW skip U-Net and its layers (LeakyReLU, ELU and
+                 Swish nets; MC dropout included)
+  * ``bayes``  — mean-field VI on a flat [mu | rho | det] buffer (the
+                 closed-form and the scale-mixture MC KL), the priors
+                 (``bayes.priors``), MC dropout at a function's output, the
+                 MC posterior summary
+  * ``ops``    — the Radon operator, losses, metrics (PSNR, SSIM, UCE), the
+                 classical baselines (``ops.classical``), and
+                 ``ops.kernels`` (the CUDA kernels' wrappers and their plain
+                 versions)
   * ``optim``  — flat AdamW with the analytic KL gradient, SGLD's parameter
                  noise and floored lr decay
-  * ``tasks``  — data, problems, the trainer and the runners
+  * ``tasks``  — data, problems, the trainer (checkpoint / resume, early
+                 stop), the runners and the evaluation report
   * ``bo``     — the exact GP, acquisition and the BO loop (f64, host CPU)
   * ``parallel`` — the candidate fanout (one process, one card)
   * ``utils``  — host images, device resolution, CUDA graph capture, the

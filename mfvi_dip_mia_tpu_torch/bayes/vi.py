@@ -9,15 +9,20 @@ align elementwise, so the whole-tree RT draw is one elementwise pass, the KL
 one reduction, and the AdamW step one pass over the buffer, while every leaf
 stays a view of it for the network.
 
-KL semantics: KL(prior || posterior) in closed form summed over all weight
-and bias elements, with the reference's +1e-6 prior-scale stabilizer, which
-dominates at POTOBIM's temperatures (sqrt(temp) * sigma ~ 1e-12).
+KL semantics: KL(prior || posterior) ('reverse', the reference default) or
+KL(posterior || prior) ('forward') in closed form summed over all weight and
+bias elements, with the reference's +1e-6 prior-scale stabilizer, which
+dominates at POTOBIM's temperatures (sqrt(temp) * sigma ~ 1e-12). A
+scale-mixture prior has no closed form: ``kl_mfvi_mc`` estimates it with one
+draw per element (vi.py:198-249), its draw ``mixture_draw`` an inverse CDF
+on uniforms, so it runs inside a captured step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -126,15 +131,108 @@ def sample_mfvi_tree(params: FlatParams, generator=None, out_dtype=None,
     return out
 
 
+def posterior_mean_params(params: dict) -> dict:
+    """A variational parameter dict collapsed to its posterior mean (the
+    eval-mode weights, vi.py:70-81): '<path>.w_mu' -> '<path>.w',
+    '<path>.b_mu' -> '<path>.b', the rho leaves dropped, the rest as is."""
+    out = {}
+    for name, t in params.items():
+        if name.endswith("_mu"):
+            out[name[:-3]] = t
+        elif not name.endswith("_rho"):
+            out[name] = t
+    return out
+
+
 def kl_mfvi(params: FlatParams, prior_mu: float = 0.0,
-            prior_sigma: float = 0.1) -> torch.Tensor:
-    """Sum of the elementwise reverse KL(N(prior_mu, sigma_p) ||
-    N(mu, softplus(rho))), sigma_p = prior_sigma + 1e-6."""
+            prior_sigma: float = 0.1, kl_type: str = "reverse"
+            ) -> torch.Tensor:
+    """Sum of the elementwise KL between the prior N(prior_mu, sigma_p),
+    sigma_p = prior_sigma + 1e-6, and the posterior N(mu, softplus(rho)):
+    KL(prior || posterior) for 'reverse', KL(posterior || prior) for
+    'forward'."""
     if params.n_var == 0:
         return torch.zeros((), device=params.flat.device)
     sigma_p = prior_sigma + PRIOR_SIGMA_STABILIZER
     sigma_q = F.softplus(params.rho)
-    kl = (torch.log(sigma_q) - math.log(sigma_p)
-          + (sigma_p ** 2 + (prior_mu - params.mu) ** 2) / (2.0 * sigma_q ** 2)
-          - 0.5)
+    if kl_type == "reverse":
+        kl = (torch.log(sigma_q) - math.log(sigma_p)
+              + (sigma_p ** 2 + (prior_mu - params.mu) ** 2)
+              / (2.0 * sigma_q ** 2) - 0.5)
+    elif kl_type == "forward":
+        kl = (math.log(sigma_p) - torch.log(sigma_q)
+              + (sigma_q ** 2 + (params.mu - prior_mu) ** 2)
+              / (2.0 * sigma_p ** 2) - 0.5)
+    else:
+        raise ValueError(f"unknown kl_type {kl_type!r}")
     return kl.sum()
+
+
+# -- the scale-mixture prior: an MC KL ----------------------------------------
+
+_LOG_SQRT_2PI = 0.9189385332046727
+
+
+class Mixture(NamedTuple):
+    """A K-component Normal mixture as device tensors, made before any
+    capture: ``loc``, ``scale`` (already stabilized), ``log_pi`` and the
+    normalized cumulative weights ``cum`` that ``mixture_draw`` inverts."""
+    loc: torch.Tensor
+    scale: torch.Tensor
+    log_pi: torch.Tensor
+    cum: torch.Tensor
+
+    @staticmethod
+    def of(loc, scale, pi, device=None) -> "Mixture":
+        pi64 = torch.as_tensor(pi, dtype=torch.float64)
+        f32 = dict(dtype=torch.float32, device=device)
+        return Mixture(torch.as_tensor(loc, **f32),
+                       torch.as_tensor(scale, **f32),
+                       torch.log(torch.as_tensor(pi, **f32)),
+                       (torch.cumsum(pi64, 0) / pi64.sum()).to(**f32))
+
+
+def normal_lp(x, loc, scale) -> torch.Tensor:
+    return (-((x - loc) ** 2) / (2.0 * scale ** 2) - torch.log(scale)
+            - _LOG_SQRT_2PI)
+
+
+def mixture_lp(x: torch.Tensor, mix: Mixture) -> torch.Tensor:
+    """log sum_k pi_k N(x; loc_k, scale_k), elementwise."""
+    lp = normal_lp(x[..., None], mix.loc, mix.scale) + mix.log_pi
+    return torch.logsumexp(lp, dim=-1)
+
+
+def mixture_draw(n: int, cum: torch.Tensor, generator: torch.Generator
+                 ) -> tuple:
+    """One mixture draw of ``n`` elements: (component index, standard
+    normal), the component by the inverse CDF of ``cum`` on uniforms (no
+    host sync, so it runs inside a CUDA graph). Every mixture draw goes
+    through here, so a caller can hold it to a fixed table."""
+    u = torch.rand((n,), generator=generator, device=cum.device)
+    comp = torch.searchsorted(cum, u, right=True).clamp_(max=len(cum) - 1)
+    z = torch.randn((n,), generator=generator, device=cum.device)
+    return comp, z
+
+
+def kl_mfvi_mc(params: FlatParams, generator: torch.Generator, mix: Mixture,
+               kl_type: str = "reverse", n_samples: int = 1) -> torch.Tensor:
+    """MC estimate of the summed KL against the scale-mixture prior ``mix``
+    (vi.py:219-249), differentiable in the mu / rho segments: 'reverse'
+    draws from the prior and scores prior minus posterior, 'forward' draws
+    from the posterior (mu + softplus(rho) * z) and scores posterior minus
+    prior. One draw per element and sample, over the flat segments."""
+    mu, sigma = params.mu, F.softplus(params.rho)
+    total = torch.zeros((), device=params.flat.device)
+    for _ in range(n_samples):
+        comp, z = mixture_draw(params.n_var, mix.cum, generator)
+        if kl_type == "reverse":
+            s = mix.loc[comp] + mix.scale[comp] * z
+            kl = mixture_lp(s, mix) - normal_lp(s, mu, sigma)
+        elif kl_type == "forward":
+            s = mu + sigma * z
+            kl = normal_lp(s, mu, sigma) - mixture_lp(s, mix)
+        else:
+            raise ValueError(f"unknown kl_type {kl_type!r}")
+        total = total + kl.sum() / n_samples
+    return total

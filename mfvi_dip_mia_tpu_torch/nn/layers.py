@@ -1,10 +1,10 @@
 """NCHW building blocks of the skip U-Net (counterpart of
 mfvi_dip_mia_tpu/nn/layers.py and nn/cf.py, which collapse into this one op
-set): train-mode BatchNorm with shifted one-pass moments, LeakyReLU(0.2),
-the bilinear and nearest resizes (the x2 upsample, the sr operator), and
-the center-cropping concat; reflection padding is the conv site's
-(ops/kernels/cf_conv.py::conv2d_cf). Every function takes batch-first NCHW
-tensors."""
+set): train-mode BatchNorm with shifted one-pass moments, the activations
+(LeakyReLU(0.2), ELU, Swish), the bilinear and nearest resizes (the x2
+upsample, the sr operator), and the center-cropping concat; reflection
+padding is the conv site's (ops/kernels/cf_conv.py::conv2d_cf). Every
+function takes batch-first NCHW tensors."""
 
 from __future__ import annotations
 
@@ -40,6 +40,31 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     """where(x >= 0, x, slope * x), with the JAX package's gradient at 0."""
     return torch.where(x >= 0, x, negative_slope * x)
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
+    """where(x > 0, x, expm1(x)) (layers.py:104)."""
+    return torch.where(x > 0, x, torch.expm1(x))
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+_ACTIVATIONS = {
+    "LeakyReLU": leaky_relu,
+    "Swish": swish,
+    "ELU": elu,
+    "none": lambda x: x,
+}
+
+
+def activation(name: str):
+    """The activation the skip net's ``act_fun`` names."""
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r} (one of "
+                         f"{sorted(_ACTIVATIONS)})")
+    return _ACTIVATIONS[name]
 
 
 @functools.lru_cache(maxsize=None)

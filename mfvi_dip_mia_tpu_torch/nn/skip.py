@@ -24,13 +24,14 @@ tensors keyed by the JAX package's leaf paths (``levels.0.down1.conv.w``,
 deterministic and the sampled-variational trees, and weights move across from
 the JAX package by name (utils/bridge.py). Conv kernels are OIHW.
 
-Every stride-1 conv -> BN -> act site on a batch-1 f32 input with k in
-{1, 3} runs as one fused block (ops/kernels/fused_block.py), as JAX routes
+Every stride-1 conv -> BN -> LeakyReLU site on a batch-1 f32 input with k
+in {1, 3} runs as one fused block (ops/kernels/fused_block.py), as JAX routes
 its channels-first sites (skip.py:325-343); JAX's further W % 128 / H % 8 /
 VMEM gate was about the TPU, so at 256^2 the port fuses 20 sites where JAX
 fuses 5. The stride-2 down1 sites (k5 ones as k3 parity planes), the k5
 stride-1 sites, the bn_cat BatchNorms and every bf16 site keep the conv
-kernel + shifted one-pass BN + LeakyReLU chain, and so does
+kernel + shifted one-pass BN + activation chain, and so does every site of
+a net built with another ``act_fun`` (ELU, Swish; skip.py:334) and
 every site with dropout (skip.py:322-343): the dropout sits between the conv
 and the BN, so the site keeps its bias and does not fuse. Under mcd only the
 skip sites fuse.
@@ -113,9 +114,8 @@ class SkipNet(nn.Module):
         n = len(num_channels_down)
         if not len(num_channels_up) == len(num_channels_skip) == n:
             raise ValueError("channel lists must have one entry per scale")
-        if act_fun != "LeakyReLU":
-            raise NotImplementedError(f"activation {act_fun!r} is not ported "
-                                      "yet (ROADMAP Queue 1 item 6)")
+        self.act = layers.activation(act_fun)
+        self.act_name = act_fun
         self.n_scales = n
         self.need_sigmoid = need_sigmoid
         up_modes = _as_list(upsample_mode, n)
@@ -223,7 +223,8 @@ class SkipNet(nn.Module):
         skip_bias = s.dropout_mode == "None" and reparam != "lrt"
         scale = params[f"{prefix}.bn.scale"]
         offset = params[f"{prefix}.bn.offset"]
-        if s.stride == 1 and skip_bias and fused_block.supported(x, s.kernel):
+        if (s.stride == 1 and skip_bias and self.act_name == "LeakyReLU"
+                and fused_block.supported(x, s.kernel)):
             # the whole chain as one fused block (skip.py:328-343), with the
             # kernel the unfused site would draw, so the RT stream is the same
             w = sample_rt_kernel(self._leaf(params, f"{prefix}.conv"),
@@ -232,7 +233,7 @@ class SkipNet(nn.Module):
                                            pad_mode=s.pad_mode)
         x = self._conv_site(s, params, prefix, x, generator, training,
                             reparam, dropout_p, skip_bias)
-        return layers.leaky_relu(layers.batch_norm_train(x, scale, offset))
+        return self.act(layers.batch_norm_train(x, scale, offset))
 
     def _apply_level(self, params, i, x, generator, training, reparam,
                      dropout_p):

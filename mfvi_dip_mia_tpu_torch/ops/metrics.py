@@ -4,6 +4,8 @@ mfvi_dip_mia_tpu/ops/metrics.py), NCHW:
   * PSNR = 10*log10(1 / mse), images with max value 1
   * SSIM with an 11x11 Gaussian window (sigma 1.5), zero-padded, C1=0.01^2,
     C2=0.03^2; the separable blur runs as two banded-matrix products.
+  * UCE, the uncertainty calibration error over equal-width uncertainty
+    bins (metrics.py:102-140).
 """
 
 from __future__ import annotations
@@ -72,3 +74,40 @@ def ssim(image_true: torch.Tensor, image_test: torch.Tensor,
     ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
     return ssim_map.mean()
+
+
+def uce(errors: torch.Tensor, uncert: torch.Tensor, n_bins: int = 15,
+        outlier: float = 0.0, value_range=None) -> tuple:
+    """Uncertainty Calibration Error on the tensors' device: the
+    uncertainties binned into ``n_bins`` equal-width bins over
+    ``value_range`` (default: their min and max; a bin is (lower, upper]),
+    and |mean error - mean uncertainty| * the bin's share summed over the
+    bins whose share is above ``outlier``.
+
+    Returns (uce, err_in_bin, unc_in_bin, prop_in_bin), the per-bin tensors
+    of length ``n_bins`` with NaN for the skipped bins. The bounds are JAX's
+    linspace, lo * (1 - i/n) + hi * i/n in f32 with the last one hi."""
+    errors = errors.reshape(-1).float()
+    uncert = uncert.reshape(-1).float()
+    if value_range is None:
+        lo, hi = uncert.min(), uncert.max()
+    else:
+        lo, hi = (torch.tensor(v, dtype=torch.float32, device=uncert.device)
+                  for v in value_range)
+    t = torch.arange(n_bins, dtype=torch.float32,
+                     device=uncert.device) / n_bins
+    bounds = torch.cat([lo * (1 - t) + hi * t, hi.reshape(1)])
+    lowers, uppers = bounds[:-1], bounds[1:]
+    in_bin = ((uncert[None, :] > lowers[:, None])
+              & (uncert[None, :] <= uppers[:, None])).float()
+    count = in_bin.sum(dim=1)
+    prop = count / uncert.shape[0]
+    safe = torch.clamp(count, min=1.0)
+    err_in_bin = (in_bin * errors[None, :]).sum(dim=1) / safe
+    unc_in_bin = (in_bin * uncert[None, :]).sum(dim=1) / safe
+    keep = prop > outlier
+    total = torch.where(keep, (unc_in_bin - err_in_bin).abs() * prop,
+                        0.0).sum()
+    nan = torch.full_like(err_in_bin, float("nan"))
+    return (total, torch.where(keep, err_in_bin, nan),
+            torch.where(keep, unc_in_bin, nan), prop)

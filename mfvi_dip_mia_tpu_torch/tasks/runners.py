@@ -6,7 +6,7 @@ A run creates ``save_path/<timestamp>/`` with ``locals.txt``, fits, takes a
 dip, runners.py:179), optionally plots, writes ``save.npz`` in the
 reference's per-task key schema, and returns the final
 smoothed-reconstruction PSNR (the BO objective). All 16 (task, method)
-pairs run; ``early_stop`` is refused (ROADMAP Queue 1 item 6).
+pairs run; ``early_stop`` goes to ``fit`` (runners.py:162).
 """
 
 from __future__ import annotations
@@ -116,12 +116,11 @@ def run_task(task: str, method_name: str, *, img: int = 0,
     another length needs ``plot=False, save=False``. ``layout``, the JAX
     trainer's NHWC / channels-first knob, is taken so that
     ``configs/*.json`` run_params pass unchanged, and changes nothing: the
-    port is NCHW. ``compute_dtype`` is 'f32' (default) or 'bf16'."""
+    port is NCHW. ``compute_dtype`` is 'f32' (default) or 'bf16'.
+    ``early_stop={'patience': iters, 'min_delta': dB}`` stops the fit once
+    its smoothed PSNR plateaus (trainer.py::fit)."""
     from ..utils import viz
 
-    if early_stop is not None:
-        raise NotImplementedError(
-            "early_stop is not ported yet (ROADMAP Queue 1 item 6)")
     # reference quirks: ct and dip/mfvi runners zero weight_decay
     if task == "ct" or method_name in ("dip", "mfvi"):
         weight_decay = 0.0
@@ -171,6 +170,7 @@ def run_task(task: str, method_name: str, *, img: int = 0,
                   show_every=show_every, rng=rng, device=dev,
                   metrics_every=metrics_every, compute_dtype=compute_dtype,
                   collect_snapshots=(plot or save), chunk_iters=chunk_iters,
+                  early_stop=early_stop,
                   log_fn=log_fn if log_every_chunk else None,
                   snapshot_fn=snapshot_fn if plot else None)
 

@@ -9,7 +9,11 @@ Semantics kept from the JAX step (each with its reference line there):
     under ``reparam='lrt'`` none: the net samples each site in activation
     space from the fit's generator (trainer.py:198, :251-254). Prior sigma
     = sqrt(temp) * sigma; the KL value under no_grad, its gradient fused
-    into the flat AdamW (optim/fused_adamw.py)
+    into the flat AdamW (optim/fused_adamw.py). A scale-mixture
+    ``Method.prior`` (a 'pi' key) takes the MC KL instead
+    (vi.py::kl_mfvi_mc, one mixture draw per step from the fit's
+    generator): loss + temp * KL goes through autograd and the AdamW adds
+    no analytic KL gradient (trainer.py:257-268, :288-294)
   * dip / mcd / sgld: the torch-default init, no draw and no KL; mcd's
     forward draws its dropout masks from the fit's generator at
     ``dropout_p`` (trainer.py:253)
@@ -21,7 +25,8 @@ Semantics kept from the JAX step (each with its reference line there):
     lr (the reference quirk of trainer.py:275-287)
   * AdamW's weight decay is the Method's (trainer.py:275; the runners zero
     it for dip, mfvi and ct)
-  * NaN guard: a non-finite loss skips the parameter AND optimizer update;
+  * NaN guard: a non-finite loss (+ temp * KL under mfvi) skips the
+    parameter AND optimizer update;
     under sgld the parameters keep their noise either way (trainer.py:299)
   * EMA out_avg = 0.99 * out_avg + 0.01 * out_t, seeded with the first
     iterate (a select on the device's iteration index, trainer.py:303)
@@ -41,12 +46,16 @@ its metric row) and every iteration is a replay: the counterpart of JAX's
 compiled chunk (trainer.py:386-424). ``eager=True`` runs the same step
 function eagerly instead, as the CPU always does. The host reads the metric
 rows once per ``chunk_iters`` iterations and the snapshot maps after each
-``show_every`` boundary, never inside a step.
+``show_every`` boundary, never inside a step. Between chunks ``fit`` may
+write a checkpoint (every StepState tensor, the generator's state, the host
+rows and snapshots) and resume from one before it captures, and an opt-in
+early stop decides on the rows the host has read (trainer.py:557-579).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -77,6 +86,10 @@ class Method:
     weight_decay: float = 0.0      # AdamW's decoupled weight decay
     gamma: float = 0.9999          # sgld lr decay
     param_noise_sigma: float = 2.0 # sgld (trainer.py:86)
+    # an optional scale-mixture prior in the reference's dict schema
+    # ({'mu': [..], 'sigma': [..], 'pi': [..]}): with 'pi' the MFVI KL is
+    # the MC estimate against it; None (or no 'pi') keeps the scalar prior
+    prior: dict | None = None
 
     @property
     def prior_sigma(self) -> float:
@@ -87,7 +100,9 @@ class Method:
 class HyperParams(NamedTuple):
     """The fit's numeric hyperparameters. The JAX trainer traces them so
     that one compiled graph serves every BO candidate; the port captures its
-    graph once per fit, so here they are plain floats, constants of it."""
+    graph once per fit, so here they are plain floats, constants of it. The
+    mixture prior's components are tuples, empty for the scalar prior; its
+    scales carry the +1e-6 stabilizer (trainer.py:111-132)."""
     lr: float
     temp: float
     prior_sigma: float
@@ -95,13 +110,22 @@ class HyperParams(NamedTuple):
     gamma: float
     dropout_p: float
     param_noise_sigma: float
+    prior_loc: tuple = ()
+    prior_scale: tuple = ()
+    prior_pi: tuple = ()
 
     @staticmethod
     def of(method: Method, lr: float) -> "HyperParams":
+        mix = ((), (), ())
+        if method.prior is not None and "pi" in method.prior:
+            mix = (tuple(float(v) for v in method.prior["mu"]),
+                   tuple(float(v) + vi.PRIOR_SIGMA_STABILIZER
+                         for v in method.prior["sigma"]),
+                   tuple(float(v) for v in method.prior["pi"]))
         return HyperParams(float(lr), float(method.temp), method.prior_sigma,
                            float(method.weight_decay), float(method.gamma),
                            float(method.dropout_p),
-                           float(method.param_noise_sigma))
+                           float(method.param_noise_sigma), *mix)
 
 
 @dataclasses.dataclass
@@ -195,6 +219,9 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
     noise_std = REG_NOISE_STD
     is_mfvi = method_name == "mfvi"
     is_sgld = method_name == "sgld"
+    # the scale-mixture prior's tensors, made before any capture
+    mix = (vi.Mixture.of(hp.prior_loc, hp.prior_scale, hp.prior_pi, z.device)
+           if is_mfvi and hp.prior_pi else None)
     dropout_p = hp.dropout_p if method_name == "mcd" else None
     noise_at = sgld.kernel_index(params) if is_sgld else None
     # ct sgld keeps the constant lr (trainer.py:275-287)
@@ -223,9 +250,13 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
         out = problem.net(leaves, x, gen, reparam=reparam,
                           dropout_p=dropout_p).float()
         loss = problem.data_loss(out)
+        if mix is not None:
+            # the MC KL's gradient through autograd, none from the AdamW
+            loss = loss + hp.temp * vi.kl_mfvi_mc(params.with_flat(p), gen,
+                                                  mix)
         loss.backward()
         with torch.no_grad():
-            if is_mfvi:
+            if is_mfvi and mix is None:
                 kl = vi.kl_mfvi(params.with_flat(s.flat), 0.0,
                                 hp.prior_sigma)
                 ok = torch.isfinite(loss + hp.temp * kl)
@@ -236,7 +267,7 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
                 lr=hp.lr if decay is None else decay.at(s.it),
                 n_var=params.n_var, weight_decay=hp.weight_decay,
                 kl_temp=hp.temp, kl_prior_sigma=hp.prior_sigma,
-                use_kl=is_mfvi)
+                use_kl=is_mfvi and mix is None)
             for old, upd in zip((s.flat, s.m, s.v, s.count), new):
                 old.copy_(torch.where(ok, upd, old))
 
@@ -303,15 +334,19 @@ def capture_step(step: Callable, state: StepState,
     capture's side stream: that builds the kernels, sets their attributes,
     and fills every lazy cache (the dw tickets, the pad tables, the Radon
     plans, the interpolation and blur matrices) before capture, so a capture
-    records kernels only and puts nothing of its pool into a cache. ``gen``
-    is reset to where it was, so the fit's random stream starts where the
-    eager step's would. Raises if a capture fails."""
+    records kernels only and puts nothing of its pool into a cache. The
+    copy's iteration index starts at 0, so a resumed state warms up in
+    bounds too. ``gen`` is reset to where it was, so the fit's random
+    stream starts where the eager step's would. Raises if a capture
+    fails."""
     dev = state.flat.device
     side = capture_stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     start = gen.get_state()
     with torch.cuda.stream(side):
         scratch = state.clone()
+        # a fit resumed at its last chunk would write a row past the end
+        scratch.it.zero_()
         for with_metrics in (False, True):
             step(scratch, with_metrics)
     torch.cuda.current_stream(dev).wait_stream(side)
@@ -333,6 +368,63 @@ def capture_variant(step: Callable, state: StepState, gen: torch.Generator,
     return graph, launches
 
 
+def save_fit_checkpoint(path: str, state: StepState,
+                        generator: torch.Generator, chunk: int,
+                        host: dict) -> None:
+    """A mid-fit checkpoint (trainer.py:480-488) as one npz: every StepState
+    tensor by name ('state_<field>'), the fit generator's state, ``chunk``
+    (the chunk the fit resumes at) and the host's metric rows and snapshot
+    stacks ('host_<name>'). Written through a temporary file and renamed,
+    so a fit cut during a save leaves the previous checkpoint whole."""
+    payload = {f"state_{f.name}": getattr(state, f.name).cpu().numpy()
+               for f in dataclasses.fields(state)}
+    payload.update({f"host_{k}": v for k, v in host.items()})
+    tmp = f"{path}.tmp.npz"
+    np.savez(tmp, chunk=chunk, generator=generator.get_state().numpy(),
+             **payload)
+    os.replace(tmp, path)
+
+
+def load_fit_checkpoint(path: str, state: StepState,
+                        generator: torch.Generator) -> tuple:
+    """Load a ``save_fit_checkpoint`` file into ``state`` (in place, on its
+    tensors' device) and ``generator``; returns (chunk, {name: host
+    array})."""
+    with np.load(path) as z:
+        for f in dataclasses.fields(state):
+            getattr(state, f.name).copy_(
+                torch.from_numpy(z[f"state_{f.name}"]))
+        generator.set_state(torch.from_numpy(z["generator"]))
+        host = {k[len("host_"):]: z[k] for k in z.files
+                if k.startswith("host_")}
+        return int(z["chunk"]), host
+
+
+class _EarlyStop:
+    """Host-side early stopping on the smoothed-recon PSNR (the BO
+    objective), a copy of trainer.py:557-579. Opt-in: a fit stops once the
+    best smoothed PSNR has not improved by ``min_delta`` dB within
+    ``patience`` iterations, decided once per chunk on the rows the host
+    has read."""
+
+    def __init__(self, spec: dict):
+        self.patience = int(spec.get("patience", 5000))
+        self.min_delta = float(spec.get("min_delta", 0.05))
+        self.best = -np.inf
+        self.best_iter = 0
+
+    def should_stop(self, psnr_sm_rows: np.ndarray, start: int) -> bool:
+        col = np.asarray(psnr_sm_rows)
+        finite = np.isfinite(col)
+        if finite.any():
+            i = int(np.nanargmax(np.where(finite, col, -np.inf)))
+            if col[i] > self.best + self.min_delta:
+                self.best = float(col[i])
+                self.best_iter = start + i
+                return False
+        return (start + len(col) - 1 - self.best_iter) >= self.patience
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -346,7 +438,9 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         rng: np.random.Generator | None = None,
         log_fn: Optional[Callable] = None,
         reparam: str = "rt", chunk_iters: Optional[int] = None,
-        eager: bool = False) -> FitResult:
+        eager: bool = False, checkpoint_path: Optional[str] = None,
+        checkpoint_every_chunks: int = 100, resume: bool = False,
+        early_stop: Optional[dict] = None) -> FitResult:
     """Run one DIP fit of ``method`` on ``device`` (default: the card).
     Returns the per-iteration metric traces, the snapshot stacks and the
     final smoothed PSNR as ``final_psnr``. ``snapshot_fn(i, recon, epi,
@@ -357,6 +451,15 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
     that drew the problem's noise (trainer.py:502-513). ``reparam`` is 'rt'
     (weight-space draws) or 'lrt' (local reparameterization, on the LRT
     double-conv kernel).
+
+    ``checkpoint_path`` writes a checkpoint after chunk s + 1 whenever
+    s + 1 < the chunk count and (s + 1) % ``checkpoint_every_chunks`` == 0
+    (trainer.py:736-742); ``resume=True`` starts from that file when it
+    exists, and gives the uninterrupted fit's bits. ``early_stop=
+    {'patience': iters, 'min_delta': dB}`` ends the fit once the smoothed
+    PSNR plateaus (``_EarlyStop``): the rows after the last chunk run are
+    NaN, ``executed`` counts the iterations run and ``final_psnr`` is the
+    last finite one.
 
     On the card every iteration is a replay of the step's CUDA graph
     (``capture_step``); ``eager=True`` runs the step eagerly instead, with
@@ -382,6 +485,16 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
     unc_ale = np.zeros((n_snaps, mc, h, w), np.float32)
     # dip's uncertainty maps stay zero (trainer.py:725)
     maps = method.name != "dip"
+    host = {"rows": rows, "recons": recons, "unc_epi": unc_epi,
+            "unc_ale": unc_ale}
+    n_chunks = -(-num_iter // chunk)
+    start_chunk = 0
+    if resume and checkpoint_path and os.path.isfile(checkpoint_path):
+        # before the capture: it resets the generator to where it finds it
+        start_chunk, saved = load_fit_checkpoint(checkpoint_path, state,
+                                                 prep.generator)
+        for name, dst in host.items():
+            dst[...] = saved[name]
 
     t0 = time.perf_counter()
     graphs = (capture_step(prep.step, state, prep.generator)
@@ -389,7 +502,10 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
     warmup_steps = 0 if graphs is None else len(graphs)   # one per variant
     t_first = None
     replays = 0
-    for start in range(0, num_iter, chunk):
+    stop = _EarlyStop(early_stop) if early_stop else None
+    executed = num_iter
+    for s in range(start_chunk, n_chunks):
+        start = s * chunk
         end = min(start + chunk, num_iter)
         snaps = []
         for it in range(start, end):
@@ -423,12 +539,20 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         if t_first is None:
             _sync(dev)
             t_first = time.perf_counter()
+        if (checkpoint_path and s + 1 < n_chunks
+                and (s + 1) % checkpoint_every_chunks == 0):
+            save_fit_checkpoint(checkpoint_path, state, prep.generator, s + 1,
+                                host)
+        if stop is not None and stop.should_stop(rows[start:end, 4], start):
+            executed = end
+            rows[end:] = np.nan
+            break
 
     _sync(dev)
     graphs = None                  # frees the graphs and their memory pools
     total_s = time.perf_counter() - t0
-    first_iters = min(chunk, num_iter)
-    steady_iters = num_iter - first_iters
+    first_iters = min(chunk, num_iter - start_chunk * chunk)
+    steady_iters = executed - start_chunk * chunk - first_iters
     steady_s = time.perf_counter() - t_first
     psnrs = rows[:, 2:5]
     valid = np.where(np.isfinite(psnrs[:, 2]))[0]
@@ -442,5 +566,5 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         net_input=prep.net_input,
         iters_per_sec=(steady_iters / steady_s
                        if steady_iters > 0 and steady_s > 0 else 0.0),
-        compile_seconds=t_first - t0, final_psnr=final, executed=num_iter,
+        compile_seconds=t_first - t0, final_psnr=final, executed=executed,
         wall_seconds=total_s, replays=replays, warmup_steps=warmup_steps)

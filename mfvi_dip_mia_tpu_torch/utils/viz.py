@@ -1,5 +1,6 @@
 """Host-side plots and image dumps of a run (counterpart of
-mfvi_dip_mia_tpu/utils/viz.py): loss / PSNR / SSIM curves and PNGs.
+mfvi_dip_mia_tpu/utils/viz.py): loss / PSNR / SSIM curves, the calibration
+diagram and PNGs.
 
 matplotlib (Agg) and PIL are imported inside the functions, so the port
 imports where they are missing; a run with ``plot=True`` there raises
@@ -68,6 +69,21 @@ def plot_results(mse_corrupted, mse_gt, psnrs, ssims, out_dir, file=None):
                 axs[i].legend()
         plt.savefig(f"{out_dir}/{name}.png")
     plt.close("all")
+
+
+def plot_uncert(errors_per_bin, uncert_per_bin, path):
+    """Calibration diagram: error against uncertainty per bin, beside the
+    diagonal (viz.py:145-155)."""
+    plt = _plt()
+    fig, ax = plt.subplots()
+    ax.plot([0, max(float(np.nanmax(uncert_per_bin)), 1e-9)], "--",
+            color="gray")
+    ax.plot(np.asarray(uncert_per_bin), np.asarray(errors_per_bin), "o-")
+    ax.set_xlabel("uncertainty")
+    ax.set_ylabel("error")
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
 
 
 def save_image_png(img_chw: np.ndarray, path: str):

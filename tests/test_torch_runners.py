@@ -6,6 +6,7 @@ decomposition on the same stacked outputs, and the configs read alike."""
 
 import glob
 import os
+import types
 
 import numpy as np
 import pytest
@@ -116,17 +117,41 @@ def test_den_run_with_plots(small, tmp_path):
     assert "mfvi PSNR_max:" in open(os.path.join(out_dir, "locals.txt")).read()
 
 
-def test_unported_runners_raise(tmp_path):
-    """All 16 runners are ported; each still refuses early_stop (ROADMAP
-    Queue 1 item 6) before it writes anything."""
+class _FitCalled(Exception):
+    pass
+
+
+def test_every_runner_passes_early_stop_to_fit(small, tmp_path, monkeypatch):
+    """All 16 runners are ported, and each hands ``early_stop`` to ``fit``
+    (JAX runners.py:162); a den/dip run with an impossible min_delta really
+    stops after its patience, before its budget: with chunks of 4 and
+    patience 8 its best row, in iterations 0-3, is 8 iterations old at the
+    end of chunk 2 wherever it lies."""
     assert len(TR.ALL_RUNNERS) == 16
     assert set(TR.ALL_RUNNERS) == set(JR.ALL_RUNNERS)
-    for name, runner in TR.ALL_RUNNERS.items():
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            runner(device="cpu", early_stop={"patience": 5},
-                   save_path=str(tmp_path))
-    assert os.listdir(tmp_path) == []
+    spec = {"patience": 8, "min_delta": 100.0}
+    psnr = TR.run_den_dip(device="cpu", num_iter=40, show_every=4, seed=2,
+                          early_stop=spec, plot=False, save=False)
+    res = small["res"]
+    assert small["kw"]["early_stop"] == spec
+    assert res.executed == 12 and np.isnan(res.psnrs[12:]).all()
+    assert psnr == res.final_psnr == res.psnrs[11, 2]
 
+    seen = []
+
+    def refuse(problem, method, **kw):
+        seen.append((problem.task, method.name, kw["early_stop"]))
+        raise _FitCalled
+
+    monkeypatch.setattr(TR, "build_problem", lambda task, method, img, **kw:
+                        types.SimpleNamespace(task=task))
+    monkeypatch.setattr(TR, "fit", refuse)
+    for runner in TR.ALL_RUNNERS.values():
+        with pytest.raises(_FitCalled):
+            runner(device="cpu", early_stop=spec, plot=False, save=False)
+    assert [e for *_, e in seen] == [spec] * 16
+    assert {f"run_{t}_{m}" for t, m, _ in seen} == set(TR.ALL_RUNNERS)
+    assert os.listdir(tmp_path) == []
 
 def test_method_for_matches_jax():
     for task, name in (("den", "mfvi"), ("ct", "mcd"), ("den", "mcd")):

@@ -1,6 +1,7 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: one numpy eps vector feeding both sides' whole-tree RT draw, the
-small nets the port's tests run, and CPU emulations of the tensor-core
+package: one numpy eps vector feeding both sides' whole-tree RT draw, fixed
+tables for the other draws of a step (dropout masks, SGLD noise, mixture
+draws), the small nets the port's tests run, and CPU emulations of the tensor-core
 conv kernels' arithmetic (csrc/conv_mma.cuh): 3xTF32 products, the FULL
 dx's indexing and split of K, the dw tile's staging and summation order."""
 
@@ -79,6 +80,42 @@ def eps_pair(jax_tree, port_params: tvi.FlatParams, seed=0):
     port = [bridge.leaf_from_jax(name, by_name[name]).reshape(-1)
             for name, _ in tvi.eps_order(port_params)]
     return np.concatenate(chunks), torch.cat(port)
+
+
+class MixtureTable:
+    """One fixed scale-mixture draw per variational element, keyed by leaf
+    name (as the JAX tree holds it): a component index drawn with weights
+    ``pi`` and a standard normal, reused every step. JAX's
+    vi._mixture_sample is replaced by ``jax_sample`` (the leaves of one KL
+    come in jax_eps_order), the port's vi.mixture_draw by ``port_draw``
+    (the same elements in the port's eps_order and layout)."""
+
+    def __init__(self, jax_tree, port_params: tvi.FlatParams, seed, pi):
+        rng = np.random.default_rng(seed)
+        p = np.asarray(pi, np.float64) / np.sum(pi)
+        self.order = jax_eps_order(jax_tree)
+        self.by_name = {
+            name: (rng.choice(len(p), size=shape, p=p),
+                   rng.standard_normal(shape).astype(np.float32))
+            for name, shape in self.order}
+        port = [(bridge.leaf_from_jax(n, self.by_name[n][0]).long(),
+                 bridge.leaf_from_jax(n, self.by_name[n][1]))
+                for n, _ in tvi.eps_order(port_params)]
+        self.comp = torch.cat([c.reshape(-1) for c, _ in port])
+        self.z = torch.cat([z.reshape(-1) for _, z in port])
+        self.jax_calls = 0
+
+    def jax_sample(self, key, shape, loc, scale, pi):
+        name, want = self.order[self.jax_calls % len(self.order)]
+        self.jax_calls += 1
+        assert tuple(shape) == want, (name, shape, want)
+        comp, z = self.by_name[name]
+        return (jnp.asarray(loc)[comp] + jnp.asarray(scale)[comp]
+                * jnp.asarray(z))
+
+    def port_draw(self, n, cum, generator):
+        assert n == self.z.numel()
+        return self.comp.to(cum.device), self.z.to(cum.device)
 
 
 def dropout_kwargs(method, p):
