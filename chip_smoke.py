@@ -38,7 +38,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``fit(..., eager=True)``) for its it/s beside the graph's:
    bench.py's CT configuration (256^2, input depth 16, temp 2.2e-10, sigma
    1.7e-7, lr 1e-3, seed 1, bf16, metrics every 10) through ``fit``, 100
-   warm-up and 200 timed iterations; the den/MFVI f32 fit of 500 iterations
+   warm-up and 200 timed iterations; the den/MFVI f32 fit of 300 iterations
    (bench.py --metric train's configuration) through the user's entry point
    ``run_den_mfvi`` (save.npz into a temporary directory, no plots), with
    its 25-sample MC posterior summary, and the MC posterior samples per
@@ -148,6 +148,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against the same report on the CPU (PSNR 1e-4 dB, SSIM 1e-6, UCE 1e-6
    relative), each classical baseline and FBP timed on the card, and
    ``evaluation.main`` once.
+10. (run after 9) The library tail, at bench.py's den widths (256^2, input
+   depth 16, f32, lr 1e-3, seed 1), each part's seconds by
+   ``utils/profiling.py::PhaseTimer``: den/MFVI on the 5-scale net built
+   with ``downsample_mode="lanczos2"`` (two graph fits of 300 iterations
+   and an eager one, equal bits, the launches per step exactly den's in
+   graph and eager fits, the final smoothed PSNR above iteration 0's),
+   and with "avg" and "max" (a graph and an eager fit of 100 iterations
+   each, equal bits, the same launches); the conv kernels' device time at
+   the five pooled down1 sites (stride 1, full resolution; phase 2 holds
+   the kernels at their shapes) beside cuDNN's; ``gaussian_dropout_conv``
+   at three den site shapes (one ``lrt_conv_fwd`` launch a call, its
+   moments against the plain double conv, its output and gradients
+   against the CPU's with the same noise); the ClassificationTrainer /
+   Predictor problem of JAX tests/test_aux.py on the card (accuracy above
+   0.9) and one ``make_elbo_step`` against the CPU's with the same draws;
+   ``sgld``, ``psgld`` and ``param_noise_transform`` on the den net's
+   parameters (finite; noise-free against the CPU); ``prune_mask_by_snr``
+   (30 %) on the lanczos2 fit's parameters; ``profiling.trace`` around a
+   5-iteration graph fit. ``launches_by_path["lib"]``: the launches of the
+   three pooled graph fits and of the Gaussian-dropout calls.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -175,7 +195,7 @@ SIZE = 256
 DEVICE = "cuda"
 CT_ITERS_WARM = 100            # first show_every chunk: warm-up
 CT_ITERS_TIMED = 200
-DEN_ITERS = 500
+DEN_ITERS = 300
 MC_SAMPLES_TIMED = 100
 DEN_AB_ITERS = 110             # unprofiled den steps of the fused A/B
 PATH_ITERS_WARM = 100          # paths A and B: first chunk, then timed
@@ -442,18 +462,21 @@ def conv_sites(net, size: int) -> list[dict]:
     the stride-2 parity planes (ops/kernels/cf_conv.py::conv2d_cf). The
     operations a bound counts are the site's own conv's (``flops``, one
     contraction, and ``x_elems``, its padded input): a stride-2 site's plane
-    form holds 16 taps per output where the k=3 conv needs 9."""
+    form holds 16 taps per output where the k=3 conv needs 9. A pooled
+    down1 site (``downsample_mode`` other than 'stride') convolves at
+    stride 1, its output at its input's resolution."""
     sites = []
 
     def add(name, site, s_in, needs_dx=True):
         k = site.kernel
+        stride = 1 if site.downsample_mode != "stride" else site.stride
         hp = s_in + 2 * ((k - 1) // 2)
-        ho = (hp - k) // site.stride + 1
+        ho = (hp - k) // stride + 1
         own = dict(flops=2.0 * site.c_out * site.c_in * k * k * ho * ho,
                    x_elems=site.c_in * hp * hp)
-        if site.stride == 1:
+        if stride == 1:
             xp, w = (site.c_in, hp, hp), (site.c_out, site.c_in, k, k)
-        elif site.stride == 2 and k > 1:
+        elif stride == 2 and k > 1:
             k2 = (k + 1) // 2
             m = (hp - k) // 2 + 1 + k2 - 1
             xp, w = (4 * site.c_in, m, m), (site.c_out, 4 * site.c_in, k2, k2)
@@ -1619,6 +1642,7 @@ def cache_state() -> dict:
     matrices and plan tables, the bilinear and blur matrices), and the size
     of the host-side plan caches (dc_plan, the dense and conv plans)."""
     import mfvi_dip_mia_tpu_torch.nn.layers as L
+    import mfvi_dip_mia_tpu_torch.ops.downsampler as DS
     import mfvi_dip_mia_tpu_torch.ops.metrics as M
     import mfvi_dip_mia_tpu_torch.ops.pad as PD
     import mfvi_dip_mia_tpu_torch.ops.radon as R
@@ -1629,6 +1653,8 @@ def cache_state() -> dict:
                            ("radon._MATRIX_CACHE", R._MATRIX_CACHE),
                            ("pad._tables", PD._tables.entries),
                            ("layers._matrix_on", L._matrix_on.entries),
+                           ("downsampler._matrices_on",
+                            DS._matrices_on.entries),
                            ("metrics._blur_on", M._blur_on.entries),
                            ("radon_dense._device_plan",
                             radon_dense._device_plan.entries))}
@@ -3298,23 +3324,30 @@ REPORT_ITERS = 100            # each report run: 101 iterations
 REPORT_PSNR_DB, REPORT_SSIM, REPORT_UCE_REL = 1e-4, 1e-6, 1e-6
 
 
-def den_tail_problem(act_fun: str = "LeakyReLU"):
+def den_tail_problem(act_fun: str = "LeakyReLU",
+                     downsample_mode: str = "stride"):
     """bench.py's den problem (256^2 synthetic x-ray, input depth 16) on the
-    card; with another ``act_fun`` its net is the same 5-scale net built
-    with that activation."""
+    card; with another ``act_fun`` or ``downsample_mode`` its net is the
+    same 5-scale net built with that activation or pooling."""
     import dataclasses
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
-    from mfvi_dip_mia_tpu_torch.nn import build_skip_net
     use_bench_images()
     problem = P.build_problem("den", "mfvi", 0, input_depth=16,
                               device=DEVICE)
-    if act_fun != "LeakyReLU":
-        widths = [16, 32, 64, 128, 128]
-        problem = dataclasses.replace(problem, net=build_skip_net(
-            16, n_channels=2, pad="reflection", skip_n33d=widths,
-            skip_n33u=widths, skip_n11=4, num_scales=5,
-            upsample_mode="bilinear", act_fun=act_fun))
+    if act_fun != "LeakyReLU" or downsample_mode != "stride":
+        problem = dataclasses.replace(problem, net=den_net(
+            act_fun=act_fun, downsample_mode=downsample_mode))
     return problem
+
+
+def den_net(**kw):
+    """bench.py's 5-scale den net (widths [16, 32, 64, 128, 128], skip 4,
+    input depth 16, reflection pad, bilinear up), with ``kw`` on top."""
+    from mfvi_dip_mia_tpu_torch.nn import build_skip_net
+    widths = [16, 32, 64, 128, 128]
+    return build_skip_net(16, n_channels=2, pad="reflection",
+                          skip_n33d=widths, skip_n33u=widths, skip_n11=4,
+                          num_scales=5, upsample_mode="bilinear", **kw)
 
 
 def tail_fits() -> dict:
@@ -3670,6 +3703,470 @@ def tail_phase() -> dict:
     return out
 
 
+
+# -- phase 10: the library tail ------------------------------------------------
+
+LIB_ITERS = 300               # the lanczos2 fits: 100 warm + 200 timed
+LIB_SHOW = 100
+POOL_ITERS = 100              # the avg and max fits: 50 warm + 50 timed
+POOL_SHOW = 50
+# launches per step of phase 10's pooled den fits (PERF.md §6): a pooled
+# down1 site runs its stride-1 conv on cf_conv_fwd (level 0's without a
+# dx) and cf_conv_dw, where the stride-2 site ran its parity planes, so
+# den/MFVI's counts hold; the pools are plain PyTorch
+POOLED_LAUNCHES = STEP_LAUNCHES["5-scale"]
+GAUSS_P = 0.3
+# Gaussian dropout at three of the den net's stride-1 site shapes: (C, O,
+# size, k), level 0's up, level 2's down2, level 4's up
+GAUSS_SITES = ((36, 16, 256, 3), (64, 64, 64, 3), (256, 128, 16, 3))
+CLS_POINTS, CLS_EPOCHS = 256, 30
+SGLD_STEPS = 20
+# one ELBO step, card against CPU, as a share of the largest value
+ELBO_REL = 1e-5
+# a noise-free SGLD-family run, card against CPU, per element
+SGLD_RTOL = 1e-6
+TRACE_ITERS = 5
+
+
+def pooled_fits() -> dict:
+    """den/MFVI f32 at SIZE^2 (temp 5.66e-7, sigma 1.46e-5, lr 1e-3, seed
+    1) on the 5-scale net with ``downsample_mode`` lanczos2 (two graph fits
+    of LIB_ITERS iterations and an eager one), avg and max (a graph fit and
+    an eager one of POOL_ITERS): every iteration of a graph fit a replay,
+    the launches per step exactly POOLED_LAUNCHES in graph and eager fits,
+    equal bits, the lanczos fit's final smoothed PSNR finite and above
+    iteration 0's. Launch counters are zeroed just before each graph fit and
+    read just after it."""
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+
+    out = {}
+    for mode, iters, show, graphs in (("lanczos2", LIB_ITERS, LIB_SHOW, 2),
+                                      ("avg", POOL_ITERS, POOL_SHOW, 1),
+                                      ("max", POOL_ITERS, POOL_SHOW, 1)):
+        problem = den_tail_problem(downsample_mode=mode)
+        if [c.down1.downsample_mode for c in problem.net.levels] != [mode] * 5:
+            raise AssertionError(f"the {mode} net's down1 sites are not "
+                                 "pooled")
+        method = Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
+        kw = dict(num_iter=iters - 1, show_every=show, lr=1e-3, seed=1,
+                  metrics_every=1, collect_snapshots=False, device=DEVICE)
+        kernels.reset_launches()
+        res = fit(problem, method, **kw)
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        again = [fit(problem, method, **kw) for _ in range(graphs - 1)]
+        kernels.reset_launches()
+        eager = fit(problem, method, eager=True, **kw)
+        eager_launches = {k.name: k.launches for k in kernels.KERNELS}
+        equal = all(same_bits(res, r) for r in again + [eager])
+        log(f"[10] den/mfvi f32 {SIZE}^2, {mode} pools: graph "
+            f"{res.iters_per_sec:.2f} it/s, eager {eager.iters_per_sec:.2f} "
+            f"it/s over the last {iters - show}; final smoothed PSNR "
+            f"{res.final_psnr:.3f} dB (iteration 0: {res.psnrs[0, 2]:.3f}); "
+            f"{graphs} graph fit(s) and the eager fit "
+            + ("equal" if equal else "DIFFER"))
+        per_step = hold_step_launches(f"the {mode} graph fit", launches,
+                                      steps_run(res), POOLED_LAUNCHES)
+        hold_step_launches(f"the {mode} eager fit", eager_launches,
+                           eager.executed, POOLED_LAUNCHES)
+        log(f"     launches per step {per_step} (as predicted, graph and "
+            "eager)")
+        for r in [res] + again:
+            hold_replays(f"the {mode} fit", r)
+        if eager.replays:
+            raise AssertionError("an eager fit replayed a graph")
+        if not np.isfinite(res.final_psnr) or (
+                mode == "lanczos2" and res.final_psnr <= res.psnrs[0, 2]):
+            raise AssertionError(f"the {mode} fit's PSNR is not finite, or "
+                                 "the lanczos2 fit's not above iteration "
+                                 "0's")
+        if not equal:
+            raise AssertionError(f"the {mode} fits gave different bits")
+        out[mode] = dict(iters_per_sec=res.iters_per_sec,
+                         eager_iters_per_sec=eager.iters_per_sec,
+                         final_psnr=res.final_psnr,
+                         psnr_it0=float(res.psnrs[0, 2]),
+                         steps_run=steps_run(res), launches=launches,
+                         launches_per_step=per_step, equal_bits=equal,
+                         result=res, problem=problem, method=method, kw=kw)
+    return out
+
+
+def pooled_site_times(net) -> dict:
+    """The profiler's device time of cf_conv_fwd (forward and dx) and
+    cf_conv_dw over the pooled net's five down1 sites (stride 1 at full
+    resolution) and at each site, beside cuDNN's for the same calls (TF32
+    off), f32; and the same calls' time by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    sites = [s for s in conv_sites(net, SIZE) if s["name"].endswith("down1")]
+    fwd, fwd_l, dw, dw_l, names = [], [], [], [], []
+    for s in sites:
+        xp, w, g = conv_operands(s, torch.float32, gen)
+        k = w.shape[2]
+        fwd.append(lambda xp=xp, w=w: tcf.conv_valid_fwd(xp, w))
+        fwd_l.append(lambda xp=xp, w=w: F.conv2d(xp[None], w))
+        names.append(f"{s['name']} fwd")
+        if s["needs_dx"]:
+            fwd.append(lambda g=g, w=w: tcf.conv_dx(g, w))
+            fwd_l.append(lambda xp=xp, g=g, w=w: conv2d_input(
+                (1,) + tuple(xp.shape), w, g[None]))
+            names.append(f"{s['name']} dx")
+        dw.append(lambda xp=xp, g=g, k=k: tcf.conv_dw(xp, g, k, k))
+        dw_l.append(lambda xp=xp, g=g, w=w: conv2d_weight(
+            xp[None], w.shape, g[None]))
+    out = {}
+    for label, kern, lib, tag, labels in (
+            ("cf_conv_fwd (fwd + dx)", fwd, fwd_l, "conv_fwd_mma_kernel",
+             names),
+            ("cf_conv_dw", dw, dw_l, "conv_dw_mma_kernel",
+             [s["name"] for s in sites])):
+        k_ms = device_ms(lambda: [f() for f in kern])
+        l_ms = device_ms(lambda: [f() for f in lib])
+        try:
+            per = dict(zip(labels, site_device_ms(kern, tag)))
+        except RuntimeError as e:
+            # a profile now and then loses launches (device_ms): the
+            # per-site split is then not measured, the totals stand
+            log(f"[10] {label}: per-site device time not measured ({e})")
+            per = None
+        out[label] = dict(calls=len(kern), device_ms=k_ms,
+                          library_device_ms=l_ms, site_device_ms=per,
+                          ms=time_ms(lambda: [f() for f in kern]),
+                          library_ms=time_ms(lambda: [f() for f in lib]))
+        log(f"[10] {label} at the 5 pooled down1 sites: {len(kern)} calls, "
+            f"device {k_ms:.4f} ms"
+            + ("" if per is None else " (" + ", ".join(
+                f"{n} {v:.4f}" for n, v in per.items()) + ")")
+            + f", cuDNN {l_ms:.4f} ms; CUDA events {out[label]['ms']:.4f} "
+            f"ms, cuDNN {out[label]['library_ms']:.4f} ms")
+    return out
+
+
+def gaussian_dropout_on_card() -> dict:
+    """``gaussian_dropout_conv`` at GAUSS_SITES, batch 1: each call one
+    ``lrt_conv_fwd`` launch; its two moments (the kernel's double conv on
+    (x, w, w^2)) against ``fused_double_conv``; its output and its gradients
+    in x and w against the CPU's plain path with the same noise tensor
+    substituted for the draw. Returns the launches of the calls (path) and
+    the worst errors."""
+    import torch
+    import torch.nn.functional as F
+    import mfvi_dip_mia_tpu_torch.bayes.dropout as D
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.ops.kernels import lrt_conv as tlrt
+
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    draw = D.gaussian_eps
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    worst = {}
+
+    def hold(what, got, ref, tol):
+        a, r = rel_err(got, ref)
+        if not bool(torch.isfinite(got).all()) or r > tol:
+            raise AssertionError(f"gaussian_dropout_conv {what}: max abs err "
+                                 f"{a:.3e} (rel {r:.3e}) > {tol:.0e}, or "
+                                 "not finite")
+        worst[what] = max(worst.get(what, 0.0), r)
+
+    try:
+        for c, o, size, k in GAUSS_SITES:
+            x = torch.rand((1, c, size, size), generator=gen, device=DEVICE)
+            w = torch.randn((o, c, k, k), generator=gen, device=DEVICE) / (
+                c * k * k) ** 0.5
+            pad = (k - 1) // 2
+            eps = torch.randn((1, o, size, size), generator=gen,
+                              device=DEVICE)
+            g = torch.randn_like(eps)
+            D.gaussian_eps = lambda shape, gn, e=eps: e.to(gn.device)
+            outs = {}
+            for dev in (DEVICE, "cpu"):
+                xd = x.to(dev).clone().requires_grad_(True)
+                wd = w.to(dev).clone().requires_grad_(True)
+                before = kernels.counts()
+                out = D.gaussian_dropout_conv(
+                    xd, wd, GAUSS_P, torch.Generator(device=dev), 1, pad)
+                if dev == DEVICE:
+                    fwd_calls = (tlrt.FWD.launches
+                                 - before[kernels.KERNELS.index(tlrt.FWD)])
+                    if fwd_calls != 1:
+                        raise AssertionError(
+                            f"gaussian_dropout_conv at {(c, o, size, k)} "
+                            f"launched lrt_conv_fwd {fwd_calls} times")
+                (out * g.to(dev)).sum().backward()
+                if dev == DEVICE:
+                    for kern, b, a in zip(kernels.KERNELS, before,
+                                          kernels.counts()):
+                        launches[kern.name] += a - b
+                outs[dev] = (out.detach(), xd.grad, wd.grad)
+            torch.cuda.synchronize()
+            # the kernel's two moments against the plain double conv
+            xs = F.pad(x[0], (pad,) * 4)
+            got = tlrt.double_conv_fwd(xs, w, w * w)
+            ref = tlrt.fused_double_conv(xs, w, w * w)
+            for what, a, b in zip(("mu", "second"), got, ref):
+                hold(what, a, b, TOL[("lrt", "f32")])
+            card, cpu = outs[DEVICE], outs["cpu"]
+            hold("out (card vs CPU)", card[0].cpu(), cpu[0],
+                 TOL[("lrt", "f32")])
+            hold("dx (card vs CPU)", card[1].cpu(), cpu[1],
+                 TOL[("lrt_bwd", "f32")])
+            hold("dw (card vs CPU)", card[2].cpu(), cpu[2],
+                 TOL[("lrt_bwd", "f32")])
+    finally:
+        D.gaussian_eps = draw
+    log(f"[10] gaussian_dropout_conv at {len(GAUSS_SITES)} den site shapes: "
+        "one lrt_conv_fwd launch a call; worst relative errors "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return dict(launches=launches, worst_rel=worst)
+
+
+def cls_apply(params, x, generator=None, training=True):
+    """The 2-16-2 variational MLP of JAX tests/test_aux.py:166-204, its two
+    layers 1x1 conv leaves (a batch of points as (N, 2, 1, 1))."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.nn.var_conv import apply_conv_leaf
+
+    def leaf(name):
+        return {k[len(name) + 1:]: v for k, v in params.items()
+                if k.startswith(name + ".")}
+
+    h = torch.relu(apply_conv_leaf(leaf("l1"), x[:, :, None, None], stride=1,
+                                   padding=0, generator=generator,
+                                   training=training))
+    return apply_conv_leaf(leaf("l2"), h, stride=1, padding=0,
+                           generator=generator, training=training)[:, :, 0, 0]
+
+
+def cls_params(seed: int = 0) -> dict:
+    """The MLP's variational parameters (CPU), from a seeded generator."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.bayes.vi import to_mfvi
+    from mfvi_dip_mia_tpu_torch.nn import init as init_lib
+    gen = torch.Generator().manual_seed(seed)
+    params = {"l1.w": init_lib.conv_kernel_torch_default(gen, 1, 1, 2, 16),
+              "l1.b": torch.zeros(16),
+              "l2.w": init_lib.conv_kernel_torch_default(gen, 1, 1, 16, 2),
+              "l2.b": torch.zeros(2)}
+    return to_mfvi(params, gen)
+
+
+def classification_on_card() -> dict:
+    """The ClassificationTrainer / Predictor problem of JAX
+    tests/test_aux.py:166-204 on the card (CLS_POINTS points, CLS_EPOCHS
+    epochs, beta 1e-5, lr 5e-2, prior sigma 1): accuracy above 0.9. Then
+    one Blundell ``make_elbo_step`` on the card against the CPU, the RT
+    weight draws substituted by one fixed table on both: loss, accuracy,
+    parameters and moments within ELBO_REL of the largest."""
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.nn.var_conv as VC
+    from mfvi_dip_mia_tpu_torch.bayes import classification as C
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((CLS_POINTS, 2)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] > 0).astype(np.int64)
+    t0 = time.perf_counter()
+    trainer = C.ClassificationTrainer(cls_apply, cls_params(), lr=5e-2,
+                                      prior_sigma=1.0, n_batches=1,
+                                      beta_type=1e-5, device=DEVICE)
+    if trainer.device.type != torch.device(DEVICE).type:
+        raise AssertionError("the trainer is not on the card")
+    gen = torch.Generator(device=DEVICE)
+    for epoch in range(CLS_EPOCHS):
+        gen.manual_seed(10 + epoch)
+        trainer.train_epoch([(x, y)], gen)
+    pred = C.Predictor(cls_apply, trainer.params, n_samples=16)(x)
+    acc = float((pred.argmax(-1).cpu().numpy() == y).mean())
+    train_s = time.perf_counter() - t0
+    log(f"[10] ClassificationTrainer on the card: {CLS_EPOCHS} epochs, "
+        f"loss {trainer.log.losses[0]:.4f} -> {trainer.log.losses[-1]:.4f}, "
+        f"Predictor accuracy {acc:.4f} ({train_s:.2f} s)")
+    if not acc > 0.9:
+        raise AssertionError(f"classification accuracy {acc} <= 0.9")
+
+    params = cls_params(1)
+    # the four sampled leaves' shapes differ: one fixed draw per shape
+    table = {tuple(t.shape): torch.randn(t.shape, generator=torch.Generator()
+                                         .manual_seed(i))
+             for i, (n, t) in enumerate(params.items()) if n.endswith("_mu")}
+    draw = VC._normal_like
+    steps = {}
+    VC._normal_like = lambda t, generator: table[tuple(t.shape)].to(t.device)
+    try:
+        for dev in (DEVICE, "cpu"):
+            opt = C.adamw(5e-2)
+            p = {n: t.to(dev) for n, t in params.items()}
+            step = C.make_elbo_step(cls_apply, opt, 1.0, 4, "Blundell")
+            steps[dev] = step(p, opt.init(p), torch.from_numpy(x).to(dev),
+                              torch.from_numpy(y).to(dev),
+                              torch.Generator(device=dev), torch.tensor(2))
+    finally:
+        VC._normal_like = draw
+    card, cpu = steps[DEVICE], steps["cpu"]
+    worst = 0.0
+    pairs = [(card[2], cpu[2]), (card[3], cpu[3])]
+    pairs += [(card[0][n], cpu[0][n]) for n in params]
+    pairs += [(card[1][m][n], cpu[1][m][n]) for m in ("mu", "nu")
+              for n in params]
+    for a, b in pairs:
+        worst = max(worst, rel_err(a.cpu(), b)[1])
+    log(f"[10] one make_elbo_step, card against CPU with the same draws: "
+        f"worst relative error {worst:.3e} (tolerance {ELBO_REL:.0e})")
+    if worst > ELBO_REL:
+        raise AssertionError(f"make_elbo_step card vs CPU {worst:.3e}")
+    return dict(accuracy=acc, seconds=train_s, first_loss=trainer.log.losses[0],
+                last_loss=trainer.log.losses[-1], elbo_step_worst_rel=worst)
+
+
+def sgld_family_on_card(params: dict) -> dict:
+    """``sgld``, ``psgld`` (burn-in 10 of SGLD_STEPS, so across it) and
+    ``param_noise_transform`` on the den net's parameter dict on the card,
+    SGLD_STEPS steps each, the gradient that of 0.5 |p|^2 (for
+    ``param_noise_transform``, which adds to an update, SGD's update -lr p):
+    everything finite. The same three noise-free (no Langevin noise; burn-in past the
+    run; sigma 0) on the card and on the CPU: equal within SGLD_RTOL."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.optim import sgld as S
+    from mfvi_dip_mia_tpu_torch.optim.transform import apply_updates
+
+    def run(transform, dev, scale):
+        p = {n: t.to(dev) for n, t in params.items()}
+        state = transform.init(p)
+        for _ in range(SGLD_STEPS):
+            upd, state = transform.update({n: scale * t for n, t in
+                                           p.items()}, state, p)
+            p = apply_updates(p, upd)
+        return p
+
+    sched = S.exponential_decay_floored(1e-3, 0.99)
+    noisy = {"sgld": S.sgld(1e-3, weight_decay=1e-4, seed=1),
+             "psgld": S.psgld(1e-3, num_burn_in_steps=10, seed=2),
+             "param_noise": S.param_noise_transform(2.0, sched, seed=3)}
+    quiet = {"sgld": lambda: S.sgld(1e-3, weight_decay=1e-4, addnoise=False),
+             "psgld": lambda: S.psgld(1e-3, num_burn_in_steps=100),
+             "param_noise": lambda: S.param_noise_transform(0.0, sched)}
+    out = {}
+    for name, tr in noisy.items():
+        scale = -1e-3 if name == "param_noise" else 1.0
+        p = run(tr, DEVICE, scale)
+        moved = max(float((p[n] - params[n].to(DEVICE)).abs().max())
+                    for n in params)
+        if not all(bool(torch.isfinite(t).all()) for t in p.values()):
+            raise AssertionError(f"{name} on the card: not finite")
+        card = run(quiet[name](), DEVICE, scale)
+        cpu = run(quiet[name](), "cpu", scale)
+        worst = max(float(((card[n].cpu() - cpu[n]).abs()
+                           / (cpu[n].abs() + 1e-30)).max()) for n in params)
+        log(f"[10] {name}: {SGLD_STEPS} steps on the den net's "
+            f"{sum(t.numel() for t in params.values()):,} parameters, finite "
+            f"(largest move {moved:.3e}); noise-free card vs CPU worst "
+            f"relative {worst:.3e}")
+        if worst > SGLD_RTOL:
+            raise AssertionError(f"{name} noise-free card vs CPU {worst:.3e}")
+        out[name] = dict(largest_move=moved, noise_free_worst_rel=worst)
+    return out
+
+
+def prune_on_card(params: dict) -> dict:
+    """``prune_mask_by_snr(amount=0.3)`` on the lanczos2 fit's final
+    parameters on the card: the mask's zero share within one weight of
+    30 %."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.bayes.uncertainty import prune_mask_by_snr
+    p = {n: torch.as_tensor(v, device=DEVICE) for n, v in params.items()}
+    masks = prune_mask_by_snr(p, 0.3)
+    n = sum(m.numel() for m in masks.values())
+    zeros = sum(int((m == 0).sum()) for m in masks.values())
+    log(f"[10] prune_mask_by_snr(0.3): {len(masks)} kernels, {zeros:,} of "
+        f"{n:,} weights zeroed ({zeros / n:.6f})")
+    if abs(zeros - 0.3 * n) > 1:
+        raise AssertionError(f"{zeros} of {n} zeroed, not 30 %")
+    return dict(kernels=len(masks), weights=n, zeroed=zeros)
+
+
+def trace_on_card(fitted: dict, tmp: str) -> dict:
+    """``profiling.trace`` around a TRACE_ITERS-iteration lanczos2 graph fit
+    (every iteration a replay): a non-empty Chrome trace with device
+    kernels."""
+    import json as _json
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import fit
+    from mfvi_dip_mia_tpu_torch.utils import profiling
+    kw = dict(fitted["kw"], num_iter=TRACE_ITERS - 1, show_every=TRACE_ITERS)
+    logdir = os.path.join(tmp, "trace")
+    with profiling.trace(logdir):
+        res = fit(fitted["problem"], fitted["method"], **kw)
+    hold_replays("the traced fit", res)
+    path = os.path.join(logdir, profiling.TRACE_FILE)
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = _json.load(f)["traceEvents"]
+    kernels_seen = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[10] profiling.trace around {res.replays} replays: {size:,} bytes, "
+        f"{len(events):,} events, {kernels_seen:,} device kernels")
+    if not size or not events:
+        raise AssertionError("profiling.trace wrote an empty trace")
+    return dict(bytes=size, events=len(events), kernel_events=kernels_seen,
+                replays=res.replays)
+
+
+def lib_phase() -> dict:
+    """Phase 10: the pooled den fits, the conv kernels' device time at the
+    pooled sites, Gaussian dropout, the classification trainer, the SGLD
+    family, SNR pruning and ``profiling.trace``, each part timed by
+    ``profiling.PhaseTimer``; the trace goes to a temporary directory,
+    removed after. Returns the phase's results, with "launches" those of
+    the three pooled graph fits and of the Gaussian-dropout calls."""
+    import shutil
+    import tempfile
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, init_params
+    from mfvi_dip_mia_tpu_torch.utils.profiling import PhaseTimer
+
+    t0 = time.perf_counter()
+    timer = PhaseTimer()
+    out = {}
+    with timer.phase("pooled fits", sync=True):
+        fits = pooled_fits()
+    with timer.phase("pooled site times", sync=True):
+        out["site_times"] = pooled_site_times(fits["lanczos2"]["problem"].net)
+    with timer.phase("gaussian dropout", sync=True):
+        out["gaussian_dropout"] = gaussian_dropout_on_card()
+    with timer.phase("classification", sync=True):
+        out["classification"] = classification_on_card()
+    with timer.phase("sgld family", sync=True):
+        den_params = init_params(fits["lanczos2"]["problem"], Method("mfvi"),
+                                 1)
+        out["sgld"] = sgld_family_on_card(den_params)
+    with timer.phase("prune", sync=True):
+        out["prune"] = prune_on_card(fits["lanczos2"]["result"].params)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lib_")
+    try:
+        with timer.phase("trace", sync=True):
+            out["trace"] = trace_on_card(fits["lanczos2"], tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {
+        k.name: sum(f["launches"][k.name] for f in fits.values())
+        + out["gaussian_dropout"]["launches"][k.name]
+        for k in kernels.KERNELS}
+    for f in fits.values():
+        for key in ("result", "problem", "method", "kw"):
+            f.pop(key)
+    out["fits"] = fits
+    out["timer"] = timer.summary()
+    out["seconds"] = time.perf_counter() - t0
+    log("[10] parts: " + ", ".join(f"{k} {v['total_s']:.1f} s"
+                                   for k, v in out["timer"].items()))
+    log(f"[10] phase 10 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3688,6 +4185,7 @@ def main(argv=None) -> int:
         from mfvi_dip_mia_tpu_torch.nn import build_skip_net
         from mfvi_dip_mia_tpu_torch.ops import kernels
         from mfvi_dip_mia_tpu_torch.ops.kernels import build
+        from mfvi_dip_mia_tpu_torch.utils.profiling import PhaseTimer
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})",
               file=sys.stderr)
@@ -3704,10 +4202,12 @@ def main(argv=None) -> int:
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, {torch.cuda.device_count()} device(s): "
         f"{kind}")
-    build.library()
-    log(f"[1] kernels built and loaded in {build.BUILD_SECONDS:.1f} s")
-    ptxas = ptxas_report()
-    sass = sass_mma_report()
+    timer = PhaseTimer()          # each phase's seconds, in the --out file
+    with timer.phase("1 build and reports", sync=True):
+        build.library()
+        log(f"[1] kernels built and loaded in {build.BUILD_SECONDS:.1f} s")
+        ptxas = ptxas_report()
+        sass = sass_mma_report()
 
     results: dict = {}
     # the 256^2 nets of the two main paths: ct (1 output channel) and den
@@ -3730,53 +4230,68 @@ def main(argv=None) -> int:
                + conv_sites(p8_nets["inp mcd"], 256))
     p8_fused = (fused_sites(p8_nets["sr"], 384)
                 + fused_sites(p8_nets["inp"], 256))
+    # phase 10's pooled den net: its down1 sites convolve at stride 1, at
+    # their level's full resolution (the other sites are den's)
+    p10_conv = conv_sites(den_net(downsample_mode="lanczos2"), SIZE)
     # the dw runs at every conv site of the CT net (bf16), of the den net
     # (f32, the non-fused sites) and of path A (f32, 2 per site): every
     # distinct shape of both nets, in both dtypes; and at every site of the
     # sr and inp nets
-    check_conv_kernels(sites + l_sites + p8_conv, results)
-    states = check_radon_kernels(results)
-    check_fused_kernels(f_sites + p8_fused, results)
-    check_lrt_kernel(l_sites + p8_conv, results)
-    dense = check_dense_radon(results)
+    with timer.phase("2 kernels against plain", sync=True):
+        check_conv_kernels(sites + l_sites + p8_conv + p10_conv, results)
+        states = check_radon_kernels(results)
+        check_fused_kernels(f_sites + p8_fused, results)
+        check_lrt_kernel(l_sites + p8_conv, results)
+        dense = check_dense_radon(results)
 
-    steps = {label: check_step_against_cpu(nets[n_out], task, reparam)
-             for label, task, n_out, reparam in (
-                 ("ct", "ct", 1, "rt"), ("den", "den", 2, "rt"),
-                 ("lrt_den", "den", 2, "lrt"))}
-    fits = run_fits(results)
-    fits["step_vs_cpu"] = steps
-    fits["reproducibility"] = reproducibility()
+    with timer.phase("3 main paths", sync=True):
+        steps = {label: check_step_against_cpu(nets[n_out], task, reparam)
+                 for label, task, n_out, reparam in (
+                     ("ct", "ct", 1, "rt"), ("den", "den", 2, "rt"),
+                     ("lrt_den", "den", 2, "lrt"))}
+        fits = run_fits(results)
+        fits["step_vs_cpu"] = steps
+        fits["reproducibility"] = reproducibility()
     unequal = [k for k, r in fits["reproducibility"].items()
                if not (r["rows_equal"] and r["params_equal"])]
     if unequal:
         raise AssertionError(f"two fits at one seed gave different bits: "
                              f"{unequal}")
-    fits["graph_vs_eager"] = graph_against_eager()
-    fits["sweep"] = sweep_phase()
+    with timer.phase("4 graph against eager", sync=True):
+        fits["graph_vs_eager"] = graph_against_eager()
+    with timer.phase("5 sweep", sync=True):
+        fits["sweep"] = sweep_phase()
     fits["bo_ct"] = fits["sweep"]["bo_ct"]
-    fits["methods"] = methods_phase()
-    fits["sr_inp"] = sr_inp_phase(p8_nets)
+    with timer.phase("7 methods", sync=True):
+        fits["methods"] = methods_phase()
+    with timer.phase("8 sr and inp", sync=True):
+        fits["sr_inp"] = sr_inp_phase(p8_nets)
     fits["sr"], fits["inp"] = fits["sr_inp"]["sr"], fits["sr_inp"]["inp"]
 
-    time_conv_kernels(sites, results)
-    time_radon_kernels(states, dense, results)
-    del states
-    time_fused_kernels(f_sites, results)
-    time_lrt_kernel(l_sites, results)
-    time_dense_radon(dense, results)
-    del dense
+    with timer.phase("6 kernel times", sync=True):
+        time_conv_kernels(sites, results)
+        time_radon_kernels(states, dense, results)
+        del states
+        time_fused_kernels(f_sites, results)
+        time_lrt_kernel(l_sites, results)
+        time_dense_radon(dense, results)
+        del dense
     if args.profile_steps:
-        fits["profile"] = profile_ct(args.profile_steps, fits["ct"])
-        fits["profile_den"] = profile_den(args.profile_steps)
-        fits["profile_paths"] = profile_paths(args.profile_steps, fits)
-        fits["profile_methods"] = profile_methods(
-            args.profile_steps, fits["methods"]["fits"])
-        fits["profile_sr_inp"] = profile_sr_inp(args.profile_steps,
-                                                fits["sr_inp"]["fits"])
-    # phase 9 last: phase 6's timings and profiles run in the process they
-    # ran in before it (a profile now and then loses kernels: device_ms)
-    fits["tail"] = tail_phase()
+        with timer.phase("6 profiles", sync=True):
+            fits["profile"] = profile_ct(args.profile_steps, fits["ct"])
+            fits["profile_den"] = profile_den(args.profile_steps)
+            fits["profile_paths"] = profile_paths(args.profile_steps, fits)
+            fits["profile_methods"] = profile_methods(
+                args.profile_steps, fits["methods"]["fits"])
+            fits["profile_sr_inp"] = profile_sr_inp(args.profile_steps,
+                                                    fits["sr_inp"]["fits"])
+    # phases 9 and 10 last: phase 6's timings and profiles run in the
+    # process they ran in before them (a profile now and then loses
+    # kernels: device_ms)
+    with timer.phase("9 tail", sync=True):
+        fits["tail"] = tail_phase()
+    with timer.phase("10 library tail", sync=True):
+        fits["lib"] = lib_phase()
 
     line = []
     for k in kernels.KERNELS:
@@ -3794,7 +4309,8 @@ def main(argv=None) -> int:
             launches_per_step=fits[path]["launches_per_step"][k.name],
             launches_by_path={p: fits[p]["launches"][k.name]
                               for p in ("ct", "den", "lrt_den", "dense_ct",
-                                        "bo_ct", "sr", "inp", "tail")},
+                                        "bo_ct", "sr", "inp", "tail",
+                                        "lib")},
             max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
@@ -3808,8 +4324,11 @@ def main(argv=None) -> int:
                            sass=sass,
                            kernels=line,
                            details=results, fits=fits,
+                           phase_seconds=timer.summary(),
                            seconds=time.perf_counter() - t_start), f,
                       indent=1, default=float)
+    log("[6] seconds by phase: " + ", ".join(
+        f"{k} {v['total_s']:.1f}" for k, v in timer.summary().items()))
     log(f"[6] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

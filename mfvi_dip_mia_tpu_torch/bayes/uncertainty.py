@@ -2,11 +2,15 @@
 mfvi_dip_mia_tpu/bayes/uncertainty.py): ``mc_predict`` and Gal's regression
 decomposition, epistemic = Var_samples[mu], aleatoric =
 E_samples[exp(-neg_logvar)]. NCHW: the channel axis is 2 of (S, N, C, H, W).
+Besides: Kwon's decomposition for class probabilities, the per-weight
+signal-to-noise ratio and the global SNR pruning masks, and the KL
+warm-up schedules of the classification trainer.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..nn.var_conv import REPARAMS
 from ..ops import kernels
@@ -92,3 +96,57 @@ def uncert_regression_gal(outputs: torch.Tensor, mean_channels: int = 1):
     else:
         aleatoric = torch.zeros_like(epistemic)
     return mean, aleatoric, epistemic
+
+
+def uncert_classification_kwon(probs: torch.Tensor):
+    """Kwon et al.'s decomposition of stacked MC class probabilities
+    (S, N, K, ...) -> (mean, aleatoric, epistemic): aleatoric =
+    E[p - p^2], epistemic = E[(p - E p)^2] (uncertainty.py:72)."""
+    p_mean = probs.mean(dim=0)
+    aleatoric = (probs - probs ** 2).mean(dim=0)
+    epistemic = ((probs - p_mean[None]) ** 2).mean(dim=0)
+    return p_mean, aleatoric, epistemic
+
+
+def snr(mu: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
+    """Per-weight signal-to-noise ratio |mu| / softplus(rho)."""
+    return mu.abs() / F.softplus(rho)
+
+
+def prune_mask_by_snr(params: dict, amount: float) -> dict:
+    """Global SNR pruning of a variational parameter dict: 0/1 masks that
+    zero the lowest-SNR share ``amount`` of the kernel weights, as
+    ``{"<prefix>.w": mask}`` for every '<prefix>.w_mu' / '<prefix>.w_rho'
+    pair (uncertainty.py:88). The threshold is JAX's: the k-th smallest of
+    all SNRs, k = int(amount * n); a weight is kept when its SNR is above
+    it."""
+    prefixes = [n[:-len(".w_mu")] for n in params if n.endswith(".w_mu")]
+    if not prefixes:
+        raise ValueError("no variational leaves to prune")
+    snrs = {p: snr(params[f"{p}.w_mu"], params[f"{p}.w_rho"])
+            for p in prefixes}
+    all_snr = torch.cat([v.reshape(-1) for v in snrs.values()])
+    k = int(amount * all_snr.numel())
+    if k > 0:
+        thresh = torch.sort(all_snr).values[k - 1]
+    else:
+        thresh = torch.tensor(-float("inf"), device=all_snr.device)
+    return {f"{p}.w": (v > thresh).to(torch.float32)
+            for p, v in snrs.items()}
+
+
+def get_beta(beta_type, epoch: int | None = None,
+             num_epochs: int | None = None, batch_idx=0, m: int = 1):
+    """KL warm-up schedules (uncertainty.py:127): 'Blundell'
+    2^(M-i)/(2^M-1), in the overflow-free form 2^-(i+1) / (1 - 2^-M), for
+    an int or a tensor ``batch_idx``; 'Soenderby' min(epoch / (n // 4), 1);
+    'Standard' 1/M; else the constant ``beta_type``."""
+    if beta_type == "Blundell":
+        return 2.0 ** (-(batch_idx + 1.0)) / (1.0 - 2.0 ** (-float(m)))
+    if beta_type == "Soenderby":
+        if epoch is None or num_epochs is None:
+            raise ValueError("Soenderby schedule needs epoch/num_epochs")
+        return min(epoch / (num_epochs // 4), 1.0)
+    if beta_type == "Standard":
+        return 1.0 / m
+    return beta_type

@@ -1,8 +1,9 @@
 """NCHW building blocks of the skip U-Net (counterpart of
 mfvi_dip_mia_tpu/nn/layers.py and nn/cf.py, which collapse into this one op
 set): train-mode BatchNorm with shifted one-pass moments, the activations
-(LeakyReLU(0.2), ELU, Swish), the bilinear and nearest resizes (the x2
-upsample, the sr operator), and the center-cropping concat; reflection
+(LeakyReLU(0.2), ELU, Swish), the avg / max pools of a pooled down1 site,
+the bilinear and nearest resizes (the x2 upsample, the sr operator), the
+center-cropping concat, the 3-D conv and the input noise; reflection
 padding is the conv site's (ops/kernels/cf_conv.py::conv2d_cf). Every
 function takes batch-first NCHW tensors."""
 
@@ -12,6 +13,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils.device import device_cache
 
@@ -67,6 +69,40 @@ def activation(name: str):
     return _ACTIVATIONS[name]
 
 
+# -- pooling (layers.py:129-137): non-overlapping k x k windows ----------------
+# With the stride equal to the window, every input element lies in one
+# window, so the backward writes each input gradient once: deterministic on
+# the card as on the CPU.
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The mean of each k x k window (JAX's window sum / (k * k))."""
+    return F.avg_pool2d(x, k)
+
+
+def max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The maximum of each k x k window. Its gradient goes to one element
+    of the window: where several hold the maximum, the first in row-major
+    order, as JAX's select-and-scatter with ``ge`` picks it."""
+    return F.max_pool2d(x, k)
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """NCDHW conv with an OIDHW kernel, torch cross-correlation semantics
+    (layers.py:37-50, the Conv3d analog of the 3-D variational leaves).
+    JAX computes it with lax.conv_general_dilated, outside any Pallas
+    kernel, so this is the library's conv."""
+    return F.conv3d(x, w, b, stride=stride, padding=padding)
+
+
+def gen_noise(x: torch.Tensor, n_channels: int,
+              generator: torch.Generator) -> torch.Tensor:
+    """Standard-normal noise shaped like the NCHW ``x`` but with
+    ``n_channels`` channels (layers.py:229; the reference's GenNoise)."""
+    return torch.randn((x.shape[0], n_channels, *x.shape[2:]),
+                       generator=generator, device=x.device, dtype=x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _bilinear_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
     """(out, in) row-stochastic interpolation matrix with torch's
@@ -105,16 +141,12 @@ def _matrix_on(mode: str, in_size: int, out_size: int, scale: float,
         device=device, dtype=dtype)
 
 
-def _resize_with_matrices(x: torch.Tensor, mode: str, scale: float,
-                          out_hw) -> torch.Tensor:
-    """Two interpolation-matrix products, rows then columns, in true f32
-    (TF32 off for them, as JAX's Precision.HIGHEST): a matrix product has
-    one summation order, so the resize and its backward are deterministic."""
-    _, _, h, w = x.shape
-    oh, ow = out_hw if out_hw is not None else (int(h * scale),
-                                                int(w * scale))
-    mh = _matrix_on(mode, h, oh, scale, str(x.device), x.dtype)
-    mw = _matrix_on(mode, w, ow, scale, str(x.device), x.dtype)
+def apply_matrices(x: torch.Tensor, mh: torch.Tensor,
+                   mw: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C, OH, OW): two matrix products, rows by the
+    (OH, H) ``mh`` then columns by the (OW, W) ``mw``, in true f32 (TF32 off
+    for them, as JAX's Precision.HIGHEST): a matrix product has one
+    summation order, so the result and its backward are deterministic."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -122,6 +154,17 @@ def _resize_with_matrices(x: torch.Tensor, mode: str, scale: float,
         return torch.einsum("pw,nchw->nchp", mw, x)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _resize_with_matrices(x: torch.Tensor, mode: str, scale: float,
+                          out_hw) -> torch.Tensor:
+    """Two interpolation-matrix products (``apply_matrices``)."""
+    _, _, h, w = x.shape
+    oh, ow = out_hw if out_hw is not None else (int(h * scale),
+                                                int(w * scale))
+    return apply_matrices(
+        x, _matrix_on(mode, h, oh, scale, str(x.device), x.dtype),
+        _matrix_on(mode, w, ow, scale, str(x.device), x.dtype))
 
 
 def resize_bilinear(x: torch.Tensor, scale: float,

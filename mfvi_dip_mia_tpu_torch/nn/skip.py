@@ -14,9 +14,18 @@ task's 6-scale no-skip k5 / k3 net with nearest up and no 1x1 up), NCHW.
               [conv1x1 -> BN -> act]               (if need1x1_up)
   output:  conv1x1 -> [sigmoid]
 
-Every conv site is pad -> conv -> [dropout]; dropout is MC-style, drawn
-from the forward's generator whenever it trains (skip.py:295-305), so MC
-dropout (mcd) puts always-on dropout2d on the down and up sites.
+Every conv site is pad -> conv -> [dropout] -> [pool]; dropout is
+MC-style, drawn from the forward's generator whenever it trains
+(skip.py:295-305), so MC dropout (mcd) puts always-on dropout2d on the down
+and up sites. ``downsample_mode`` (per scale: 'stride', 'avg', 'max',
+'lanczos2', 'lanczos3') says how a down1 site halves its input: 'stride'
+convolves at stride 2; any other mode convolves at stride 1, at the full
+resolution of its level, and pools after the dropout (skip.py:279-315):
+k x k average or maximum (nn/layers.py), or the fixed Lanczos
+``ops/downsampler.py::Downsampler(c_out, 2, mode, phase=0.5,
+preserve_size=True)``. A Lanczos site keeps its conv bias, as JAX's does
+(skip.py:325-327); no pooled site fuses, since the fusion test reads the
+site's declared stride, 2.
 
 The module holds the static topology only; parameters are a flat dict of
 tensors keyed by the JAX package's leaf paths (``levels.0.down1.conv.w``,
@@ -50,12 +59,14 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops import downsampler
 from ..ops.kernels import fused_block
 from . import init as init_lib
 from . import layers
 from .var_conv import apply_conv_leaf, sample_rt_kernel
 
 _CONV_KEYS = ("w", "b", "w_mu", "w_rho", "b_mu", "b_rho")
+DOWNSAMPLE_MODES = ("stride", "avg", "max", "lanczos2", "lanczos3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +81,7 @@ class ConvSite:
     bias: bool = True
     dropout_mode: str = "None"        # 'None' | '1d' | '2d'
     dropout_p: float = 0.5
+    downsample_mode: str = "stride"   # DOWNSAMPLE_MODES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +115,8 @@ class SkipNet(nn.Module):
                  filter_size_down=3, filter_size_up=3,
                  filter_skip_size: int = 1, need_sigmoid: bool = True,
                  need_bias: bool = True, pad: str = "zero",
-                 upsample_mode="nearest", act_fun: str = "LeakyReLU",
-                 need1x1_up: bool = True,
+                 upsample_mode="nearest", downsample_mode="stride",
+                 act_fun: str = "LeakyReLU", need1x1_up: bool = True,
                  dropout_mode_down: str = "None", dropout_p_down: float = 0.5,
                  dropout_mode_up: str = "None", dropout_p_up: float = 0.5,
                  dropout_mode_skip: str = "None", dropout_p_skip: float = 0.5,
@@ -119,15 +131,23 @@ class SkipNet(nn.Module):
         self.n_scales = n
         self.need_sigmoid = need_sigmoid
         up_modes = _as_list(upsample_mode, n)
+        down_modes = _as_list(downsample_mode, n)
+        for mode in down_modes:
+            if mode not in DOWNSAMPLE_MODES:
+                # the error of the Downsampler JAX builds for a mode it
+                # does not know (downsampler.py:87)
+                raise ValueError(f"wrong kernel name {mode!r}")
         k_down = _as_list(filter_size_down, n)
         k_up = _as_list(filter_size_up, n)
 
         sid = [0]
 
-        def site(c_in, c_out, k, stride=1, dmode="None", dp=0.5) -> ConvSite:
+        def site(c_in, c_out, k, stride=1, dmode="None", dp=0.5,
+                 ds_mode="stride") -> ConvSite:
             s = ConvSite(site_id=sid[0], c_in=c_in, c_out=c_out, kernel=k,
                          stride=stride, pad_mode=pad, bias=need_bias,
-                         dropout_mode=dmode, dropout_p=dp)
+                         dropout_mode=dmode, dropout_p=dp,
+                         downsample_mode=ds_mode)
             sid[0] += 1
             return s
 
@@ -141,7 +161,7 @@ class SkipNet(nn.Module):
                 skip_conv = site(c_in, num_channels_skip[i], filter_skip_size,
                                  1, dropout_mode_skip, dropout_p_skip)
             down1 = site(c_in, num_channels_down[i], k_down[i], 2,
-                         dropout_mode_down, dropout_p_down)
+                         dropout_mode_down, dropout_p_down, down_modes[i])
             down2 = site(num_channels_down[i], num_channels_down[i],
                          k_down[i], 1, dropout_mode_down, dropout_p_down)
             up = site(num_channels_skip[i] + deeper_out, num_channels_up[i],
@@ -158,6 +178,13 @@ class SkipNet(nn.Module):
         self.out_conv = site(num_channels_up[0], num_output_channels, 1, 1,
                              dropout_mode_output, dropout_p_output)
         self.num_conv_sites = sid[0]
+        # the fixed Lanczos pool of each site that has one, by site id
+        self.downsamplers = {
+            cfg.down1.site_id: downsampler.Downsampler(
+                cfg.down1.c_out, cfg.down1.stride, cfg.down1.downsample_mode,
+                phase=0.5, preserve_size=True)
+            for cfg in levels
+            if cfg.down1.downsample_mode.startswith("lanczos")}
 
     # -- init ---------------------------------------------------------------
 
@@ -200,27 +227,40 @@ class SkipNet(nn.Module):
 
     def _conv_site(self, s: ConvSite, params, prefix, x, generator, training,
                    reparam, dropout_p=None, skip_bias=False):
+        # a pooled site convolves at stride 1 and pools after the dropout
+        pooled = s.stride != 1 and s.downsample_mode != "stride"
         out = apply_conv_leaf(self._leaf(params, f"{prefix}.conv"), x,
-                              stride=s.stride, padding=(s.kernel - 1) // 2,
+                              stride=1 if pooled else s.stride,
+                              padding=(s.kernel - 1) // 2,
                               pad_mode=s.pad_mode, generator=generator,
                               training=training, skip_bias=skip_bias,
                               reparam=reparam, site_id=s.site_id)
-        if s.dropout_mode == "None" or not training:
+        if s.dropout_mode != "None" and training:
+            if generator is None:
+                raise ValueError("dropout needs a generator when training")
+            p = s.dropout_p if dropout_p is None else dropout_p
+            out = (layers.dropout2d(out, p, generator)
+                   if s.dropout_mode == "2d"
+                   else layers.dropout(out, p, generator))
+        if not pooled:
             return out
-        if generator is None:
-            raise ValueError("dropout needs a generator when training")
-        p = s.dropout_p if dropout_p is None else dropout_p
-        if s.dropout_mode == "2d":
-            return layers.dropout2d(out, p, generator)
-        return layers.dropout(out, p, generator)
+        if s.downsample_mode == "avg":
+            return layers.avg_pool(out, s.stride)
+        if s.downsample_mode == "max":
+            return layers.max_pool(out, s.stride)
+        return self.downsamplers[s.site_id](out)
 
     def _conv_bn_act(self, s: ConvSite, params, prefix, x, generator,
                      training, reparam, dropout_p):
         # the conv bias is a per-channel constant that the train-mode BN's
-        # mean subtraction removes exactly: skip it (skip.py::_conv_bn_act),
-        # unless dropout or LRT noise sits between the conv and the BN; such
-        # a site does not fuse either
-        skip_bias = s.dropout_mode == "None" and reparam != "lrt"
+        # mean subtraction removes exactly: skip it (skip.py:325-327),
+        # unless dropout or LRT noise sits between the conv and the BN, or
+        # a Lanczos pool (JAX keeps the bias there, and so does the port);
+        # such a site does not fuse either, nor does a pooled one (its
+        # declared stride is 2)
+        skip_bias = (s.dropout_mode == "None" and reparam != "lrt"
+                     and (s.stride == 1
+                          or s.downsample_mode in ("stride", "avg", "max")))
         scale = params[f"{prefix}.bn.scale"]
         offset = params[f"{prefix}.bn.offset"]
         if (s.stride == 1 and skip_bias and self.act_name == "LeakyReLU"
@@ -280,9 +320,10 @@ class SkipNet(nn.Module):
 def build_skip_net(input_depth: int, n_channels: int = 3, pad: str = "zero",
                    upsample_mode="nearest", act_fun: str = "LeakyReLU",
                    need_sigmoid: bool = False, skip_n33d=128, skip_n33u=128,
-                   skip_n11=4, num_scales: int = 5,
+                   skip_n11=4, num_scales: int = 5, downsample_mode="stride",
                    **dropout_kwargs) -> SkipNet:
     """get_net() parity constructor (skip.py::build_skip_net);
+    ``downsample_mode`` is one of DOWNSAMPLE_MODES or one per scale;
     ``dropout_kwargs`` are SkipNet's ``dropout_mode_*`` / ``dropout_p_*``."""
     def per_scale(v):
         return [v] * num_scales if isinstance(v, int) else v
@@ -291,5 +332,6 @@ def build_skip_net(input_depth: int, n_channels: int = 3, pad: str = "zero",
         num_channels_down=per_scale(skip_n33d),
         num_channels_up=per_scale(skip_n33u),
         num_channels_skip=per_scale(skip_n11),
-        upsample_mode=upsample_mode, need_sigmoid=need_sigmoid,
-        need_bias=True, pad=pad, act_fun=act_fun, **dropout_kwargs)
+        upsample_mode=upsample_mode, downsample_mode=downsample_mode,
+        need_sigmoid=need_sigmoid, need_bias=True, pad=pad, act_fun=act_fun,
+        **dropout_kwargs)

@@ -1,9 +1,12 @@
 """Conv-leaf application: deterministic, RT- or LRT-variational (counterpart
 of mfvi_dip_mia_tpu/nn/var_conv.py). A leaf is a dict of one site's conv
 tensors: {'w', 'b'} or {'w_mu', 'w_rho', 'b_mu', 'b_rho'}, kernels OIHW.
-RT and deterministic convs run on the VALID conv kernel through
-ops/kernels/cf_conv.py; LRT convs on the LRT double-conv kernel through
-ops/kernels/lrt_conv.py."""
+RT and deterministic convs of a batch-1 2-D site run on the VALID conv
+kernel through ops/kernels/cf_conv.py; LRT convs on the LRT double-conv
+kernel through ops/kernels/lrt_conv.py. A batch above 1, or a 5-D (OIDHW)
+kernel, takes F.conv2d / F.conv3d: JAX computes those with
+lax.conv_general_dilated (layers.py:37-63), outside any Pallas kernel, so
+they port no TPU kernel. The skip nets run batch-1 2-D sites only."""
 
 from __future__ import annotations
 
@@ -14,6 +17,10 @@ from ..ops.kernels.cf_conv import conv2d_cf
 from ..ops.kernels.lrt_conv import lrt_conv
 
 REPARAMS = ("rt", "lrt")
+
+
+def is_conv_leaf(node) -> bool:
+    return isinstance(node, dict) and ("w" in node or "w_mu" in node)
 
 
 def is_variational_leaf(node) -> bool:
@@ -47,6 +54,22 @@ def sample_rt_kernel(leaf, generator, training: bool) -> torch.Tensor:
         leaf["w_mu"], generator)
 
 
+def _library_conv(x, w, b, stride, padding, pad_mode) -> torch.Tensor:
+    """F.conv2d / F.conv3d (by the kernel's rank) of any batch, the
+    reflection pad (ReflectionPad2d / 3d) ahead of it."""
+    if padding and pad_mode == "reflection":
+        x = F.pad(x, (padding,) * (2 * (w.dim() - 2)), mode="reflect")
+        padding = 0
+    conv = F.conv3d if w.dim() == 5 else F.conv2d
+    return conv(x, w, None if b is None else b.to(x.dtype), stride=stride,
+                padding=padding)
+
+
+def _on_kernel(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the site runs on the hand-written kernels: batch-1 2-D."""
+    return w.dim() == 4 and x.dim() == 4 and x.shape[0] == 1
+
+
 def apply_conv_leaf(leaf, x: torch.Tensor, *, stride: int, padding: int,
                     generator=None, training: bool = True,
                     skip_bias: bool = False, pad_mode: str = "zero",
@@ -54,9 +77,11 @@ def apply_conv_leaf(leaf, x: torch.Tensor, *, stride: int, padding: int,
     """One conv site. ``skip_bias`` elides the bias (and its sample) where
     the site feeds train-mode BatchNorm directly: the per-channel constant is
     removed exactly by the mean subtraction, as in the JAX package; the
-    caller decides where it holds. ``reparam='lrt'`` samples a training-mode variational site in activation space
-    (var_conv.py:86-95) with noise from ``lrt_eps``; eval mode takes
-    w_mu / b_mu under either reparameterization."""
+    caller decides where it holds. ``reparam='lrt'`` samples a
+    training-mode variational site in activation space (var_conv.py:86-95)
+    with noise from ``lrt_eps``; eval mode takes w_mu / b_mu under either
+    reparameterization. ``x`` is (N, C, H, W) with an OIHW kernel or
+    (N, C, D, H, W) with an OIDHW one."""
     if reparam not in REPARAMS:
         raise ValueError(f"unknown reparam {reparam!r}")
     lrt = reparam == "lrt" and is_variational_leaf(leaf)
@@ -65,12 +90,22 @@ def apply_conv_leaf(leaf, x: torch.Tensor, *, stride: int, padding: int,
             raise ValueError("variational conv needs a generator when "
                              "training")
         w_mu = leaf["w_mu"]
-        shape = (1, w_mu.shape[0],
-                 (x.shape[2] + 2 * padding - w_mu.shape[2]) // stride + 1,
-                 (x.shape[3] + 2 * padding - w_mu.shape[3]) // stride + 1)
-        return lrt_conv(x, w_mu, leaf["w_rho"], leaf.get("b_mu"),
-                        leaf.get("b_rho"), stride, padding, pad_mode,
-                        lrt_eps(shape, generator, site_id))
+        shape = (x.shape[0], w_mu.shape[0]) + tuple(
+            (n + 2 * padding - k) // stride + 1
+            for n, k in zip(x.shape[2:], w_mu.shape[2:]))
+        eps = lrt_eps(shape, generator, site_id)
+        if _on_kernel(x, w_mu):
+            return lrt_conv(x, w_mu, leaf["w_rho"], leaf.get("b_mu"),
+                            leaf.get("b_rho"), stride, padding, pad_mode, eps)
+        # JAX's XLA double conv (lrt_conv.py:44-72; var_conv.py:86-93 at 3-D)
+        act_mu = _library_conv(x, w_mu, leaf.get("b_mu"), stride, padding,
+                               pad_mode)
+        act_var = _library_conv(x * x, F.softplus(leaf["w_rho"]) ** 2, None,
+                                stride, padding, pad_mode)
+        if leaf.get("b_rho") is not None:
+            act_var = act_var + (F.softplus(leaf["b_rho"]) ** 2).reshape(
+                (-1,) + (1,) * (act_var.dim() - 2))
+        return act_mu + torch.sqrt(1e-16 + act_var) * eps.to(act_mu.dtype)
     w = sample_rt_kernel(leaf, generator, training)
     b = None
     if not skip_bias:
@@ -81,4 +116,6 @@ def apply_conv_leaf(leaf, x: torch.Tensor, *, stride: int, padding: int,
                      * _normal_like(b_mu, generator) if training else b_mu)
         else:
             b = leaf.get("b")
+    if not _on_kernel(x, w):
+        return _library_conv(x, w, b, stride, padding, pad_mode)
     return conv2d_cf(x, w, b, stride, padding, pad_mode)

@@ -2,7 +2,8 @@
 
 The network's second output channel is the *negative* log variance, so
     loss = exp(neg_logvar) * (target - mu)^2 - neg_logvar
-with neg_logvar clamped to [-20, 20]."""
+with neg_logvar clamped to [-20, 20]. Besides: MSE, the total-variation
+loss and BayTorch's (mu, logvar) NLLLoss2d."""
 
 from __future__ import annotations
 
@@ -28,3 +29,22 @@ def gaussian_nll_masked(mu: torch.Tensor, neg_logvar: torch.Tensor,
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - target) ** 2)
+
+
+def tv_loss(x: torch.Tensor, beta: float = 0.5) -> torch.Tensor:
+    """Total-variation loss of an NCHW ``x`` (losses.py:42): the sum over
+    the pixels with both a lower and a right neighbour of (dh^2 + dw^2)^beta."""
+    dh = (x[:, :, 1:, :] - x[:, :, :-1, :]) ** 2
+    dw = (x[:, :, :, 1:] - x[:, :, :, :-1]) ** 2
+    return torch.sum((dh[:, :, :, :-1] + dw[:, :, :-1, :]) ** beta)
+
+
+def nll_loss_2d(out: torch.Tensor, target: torch.Tensor, eps: float = 1e-6,
+                reduction: str = "mean") -> torch.Tensor:
+    """BayTorch's NLLLoss2d (losses.py:50): ``out`` holds (mu, logvar)
+    stacked on the channel axis (1 of NCHW); loss = 0.5 * (exp(-logvar) *
+    (target - mu)^2 + logvar). ``eps`` is unused, as in JAX."""
+    c = out.shape[1] // 2
+    mu, logvar = out[:, :c], out[:, c:]
+    loss = 0.5 * (torch.exp(-logvar) * (target - mu) ** 2 + logvar)
+    return loss.mean() if reduction == "mean" else loss.sum()

@@ -40,10 +40,20 @@ def flat_adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         g_rho = g[n_var:2 * n_var] + kl_temp * dkl_dsig * torch.sigmoid(rho)
         g = torch.cat([g_mu, g_rho, g[2 * n_var:]])
     c = count + 1
+    upd, m, v = adamw_update(p, g, m, v, c, lr=lr, weight_decay=weight_decay,
+                             b1=b1, b2=b2, eps=eps)
+    return p + upd, m, v, c
+
+
+def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                 v: torch.Tensor, c: torch.Tensor, *, lr: float,
+                 weight_decay: float, b1: float, b2: float, eps: float):
+    """optax.adamw's update of one tensor at the (already incremented)
+    count ``c``: (update, m, v), the update -lr * (m_hat / (sqrt(v_hat) +
+    eps) + weight_decay * p), decoupled from the moments."""
     m = b1 * m + (1.0 - b1) * g
     v = b2 * v + (1.0 - b2) * (g * g)
     cf = c.to(m.dtype)
     m_hat = m / (1.0 - torch.full_like(cf, b1) ** cf)
     v_hat = v / (1.0 - torch.full_like(cf, b2) ** cf)
-    upd = -lr * (m_hat / (torch.sqrt(v_hat) + eps) + weight_decay * p)
-    return p + upd, m, v, c
+    return -lr * (m_hat / (torch.sqrt(v_hat) + eps) + weight_decay * p), m, v

@@ -1,15 +1,29 @@
-"""The paper's "as-used" SGLD (counterpart of the add_param_noise :108 and
-exponential_decay_floored :159 of mfvi_dip_mia_tpu/optim/sgld.py): AdamW
-plus Gaussian parameter noise sigma * lr on every conv kernel before each
-forward, with ExponentialLR(gamma) stopped at the 1e-8 floor.
+"""SGLD-family optimizers (counterpart of mfvi_dip_mia_tpu/optim/sgld.py).
 
+The library optimizers, as gradient transformations over the port's
+parameter dict (optim/transform.py), each with an ``init(params)`` whose
+state holds its own ``torch.Generator`` (seeded by ``seed``, on the
+parameters' device) and an ``update(grads, state, params)``:
+
+  * ``sgld`` (sgld.py:35): update = -lr * 0.5 * (g + wd * p) + lr * N(0, 1).
+    The Langevin noise is scaled by lr, not sqrt(lr), as the reference
+    scales it; ``addnoise=False`` returns -lr * (g + wd * p), without the
+    one half.
+  * ``psgld`` (sgld.py:68): RMSProp-preconditioned SGLD, V <- V + (1 - a)
+    (g^2 - V) from V = 1, P = 1 / sqrt(V + eps), update = -lr * (0.5 P g
+    N_batches + N(0, 1) sigma sqrt(P)), sigma = 1 / sqrt(lr) once the count
+    passes ``num_burn_in_steps``, else 0 (the noise is drawn all the same).
+  * ``param_noise_transform`` (sgld.py:124): update += N(0, 1) * sigma *
+    lr_schedule(count) on the rank-4 leaves (conv kernels) only.
+
+The paper's "as-used" SGLD (add_param_noise :108, exponential_decay_floored
+:159) is AdamW plus Gaussian parameter noise sigma * lr on every conv kernel
+before each forward, with ExponentialLR(gamma) stopped at the 1e-8 floor.
 On the flat parameter buffer (bayes/vi.py::FlatParams) the conv kernels are
 a fixed set of positions, ``kernel_index``, built once before a fit's step
 is captured. The noise is one draw from the fit's generator through
 ``param_noise_eps`` (so a caller can hold it to a fixed table), added at
-those positions in one pass. The library optimizers ``sgld`` / ``psgld`` /
-``param_noise_transform`` (sgld.py:35, :60-100, :123) are not ported yet
-(ROADMAP Queue 1 item 8). Plain torch, as in JAX, where this runs outside
+those positions in one pass. Plain torch, as in JAX, where this runs outside
 any Pallas kernel.
 """
 
@@ -20,8 +34,107 @@ import math
 import torch
 
 from ..bayes.vi import FlatParams
+from .transform import Transform
 
 LR_FLOOR = 1e-8
+
+
+# -- the library optimizers -----------------------------------------------------
+
+def _generator_for(params: dict, seed: int) -> torch.Generator:
+    device = next(iter(params.values())).device
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _normal(g: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    return torch.randn(g.shape, generator=generator, device=g.device,
+                       dtype=g.dtype)
+
+
+def sgld(lr: float, weight_decay: float = 0.0, addnoise: bool = True,
+         seed: int = 0) -> Transform:
+    """Library SGLD; the state is {"generator"}."""
+
+    def init(params: dict) -> dict:
+        return {"generator": _generator_for(params, seed)}
+
+    def update(grads: dict, state: dict, params: dict | None = None):
+        if weight_decay != 0.0:
+            if params is None:
+                raise ValueError("weight_decay needs params")
+            grads = {n: g + weight_decay * params[n]
+                     for n, g in grads.items()}
+        if not addnoise:
+            return {n: -lr * g for n, g in grads.items()}, state
+        gen = state["generator"]
+        return {n: -lr * 0.5 * g + lr * _normal(g, gen)
+                for n, g in grads.items()}, state
+
+    return Transform(init, update)
+
+
+def psgld(lr: float = 1e-2, precondition_decay_rate: float = 0.95,
+          num_pseudo_batches: int = 1, num_burn_in_steps: int = 3000,
+          diagonal_bias: float = 1e-8, seed: int = 0) -> Transform:
+    """pSGLD; the state is {"generator", "momentum" (a dict, ones at init),
+    "count" (an int32 device tensor)}."""
+
+    def init(params: dict) -> dict:
+        first = next(iter(params.values()))
+        return {"generator": _generator_for(params, seed),
+                "momentum": {n: torch.ones_like(p)
+                             for n, p in params.items()},
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=first.device)}
+
+    def update(grads: dict, state: dict, params: dict | None = None):
+        count = state["count"] + 1
+        momentum = {n: v + (1.0 - precondition_decay_rate)
+                    * (grads[n] * grads[n] - v)
+                    for n, v in state["momentum"].items()}
+        sigma = torch.where(
+            count > num_burn_in_steps,
+            1.0 / torch.sqrt(torch.tensor(lr, dtype=torch.float32,
+                                          device=count.device)),
+            torch.zeros((), device=count.device))
+        gen = state["generator"]
+        out = {}
+        for n, g in grads.items():
+            precond = 1.0 / torch.sqrt(momentum[n] + diagonal_bias)
+            noise = _normal(g, gen)
+            scaled = (0.5 * precond * g * num_pseudo_batches
+                      + noise * sigma * torch.sqrt(precond))
+            out[n] = -lr * scaled
+        return out, {"generator": gen, "momentum": momentum, "count": count}
+
+    return Transform(init, update)
+
+
+def param_noise_transform(param_noise_sigma: float, lr_schedule,
+                          seed: int = 0) -> Transform:
+    """Adds N(0, 1) * param_noise_sigma * lr_schedule(count) to the update
+    of every rank-4 leaf (conv kernel); the others pass unchanged. The
+    state is {"generator", "count" (an int32 device tensor)}. The fits
+    perturb the parameters before the forward instead (``add_param_noise``);
+    this is for users composing transformations."""
+
+    def init(params: dict) -> dict:
+        first = next(iter(params.values()))
+        return {"generator": _generator_for(params, seed),
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=first.device)}
+
+    def update(grads: dict, state: dict, params: dict | None = None):
+        lr = lr_schedule(state["count"])
+        gen = state["generator"]
+        out = {n: (g + _normal(g, gen) * param_noise_sigma * lr
+                   if g.dim() == 4 else g) for n, g in grads.items()}
+        return out, {"generator": gen, "count": state["count"] + 1}
+
+    return Transform(init, update)
+
+
+# -- the paper's "as-used" SGLD ---------------------------------------------------
 
 
 def kernel_index(params: FlatParams) -> torch.Tensor:

@@ -3,9 +3,9 @@
 
 The JAX parameter tree arrives as nested dicts / lists of numpy arrays (the
 caller converts it with np.asarray; this module never sees JAX). HWIO conv
-kernels (``w``, ``w_mu``, ``w_rho``) become OIHW; biases and BatchNorm
-``scale``/``offset`` copy as they are. Leaf names keep the JAX paths, e.g.
-``levels.0.down1.conv.w_mu``.
+kernels (``w``, ``w_mu``, ``w_rho``) become OIHW, DHWIO ones OIDHW; biases
+and BatchNorm ``scale``/``offset`` copy as they are. Leaf names keep the JAX
+paths, e.g. ``levels.0.down1.conv.w_mu`` or a classifier's ``l1.w_mu``.
 """
 
 from __future__ import annotations
@@ -17,10 +17,11 @@ _KERNEL_LEAVES = ("w", "w_mu", "w_rho")
 
 
 def leaf_from_jax(name: str, value) -> torch.Tensor:
-    """One JAX leaf -> the port's tensor (OIHW for 4-D conv kernels)."""
+    """One JAX leaf -> the port's tensor: HWIO conv kernels become OIHW,
+    DHWIO ones (3-D variational leaves) OIDHW."""
     a = np.array(value, np.float32)          # a writable copy
-    if name.rsplit(".", 1)[-1] in _KERNEL_LEAVES and a.ndim == 4:
-        a = a.transpose(3, 2, 0, 1)
+    if name.rsplit(".", 1)[-1] in _KERNEL_LEAVES and a.ndim in (4, 5):
+        a = np.moveaxis(a, (-1, -2), (0, 1))
     return torch.from_numpy(np.ascontiguousarray(a))
 
 

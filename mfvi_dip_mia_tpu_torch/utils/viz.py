@@ -1,6 +1,6 @@
 """Host-side plots and image dumps of a run (counterpart of
 mfvi_dip_mia_tpu/utils/viz.py): loss / PSNR / SSIM curves, the calibration
-diagram and PNGs.
+diagrams, the weight and SNR histograms and PNGs.
 
 matplotlib (Agg) and PIL are imported inside the functions, so the port
 imports where they are missing; a run with ``plot=True`` there raises
@@ -81,6 +81,48 @@ def plot_uncert(errors_per_bin, uncert_per_bin, path):
     ax.plot(np.asarray(uncert_per_bin), np.asarray(errors_per_bin), "o-")
     ax.set_xlabel("uncertainty")
     ax.set_ylabel("error")
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def weight_hist(mus, sigmas, path, bins=100):
+    """Histograms of the posterior means and standard deviations over all
+    variational leaves (viz.py:108)."""
+    plt = _plt()
+    fig, axs = plt.subplots(1, 2, figsize=(10, 4))
+    axs[0].hist(np.concatenate([np.ravel(m) for m in mus]), bins=bins)
+    axs[0].set_title("W_mu")
+    axs[1].hist(np.concatenate([np.ravel(s) for s in sigmas]), bins=bins)
+    axs[1].set_title("W_sigma")
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def snr_hist(mus, sigmas, path, bins=100):
+    """Histogram of log10 |mu| / sigma over all weights (viz.py:120)."""
+    plt = _plt()
+    snrs = [np.abs(np.ravel(m)) / np.ravel(s) for m, s in zip(mus, sigmas)]
+    fig, ax = plt.subplots()
+    ax.hist(np.log10(np.concatenate(snrs) + 1e-12), bins=bins)
+    ax.set_xlabel("log10 SNR")
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def plot_conf(accs_per_bin, conf_per_bin, path):
+    """Classification calibration diagram: accuracy against confidence per
+    bin, beside the diagonal (viz.py:130)."""
+    plt = _plt()
+    fig, ax = plt.subplots()
+    ax.plot([0, 1], [0, 1], "--", color="gray")
+    ax.plot(np.asarray(conf_per_bin), np.asarray(accs_per_bin), "o-")
+    ax.set_xlabel("confidence")
+    ax.set_ylabel("accuracy")
+    ax.set_xlim(0, 1)
+    ax.set_ylim(0, 1)
     fig.tight_layout()
     fig.savefig(path)
     plt.close(fig)
