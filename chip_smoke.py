@@ -67,14 +67,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``bo("ct", "mfvi", ...)`` with configs/bo_mfvi_ct.json's parameters
    (256^2, f32, img 0, lr 1e-3, seed 1, the 2 x 2 temp / sigma candidates,
    "tpu:0" -> cuda:0) cut to 200 iterations a fit and 2 rounds, plots off,
-   paths in a temporary directory: no crashed candidate, a kept one in
-   every round, every fit all graph replays, the JAX loop's fig_data keys,
-   at most 64 MB more allocated after round 2 than after round 1, and the
-   launches of the whole sweep (``launches_by_path["bo_ct"]``); round 1
-   again, resumed from a copy of round 0's ``0_fig_data.npz``, must give
-   the straight sweep's (X, Y) and fig_data bit for bit. Seconds per
-   candidate (set-up, fit, MC summary) and per round (GP, candidate
-   search). Last, ``cli.main`` on a copy of that config (one round, which
+   paths in a temporary directory: round 0's 4 candidates on the one card
+   take JAX's interleaved route (``run_group_interleaved``: one
+   ``fit_interleaved``, no MC summary), a round of one candidate
+   ``run_task``; no crashed candidate, a kept one in every round, every fit
+   all graph replays, the JAX loop's fig_data keys, at most 64 MB more
+   allocated after round 2 than after round 1, and the launches of the
+   whole sweep (``launches_by_path["bo_ct"]``); round 1 again, resumed
+   from a copy of round 0's ``0_fig_data.npz``, must give the straight
+   sweep's (X, Y) and fig_data bit for bit; round 0's candidates once more
+   through ``run_candidates(..., interleave=False)`` (``run_task`` each,
+   with its MC summary) must give the interleaved scores bit for bit.
+   Seconds per candidate (set-up, fit, MC summary; a group's shared
+   evenly) and per round (GP, candidate search). Last, ``cli.main`` on a copy of that config (one round, which
    must observe the sweep's round 0) and ``eval_cli.main`` on a copy of
    configs/test_mfvi_ct.json (200 iterations): a finite PSNR and a
    save.npz with the CT and MC keys.
@@ -169,6 +174,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    5-iteration graph fit. ``launches_by_path["lib"]``: the launches of the
    three pooled graph fits and of the Gaussian-dropout calls.
 
+11. (run after 10) ``parallel/`` at bench.py's den widths (256^2, input
+   depth 16, f32, lr 1e-3, seed 1), each part's seconds by ``PhaseTimer``:
+   configs/bo_mfvi_den.json's first three candidates as three sequential
+   graph fits of 300 iterations, then as one ``fit_interleaved`` (K = 3)
+   and K = 1: each interleaved fit equal to its sequential fit bit for bit
+   (rows and parameters), every iteration a replay, den/MFVI's launches per
+   step in every fit's captured step and over all; the summed it/s (last
+   200) beside one sequential fit's, and the peak allocated memory of K = 1
+   and K = 3. The same three through ``run_sweep_spmd`` on ``make_mesh(1,
+   names=("cand",))``: each candidate's rows equal to its sequential
+   fit's, one replay launching three times den's kernels, its summed it/s
+   and capture seconds. Last, two child processes that share the card run
+   one round of configs/bo_mfvi_ct.json (100 iterations a fit, plots off,
+   paths in a temporary directory) through ``cli.main`` with
+   ``--dist-coordinator 127.0.0.1:PORT --dist-nproc 2 --dist-pid i`` (a
+   gloo group): both exit 0 with the same (X, Y), equal to one process's
+   ``run_candidates`` of the same candidates with its scores rounded to
+   float32, and only rank 0 reports the round and writes its fig_data.
+   ``launches_by_path["parallel"]``: the launches of the interleaved and
+   one-program fits.
+
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the package beside it, the script exits
@@ -178,6 +204,8 @@ with a non-zero code and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import os
 import re
@@ -1078,13 +1106,32 @@ def eager_rate(problem, method, **kw) -> float:
     return res.iters_per_sec
 
 
+_SHIPPED_LOADERS: dict = {}   # the data loaders before use_bench_images
+
+
 def use_bench_images() -> None:
     """bench.py's images: the synthetic CT slice and x-ray at SIZE^2."""
     import mfvi_dip_mia_tpu_torch.tasks.data as D
-    import mfvi_dip_mia_tpu_torch.tasks.problems as P
-    P.D.get_img_ct = lambda img: (D.synthetic_ct(img, SIZE), (SIZE, SIZE))
-    P.D.get_image_denoising = lambda img: (D.synthetic_xray(img, SIZE),
-                                           (SIZE, SIZE))
+    _SHIPPED_LOADERS.setdefault("get_img_ct", D.get_img_ct)
+    _SHIPPED_LOADERS.setdefault("get_image_denoising", D.get_image_denoising)
+    D.get_img_ct = lambda img: (D.synthetic_ct(img, SIZE), (SIZE, SIZE))
+    D.get_image_denoising = lambda img: (D.synthetic_xray(img, SIZE),
+                                         (SIZE, SIZE))
+
+
+@contextlib.contextmanager
+def shipped_images():
+    """The package's own data loaders (what a child process loads) for the
+    duration, bench.py's images again after."""
+    import mfvi_dip_mia_tpu_torch.tasks.data as D
+    saved = {k: getattr(D, k) for k in _SHIPPED_LOADERS}
+    for k, f in _SHIPPED_LOADERS.items():
+        setattr(D, k, f)
+    try:
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(D, k, f)
 
 
 REPRO_ITERS = 60
@@ -1850,14 +1897,17 @@ def mc_graph_against_eager() -> dict:
 
 class SweepProbe:
     """Times and counts a sweep from outside: wraps the runner's fit and MC
-    summary, ``run_task``, the fanout and the loop's GP and candidate
-    search (module attributes, restored on exit)."""
+    summary, ``run_task``, the interleaved group (``run_group_interleaved``
+    and its ``fit_interleaved``), the fanout and the loop's GP and candidate
+    search (module attributes, restored on exit). Each candidate gets one
+    record; a group's candidates share its seconds evenly."""
 
     def __init__(self):
         import mfvi_dip_mia_tpu_torch.bo.loop as L
         import mfvi_dip_mia_tpu_torch.parallel.fanout as F
         import mfvi_dip_mia_tpu_torch.tasks.runners as R
         self.targets = [(R, "fit"), (R, "mc_summary"), (R, "run_task"),
+                        (R, "fit_interleaved"), (R, "run_group_interleaved"),
                         (F, "run_candidates"), (L, "train_gp"),
                         (L, "find_candidates")]
         self.reset()
@@ -1869,17 +1919,27 @@ class SweepProbe:
     def __enter__(self):
         import torch
         self.saved = [getattr(m, n) for m, n in self.targets]
-        fit, mc, run_task, fanout, train_gp, find = self.saved
+        (fit, mc, run_task, fit_interleaved, group, fanout, train_gp,
+         find) = self.saved
 
         def timed(fn, key):
             def wrapper(*a, **kw):
                 t0 = time.perf_counter()
                 r = fn(*a, **kw)
                 self._cand[key] = time.perf_counter() - t0
-                if key == "fit":
-                    self._cand["res"] = r
+                self._cand[key + "_result"] = r
                 return r
             return wrapper
+
+        def record(res, seconds, fit_s, mc_s, route):
+            self.candidates.append(dict(
+                seconds=seconds, fit_seconds=fit_s, mc_seconds=mc_s,
+                setup_seconds=seconds - fit_s - mc_s, route=route,
+                first_chunk_seconds=getattr(res, "compile_seconds", None),
+                iters_per_sec=getattr(res, "iters_per_sec", None),
+                replays=getattr(res, "replays", None),
+                executed=getattr(res, "executed", None),
+                final_psnr=getattr(res, "final_psnr", None)))
 
         def run_task_w(*a, **kw):
             self._cand = {}
@@ -1888,19 +1948,22 @@ class SweepProbe:
                 return run_task(*a, **kw)
             finally:
                 torch.cuda.synchronize()
-                c, res = self._cand, self._cand.get("res")
+                c = self._cand
+                record(c.get("fit_result"), time.perf_counter() - t0,
+                       c.get("fit", 0.0), c.get("mc_summary", 0.0), "run_task")
+
+        def group_w(*a, **kw):
+            self._cand = {}
+            t0 = time.perf_counter()
+            try:
+                return group(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                c, k = self._cand, len(a[2])
                 total = time.perf_counter() - t0
-                self.candidates.append(dict(
-                    seconds=total, fit_seconds=c.get("fit"),
-                    mc_seconds=c.get("mc_summary"),
-                    setup_seconds=total - c.get("fit", 0.0)
-                    - c.get("mc_summary", 0.0),
-                    first_chunk_seconds=getattr(res, "compile_seconds",
-                                                None),
-                    iters_per_sec=getattr(res, "iters_per_sec", None),
-                    replays=getattr(res, "replays", None),
-                    executed=getattr(res, "executed", None),
-                    final_psnr=getattr(res, "final_psnr", None)))
+                for res in c.get("fit_interleaved_result") or [None] * k:
+                    record(res, total / k, c.get("fit_interleaved", 0.0) / k,
+                           0.0, "interleaved")
 
         def fanout_w(*a, **kw):
             t0 = time.perf_counter()
@@ -1923,6 +1986,7 @@ class SweepProbe:
 
         for (m, n), w in zip(self.targets, (
                 timed(fit, "fit"), timed(mc, "mc_summary"), run_task_w,
+                timed(fit_interleaved, "fit_interleaved"), group_w,
                 fanout_w, round_timed(train_gp, "train_gp_seconds"),
                 round_timed(find, "find_candidates_seconds"))):
             setattr(m, n, w)
@@ -1944,11 +2008,16 @@ def sweep(probe: SweepProbe, tmp: str) -> dict:
     """configs/bo_mfvi_ct.json through ``bo`` on the card, cut to
     SWEEP_ITERS iterations a fit and SWEEP_ROUNDS rounds, no plots, paths
     in ``tmp``; then round 1 again, resumed from a copy of round 0's
-    ``0_fig_data.npz``. Raises on a crashed candidate, a round without a
-    kept one, fig_data keys other than the JAX loop's, a resumed (X, Y) or
-    round-1 fig_data that is not the straight sweep's bit for bit, or more
-    than MEMORY_SLACK bytes more allocated after round 2 than after
-    round 1."""
+    ``0_fig_data.npz``; then round 0's candidates again through the
+    per-candidate route (``interleave=False``: ``run_task``, with its MC
+    summary). Round 0's 4 candidates on one card take JAX's interleaved
+    route (``run_group_interleaved``, no MC summary). Raises on a crashed
+    candidate, a round without a kept one, a round-0 candidate off the
+    interleaved route, fig_data keys other than the JAX loop's, a resumed
+    (X, Y) or round-1 fig_data that is not the straight sweep's bit for
+    bit, a per-candidate score of round 0 that is not the interleaved one
+    bit for bit, or more than MEMORY_SLACK bytes more allocated after round
+    2 than after round 1."""
     import shutil
     import numpy as np
     import torch
@@ -1979,7 +2048,7 @@ def sweep(probe: SweepProbe, tmp: str) -> dict:
             f"{r['find_candidates_seconds']:.2f} s, "
             f"{r['memory_allocated'] / 2 ** 20:.1f} MB allocated after")
     for c in cands:
-        log(f"    candidate: {c['seconds']:.2f} s = set-up "
+        log(f"    candidate ({c['route']}): {c['seconds']:.2f} s = set-up "
             f"{c['setup_seconds']:.2f} + fit {c['fit_seconds']:.2f} (first "
             f"chunk incl. warm-up and capture {c['first_chunk_seconds']:.2f}"
             f", then {c['iters_per_sec']:.1f} it/s) + MC summary "
@@ -1994,6 +2063,10 @@ def sweep(probe: SweepProbe, tmp: str) -> dict:
         raise AssertionError("a sweep round kept no candidate")
     if any(c["replays"] != c["executed"] for c in cands):
         raise AssertionError("a candidate's fit was not all graph replays")
+    n0 = rounds[0]["candidates"]
+    if [c["route"] for c in cands[:n0]] != ["interleaved"] * n0:
+        raise AssertionError("round 0's candidates did not take the "
+                             "interleaved route")
     if rounds[1]["memory_allocated"] > (rounds[0]["memory_allocated"]
                                         + MEMORY_SLACK):
         raise AssertionError("round 2 left more memory allocated than "
@@ -2021,9 +2094,34 @@ def sweep(probe: SweepProbe, tmp: str) -> dict:
     if not equal:
         raise AssertionError("the resumed sweep differs from the straight "
                              "one")
+
+    # round 0 once more, one candidate after another through run_task
+    from mfvi_dip_mia_tpu_torch.parallel import fanout
+    grid = [tuple(c) for c in itertools.product(
+        *[v["candidates"] for v in bo_params.values()])]
+    n_before = len(probe.candidates)
+    t0 = time.perf_counter()
+    plain_rp = dict(rp, save_path=os.path.join(tmp, "plain"))
+    devices = plain_rp.pop("devices")
+    plain_c, plain_y = fanout.run_candidates("ct", "mfvi", grid, plain_rp,
+                                             devices, interleave=False)
+    plain_s = time.perf_counter() - t0
+    routes = {c["route"] for c in probe.candidates[n_before:]}
+    k0 = rounds[0]["kept"]
+    same = plain_c == list(X[:k0]) and plain_y == list(Y[:k0])
+    log(f"[5] round 0's {len(grid)} candidates one after another through "
+        f"run_task (interleave=False, with MC summaries): {plain_s:.2f} s, "
+        f"Y {plain_y}: "
+        + ("the interleaved scores bit for bit" if same else
+           f"DIFFERENT from the interleaved {list(Y[:k0])}"))
+    if not same or routes != {"run_task"}:
+        raise AssertionError("round 0 per candidate differs from its "
+                             "interleaved route")
     return dict(X=[list(map(float, x)) for x in X], Y=[float(y) for y in Y],
                 seconds=wall, rounds=rounds, candidates=cands,
-                launches=launches, resumed_equal=equal)
+                launches=launches, resumed_equal=equal,
+                per_candidate_round0=dict(Y=plain_y, seconds=plain_s,
+                                          equal=same))
 
 
 def run_clis(probe: SweepProbe, tmp: str, sweep_y: list) -> dict:
@@ -4167,6 +4265,315 @@ def lib_phase() -> dict:
     return out
 
 
+# -- phase 11: parallel/ on the card -------------------------------------------
+
+PAR_ITERS = 300               # interleaved and one-program fits: 100 + 200
+PAR_SHOW = 100
+PAR_K = 3                     # bo_mfvi_den.json's first three candidates
+DIST_ITERS = 100              # the two-process round's fits
+DIST_TIMEOUT = 300            # seconds for each child process
+# a child of the two-process round: cli.main with the arguments after the
+# output path, then its (X, Y) as JSON into that path
+DIST_CHILD = ("import json, sys\n"
+              "from mfvi_dip_mia_tpu_torch import cli\n"
+              "X, Y = cli.main(sys.argv[2:])\n"
+              "with open(sys.argv[1], 'w') as f:\n"
+              "    json.dump(dict(X=[[float(v) for v in x] for x in X],\n"
+              "                   Y=[float(y) for y in Y]), f)\n")
+
+
+def den_candidates() -> tuple:
+    """(grid, Methods) of configs/bo_mfvi_den.json's first PAR_K
+    candidates (the runners' Method for each)."""
+    from mfvi_dip_mia_tpu_torch.parallel.fanout import candidate_kwargs
+    from mfvi_dip_mia_tpu_torch.tasks.runners import method_for
+    from mfvi_dip_mia_tpu_torch.utils.config import load_config
+    cfg = load_config(os.path.join(REPO, "configs", "bo_mfvi_den.json"))
+    grid = list(itertools.product(
+        *[v.candidates for v in cfg.bo_params.values()]))[:PAR_K]
+    return grid, [method_for("den", "mfvi", candidate_kwargs("mfvi", c))
+                  for c in grid]
+
+
+def _named(taken: tuple) -> dict:
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    return {k.name: n for k, n in zip(kernels.KERNELS, taken)}
+
+
+def interleaved_on_card(problem, methods) -> dict:
+    """The PAR_K den/MFVI fits (PAR_ITERS iterations, graph) one after
+    another through ``fit``, then together through ``fit_interleaved``
+    (K = PAR_K), then ``fit_interleaved`` of the first alone (K = 1, two
+    chunks): each interleaved fit must give its sequential fit's bits
+    (rows and parameters), replay every iteration, and launch den/MFVI's
+    kernels per step (each fit's captured variants, and the counters over
+    all). Logs the summed it/s (last PAR_ITERS - PAR_SHOW) beside one
+    sequential fit's, and the peak allocated MiB of K = 1 and K = PAR_K."""
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.tasks.trainer as T
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+
+    kw = dict(num_iter=PAR_ITERS - 1, lr=1e-3, seed=1, show_every=PAR_SHOW,
+              device=DEVICE)
+    seq = [T.fit(problem, m, collect_snapshots=False, **kw) for m in methods]
+    captured = []
+    capture_step = T.capture_step
+
+    def watched(*a, **k):
+        graphs = capture_step(*a, **k)
+        captured.append({wm: _named(l) for wm, (_, l) in graphs.items()})
+        return graphs
+
+    def peak_run(ms, **over):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        res = T.fit_interleaved(problem, ms, **dict(kw, **over))
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        return res, launches, torch.cuda.max_memory_allocated() - base
+
+    T.capture_step = watched
+    try:
+        res, launches, peak = peak_run(methods)
+        one, _, peak1 = peak_run(methods[:1], num_iter=2 * PAR_SHOW - 1)
+    finally:
+        T.capture_step = capture_step
+    equal = [same_bits(r, s) for r, s in zip(res, seq)]
+    expected = STEP_LAUNCHES["5-scale"]
+    per_fit = [hold_step_launches(f"interleaved fit {j}'s captured step",
+                                  c[with_metrics], 1, expected)
+               for j, c in enumerate(captured[:len(methods)])
+               for with_metrics in (False, True)]
+    per_step = hold_step_launches(
+        "the interleaved fits", launches, sum(steps_run(r) for r in res),
+        expected)
+    summed = sum(r.iters_per_sec for r in res)
+    log(f"[11] fit_interleaved of {len(methods)} den/MFVI f32 {SIZE}^2 "
+        f"candidates, {PAR_ITERS} it, graph: "
+        + ("each fit equals its sequential fit bit for bit (rows and "
+           "parameters)" if all(equal) else f"equal bits {equal}")
+        + f"; summed {summed:.2f} it/s over the last {PAR_ITERS - PAR_SHOW}"
+        f" (each {[round(r.iters_per_sec, 2) for r in res]}), one "
+        f"sequential fit {seq[0].iters_per_sec:.2f} it/s; launches per step "
+        f"of each fit { {k: v for k, v in per_fit[0].items() if v} } (as "
+        "den/MFVI's, every fit and variant); "
+        f"peak allocated K=1 {peak1 / 2 ** 20:.1f} MiB, K={len(methods)} "
+        f"{peak / 2 ** 20:.1f} MiB")
+    for r in res + one:
+        hold_replays("an interleaved fit", r)
+    if not all(equal) or not all(np.isfinite(r.final_psnr) for r in res):
+        raise AssertionError("an interleaved fit differs from its "
+                             "sequential fit")
+    return dict(equal_bits=equal, iters_per_sec=[r.iters_per_sec for r in res],
+                summed_iters_per_sec=summed,
+                sequential_iters_per_sec=[s.iters_per_sec for s in seq],
+                final_psnr=[r.final_psnr for r in res],
+                launches=launches, launches_per_step=per_step,
+                peak_allocated_bytes={1: peak1, len(methods): peak},
+                compile_seconds=res[0].compile_seconds, sequential=seq)
+
+
+def spmd_on_card(problem, methods, seq) -> dict:
+    """``run_sweep_spmd`` of the same candidates on ``make_mesh(1,
+    names=("cand",))``: each candidate's rows must equal its sequential
+    fit's bit for bit, one replay launches PAR_K x den/MFVI's kernels, and
+    the counters count them per replay. Logs the summed it/s of the chunks
+    after the first, the capture seconds and the launches per replay."""
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.parallel.sharding as S
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+
+    captures, chunk_starts = [], []
+    capture_steps, build_chunk = S.capture_steps, S.build_spmd_chunk
+
+    def watched(fits):
+        t0 = time.perf_counter()
+        graphs = capture_steps(fits)
+        torch.cuda.synchronize()
+        captures.append((time.perf_counter() - t0,
+                         {wm: _named(l) for wm, (_, l) in graphs.items()}))
+        return graphs
+
+    def timed_chunk(*a, **k):
+        run = build_chunk(*a, **k)
+
+        def wrapper(start, end):
+            chunk_starts.append(time.perf_counter())
+            return run(start, end)
+        return wrapper
+
+    S.capture_steps, S.build_spmd_chunk = watched, timed_chunk
+    try:
+        mesh = S.make_mesh(1, names=("cand",))
+        kernels.reset_launches()
+        finals, psnrs = S.run_sweep_spmd(problem, methods, lr=1e-3,
+                                         num_iter=PAR_ITERS - 1, seed=1,
+                                         show_every=PAR_SHOW, mesh=mesh)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+    finally:
+        S.capture_steps, S.build_spmd_chunk = capture_steps, build_chunk
+    equal = [bool(np.array_equal(psnrs[c], s.psnrs, equal_nan=True))
+             and finals[c] == s.final_psnr for c, s in enumerate(seq)]
+    expected = {k: len(methods) * n
+                for k, n in STEP_LAUNCHES["5-scale"].items()}
+    (capture_s, variants), = captures
+    for with_metrics in (False, True):
+        hold_step_launches("one replay of the one-program block",
+                           variants[with_metrics], 1, expected)
+    per_replay = hold_step_launches("the one-program sweep", launches,
+                                    PAR_ITERS + 2, expected)
+    summed = len(methods) * (PAR_ITERS - PAR_SHOW) / (t_end - chunk_starts[1])
+    log(f"[11] run_sweep_spmd of the {len(methods)} candidates on a 1-card "
+        f"'cand' mesh: "
+        + ("each candidate's rows equal its sequential fit's bit for bit"
+           if all(equal) else f"equal rows {equal}")
+        + f"; summed {summed:.2f} it/s over the last "
+        f"{PAR_ITERS - PAR_SHOW}; capture (warm-up included) "
+        f"{capture_s:.2f} s; launches per replay "
+        f"{ {k: v for k, v in per_replay.items() if v} }")
+    if not all(equal):
+        raise AssertionError("a one-program candidate differs from its "
+                             "sequential fit")
+    return dict(equal_rows=equal, summed_iters_per_sec=summed,
+                capture_seconds=capture_s, launches=launches,
+                launches_per_replay=per_replay, finals=finals)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def two_processes(tmp: str) -> dict:
+    """One round of configs/bo_mfvi_ct.json (DIST_ITERS iterations a fit,
+    plots off, its paths in ``tmp``) split over two processes that share the
+    card: each child runs ``cli.main`` with ``--dist-coordinator
+    127.0.0.1:PORT --dist-nproc 2 --dist-pid i`` (a gloo group) and writes
+    its (X, Y). Raises unless both children exit 0, both (X, Y) are equal,
+    they equal a one-process ``run_candidates`` of the round's candidates
+    with its scores rounded to float32, rank 0 alone reports the round and
+    ``bo_results_path`` holds its one fig_data file with that (X, Y). The
+    children load the kernels phase 1 built."""
+    import numpy as np
+    from mfvi_dip_mia_tpu_torch.parallel import fanout
+
+    with open(os.path.join(REPO, "configs", "bo_mfvi_ct.json")) as f:
+        raw = json.load(f)
+    bo_dir = os.path.join(tmp, "dist_bo")
+    raw["run_params"].update(plot=False, save_path=os.path.join(tmp, "dl"),
+                             bo_results_path=bo_dir)
+    config = os.path.join(tmp, "bo_mfvi_ct.json")
+    with open(config, "w") as f:
+        json.dump(raw, f)
+    port = _free_port()
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DIST_CHILD, outs[r], "--task", "ct",
+         "--bayes", "mfvi", "--config", config, "--rounds", "1",
+         "--num-iter", str(DIST_ITERS), "--no-plot", "--dist-coordinator",
+         f"127.0.0.1:{port}", "--dist-nproc", "2", "--dist-pid", str(r)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    logs, fails = [], []
+    for r, p in enumerate(procs):
+        try:
+            out, _ = p.communicate(timeout=DIST_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+            fails.append(f"rank {r} timed out")
+        logs.append(out.decode(errors="replace"))
+        if p.returncode != 0:
+            fails.append(f"rank {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    wall = time.perf_counter() - t0
+    if fails:
+        raise AssertionError("the two-process round failed: "
+                             + "\n".join(fails))
+    got = []
+    for o in outs:
+        with open(o) as f:
+            got.append(json.load(f))
+
+    rp = dict(raw["run_params"], num_iter=DIST_ITERS,
+              save_path=os.path.join(tmp, "one"))
+    devices = rp.pop("devices")
+    rp.pop("bo_results_path")
+    grid = list(itertools.product(
+        *[v["candidates"] for v in raw["bo_params"].values()]))
+    t1 = time.perf_counter()
+    with shipped_images():
+        one_c, one_y = fanout.run_candidates("ct", "mfvi", grid, rp, devices)
+    one_s = time.perf_counter() - t1
+    one = dict(X=[[float(v) for v in c] for c in one_c],
+               Y=[float(np.float32(y)) for y in one_y])
+    fig = np.load(os.path.join(bo_dir, "0_fig_data.npz"))
+    rank0_only = ("[bo] round 0 done" in logs[0]
+                  and "[bo] round 0 done" not in logs[1]
+                  and sorted(os.listdir(bo_dir)) == ["0_fig_data.npz"]
+                  and fig["observed_Y"].tolist() == got[0]["Y"])
+    log(f"[11] two processes on one card (gloo), one round of bo_mfvi_ct, "
+        f"{DIST_ITERS} it a fit: {wall:.1f} s wall (process start "
+        f"included); rank 0 (X, Y) {got[0]}; "
+        + ("rank 1's equal" if got[0] == got[1] else f"rank 1's {got[1]}")
+        + "; " + ("equal to" if got[0] == one else f"DIFFERENT from {one},")
+        + f" one process's run_candidates ({one_s:.2f} s) rounded to "
+        "float32; " + ("only rank 0 wrote" if rank0_only else
+                       "rank 0 is NOT the only writer"))
+    if not (got[0] == got[1] == one and rank0_only):
+        raise AssertionError("the two-process round failed its checks")
+    return dict(seconds=wall, X=got[0]["X"], Y=got[0]["Y"],
+                one_process_seconds=one_s, ranks_equal=True)
+
+
+def parallel_phase() -> dict:
+    """Phase 11: fit_interleaved and run_sweep_spmd of bo_mfvi_den.json's
+    first PAR_K candidates at bench.py's den widths, each candidate against
+    its sequential fit, and a two-process bo_mfvi_ct round through the CLI;
+    each part timed by ``profiling.PhaseTimer``, everything written in a
+    temporary directory, removed after. Returns the phase's results, with
+    "launches" those of the interleaved and one-program fits."""
+    import shutil
+    import tempfile
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.utils.profiling import PhaseTimer
+
+    t0 = time.perf_counter()
+    timer = PhaseTimer()
+    problem = den_tail_problem()
+    grid, methods = den_candidates()
+    out = {"candidates": [list(map(float, c)) for c in grid]}
+    with timer.phase("interleaved", sync=True):
+        out["interleaved"] = interleaved_on_card(problem, methods)
+    seq = out["interleaved"].pop("sequential")
+    with timer.phase("one program", sync=True):
+        out["spmd"] = spmd_on_card(problem, methods, seq)
+    del problem, seq
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    try:
+        with timer.phase("two processes", sync=True):
+            out["two_processes"] = two_processes(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k.name: out["interleaved"]["launches"][k.name]
+                       + out["spmd"]["launches"][k.name]
+                       for k in kernels.KERNELS}
+    out["timer"] = timer.summary()
+    out["seconds"] = time.perf_counter() - t0
+    log("[11] parts: " + ", ".join(f"{k} {v['total_s']:.1f} s"
+                                   for k, v in out["timer"].items()))
+    log(f"[11] phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4292,6 +4699,8 @@ def main(argv=None) -> int:
         fits["tail"] = tail_phase()
     with timer.phase("10 library tail", sync=True):
         fits["lib"] = lib_phase()
+    with timer.phase("11 parallel", sync=True):
+        fits["parallel"] = parallel_phase()
 
     line = []
     for k in kernels.KERNELS:
@@ -4310,7 +4719,7 @@ def main(argv=None) -> int:
             launches_by_path={p: fits[p]["launches"][k.name]
                               for p in ("ct", "den", "lrt_den", "dense_ct",
                                         "bo_ct", "sr", "inp", "tail",
-                                        "lib")},
+                                        "lib", "parallel")},
             max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],

@@ -30,7 +30,9 @@ classification trainer, the SGLD family, SNR pruning, profiling):
   * ``tasks``  — data, problems, the trainer (checkpoint / resume, early
                  stop), the runners and the evaluation report
   * ``bo``     — the exact GP, acquisition and the BO loop (f64, host CPU)
-  * ``parallel`` — the candidate fanout (one process, one card)
+  * ``parallel`` — the candidate fanout (interleaved groups on a card, one
+                 program over a device mesh, candidates split over
+                 processes with ``torch.distributed``)
   * ``utils``  — host images, plots, profiling, device resolution, CUDA
                  graph capture, the JAX weight bridge
 

@@ -75,7 +75,7 @@ def _replayed(one, generator: torch.Generator, n_samples: int,
     outs = torch.empty((n_samples, *warm.shape), dtype=warm.dtype,
                        device=device)
     del warm
-    graph, launches, static = capture(one, generator, side)
+    graph, launches, static = capture(one, [generator], side)
     for i in range(n_samples):
         graph.replay()
         kernels.add_counts(launches)

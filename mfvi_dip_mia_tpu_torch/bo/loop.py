@@ -1,14 +1,21 @@
 """The Bayesian-optimization outer loop with round checkpoints and resume
-(counterpart of mfvi_dip_mia_tpu/bo/loop.py, on one process).
+(counterpart of mfvi_dip_mia_tpu/bo/loop.py).
 
-Per round: run the candidates (parallel/fanout.py, one after another on the
-card) -> drop NaN -> accumulate (X, Y) -> fit the exact GP on the host CPU
--> EI grid + peak search + L-BFGS-B refinement -> next candidates -> save
-``{round}_fig_data.npz`` (the reference's BO-state artifact) and optionally
-the 4 diagnostic figures.
+Per round: run the candidates (parallel/fanout.py: interleaved groups on
+each card when there are more candidates than cards, else one after
+another) -> drop NaN -> accumulate (X, Y) -> fit the exact GP on the host
+CPU -> EI grid + peak search + L-BFGS-B refinement -> next candidates ->
+save ``{round}_fig_data.npz`` (the reference's BO-state artifact) and
+optionally the 4 diagnostic figures.
+
+In a ``torch.distributed`` group of more than one process (cli.py's
+``--dist-*`` flags) every process runs this same loop, the candidates are
+split across the processes (parallel/multihost.py), and only rank 0 prints
+and writes artifacts.
 
 ``resume=True`` reloads the observed (X, Y) and the next candidates from the
-highest-numbered ``*_fig_data.npz`` in ``bo_results_path`` and continues.
+highest-numbered ``*_fig_data.npz`` in ``bo_results_path`` and continues;
+in a group every process must resolve the same round.
 """
 
 from __future__ import annotations
@@ -25,9 +32,24 @@ import numpy as np
 
 from ..parallel import fanout
 from ..parallel.fanout import TASK_ALIASES
+from ..parallel.multihost import (check_resume_consistency,
+                                  run_candidates_multihost)
 from .acquisition import find_candidates
 from .gp import train_gp
 from .normalize import normalize_X, unnormalize_X
+
+
+def _fanout_and_rank():
+    """(fanout function, whether this process prints and writes
+    artifacts), as JAX's loop.py:31-42: in a process group of more than one
+    the multi-process fanout and rank 0; otherwise ``fanout.run_candidates``
+    (looked up at call time, so tests can monkeypatch it) and True."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and (
+            dist.get_world_size() > 1):
+        return run_candidates_multihost, dist.get_rank() == 0
+    return fanout.run_candidates, True
 
 
 def _grid(p1_logbounds, p2_logbounds, n=100):
@@ -78,13 +100,15 @@ def evaluate_candidates(task, bayes, bo_params, run_params, runner=None):
     names = list(bo_params.keys())
     candidates = list(itertools.product(
         *[v["candidates"] for v in bo_params.values()]))
-    kept_c, kept_y = fanout.run_candidates(task, bayes, candidates,
-                                           run_params, devices, runner=runner)
-    print()
-    print(f"{names[0]}      {names[1] if len(names) > 1 else ''}"
-          "       psnr")
-    for c, y in zip(kept_c, kept_y):
-        print("  ".join(f"{v:.6f}" for v in c) + f"  {y:.6f}")
+    fanout_fn, is_main = _fanout_and_rank()
+    kept_c, kept_y = fanout_fn(task, bayes, candidates, run_params, devices,
+                               runner=runner)
+    if is_main:
+        print()
+        print(f"{names[0]}      {names[1] if len(names) > 1 else ''}"
+              "       psnr")
+        for c, y in zip(kept_c, kept_y):
+            print("  ".join(f"{v:.6f}" for v in c) + f"  {y:.6f}")
     return kept_c, kept_y
 
 
@@ -106,8 +130,15 @@ def bo(task: str, bayes: str, bo_params: dict, run_params: dict,
     only when ``screen_confirm.json`` records the same best candidate and
     budgets; the JAX loop skips whenever the file exists.
 
-    ``use_spmd`` / ``sp_split`` are the JAX package's multi-chip modes and
-    raise NotImplementedError here (parallel/fanout.py)."""
+    ``use_spmd=True`` runs each round's candidates as one program over a
+    device mesh (parallel/sharding.py::run_sweep_spmd); ``sp_split`` routes
+    as ``fanout.run_candidates`` says (a split of each fit over two or more
+    cards is not ported).
+
+    In a process group of more than one (parallel/multihost.py) the
+    candidates are split across the processes and only rank 0 prints and
+    writes ``bo_results_path``'s files; a resumed sweep checks that every
+    process resolved the same round."""
     task = TASK_ALIASES[task]
     run_params = dict(run_params)
     bo_out_path = run_params.pop("bo_results_path")
@@ -140,6 +171,7 @@ def bo(task: str, bayes: str, bo_params: dict, run_params: dict,
         *[v["candidates"] for v in bo_params.values()]))
     X, Y = [], []
     start_round = 0
+    fanout_fn, is_main = _fanout_and_rank()
 
     if resume:
         state = _load_resume_state(bo_out_path)
@@ -147,18 +179,21 @@ def bo(task: str, bayes: str, bo_params: dict, run_params: dict,
             X, Y = state["X"], state["Y"]
             candidates = state["candidates"]
             start_round = state["round"]
-            print(f"[bo] resuming from round {start_round} "
-                  f"({len(X)} observations)")
+            if is_main:
+                print(f"[bo] resuming from round {start_round} "
+                      f"({len(X)} observations)")
+        check_resume_consistency(start_round)
 
     names = list(bo_params.keys())
     for runs_num in range(start_round, n_rounds):
-        kept_c, kept_y = fanout.run_candidates(
+        kept_c, kept_y = fanout_fn(
             task, bayes, candidates, run_params, devices, runner=runner,
             use_spmd=use_spmd, sp_split=sp_split)
-        print()
-        print(f"{names[0]}      {names[1]}       psnr")
-        for c, y in zip(kept_c, kept_y):
-            print(f"{c[0]:.6f}  {c[1]:.6f}  {y:.6f}")
+        if is_main:
+            print()
+            print(f"{names[0]}      {names[1]}       psnr")
+            for c, y in zip(kept_c, kept_y):
+                print(f"{c[0]:.6f}  {c[1]:.6f}  {y:.6f}")
 
         X += kept_c
         Y += kept_y
@@ -176,6 +211,8 @@ def bo(task: str, bayes: str, bo_params: dict, run_params: dict,
         candidates = [tuple(row) for row in
                       unnormalize_X(cand_norm, p1_logbounds, p2_logbounds)]
 
+        if not is_main:            # rank 0 writes the round's artifacts
+            continue
         pred_mean, pred_var = (a.detach().numpy()
                                for a in gp.predict(grid_norm))
         # gpytorch confidence_region width
@@ -202,15 +239,18 @@ def bo(task: str, bayes: str, bo_params: dict, run_params: dict,
     if screen_iters is not None and X:
         _screen_confirm(task, bayes, X, Y, run_params, devices, runner,
                         int(screen_iters), int(full_iters),
-                        os.path.join(bo_out_path, "screen_confirm.json"))
+                        os.path.join(bo_out_path, "screen_confirm.json"),
+                        fanout_fn, is_main)
     return X, Y
 
 
 def _screen_confirm(task, bayes, X, Y, run_params, devices, runner,
-                    screen_iters: int, full_iters: int, path: str) -> None:
+                    screen_iters: int, full_iters: int, path: str,
+                    fanout_fn, is_main: bool) -> None:
     """Confirm the screened winner with one fit at the full budget and
     record it in ``path``, unless ``path`` already records this winner at
-    these budgets."""
+    these budgets. Every process of a group takes part in the confirming
+    fanout; ``is_main`` prints and writes."""
     best_idx = int(np.argmax(Y))
     best_cand = [float(v) for v in X[best_idx]]
     key = dict(screen_iters=screen_iters, full_iters=full_iters,
@@ -219,13 +259,14 @@ def _screen_confirm(task, bayes, X, Y, run_params, devices, runner,
         with open(path) as f:
             rec = json.load(f)
         if all(rec.get(k) == v for k, v in key.items()):
-            print(f"[bo] screen confirm of {best_cand} already recorded at "
-                  f"{path}; skipping re-confirm")
+            if is_main:
+                print(f"[bo] screen confirm of {best_cand} already recorded "
+                      f"at {path}; skipping re-confirm")
             return
     confirm_rp = dict(run_params, num_iter=full_iters)
-    kept_c, kept_y = fanout.run_candidates(task, bayes, [X[best_idx]],
-                                           confirm_rp, devices, runner=runner)
-    if kept_c:
+    kept_c, kept_y = fanout_fn(task, bayes, [X[best_idx]], confirm_rp,
+                               devices, runner=runner)
+    if kept_c and is_main:
         with open(path, "w") as f:
             json.dump(dict(key, screened_psnr=float(Y[best_idx]),
                            confirmed_psnr=float(kept_y[0])), f, indent=2)

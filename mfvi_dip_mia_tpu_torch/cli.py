@@ -4,9 +4,12 @@
     python -m mfvi_dip_mia_tpu_torch.cli --task ct --bayes mfvi \
         --config configs/bo_mfvi_ct.json --num-iter 200 --rounds 2 --no-plot
 
-The JAX CLI's ``--dist-*`` flags (multi-host fanout) are not ported (ROADMAP
-Queue 1 item 9). ``--no-plot`` turns off the sweep's figures; the runners
-plot as the config's ``run_params.plot`` says.
+``--no-plot`` turns off the sweep's figures; the runners plot as the
+config's ``run_params.plot`` says. To split each round's candidates over N
+processes (on one card or several), start the same command N times with
+``--dist-coordinator host:port --dist-nproc N --dist-pid i`` (i = 0 .. N-1):
+each joins one ``torch.distributed`` gloo group (parallel/multihost.py),
+and rank 0 writes the sweep's files.
 """
 
 from __future__ import annotations
@@ -33,6 +36,12 @@ def main(argv=None):
     parser.add_argument("--screen-iters", type=int, default=None,
                         help="run BO rounds at this reduced fit budget and "
                              "confirm the winner with one full-budget fit")
+    parser.add_argument("--dist-coordinator", type=str, default=None,
+                        help="host:port of rank 0: start the same command in "
+                             "every process to split each round's "
+                             "candidates over them (parallel/multihost.py)")
+    parser.add_argument("--dist-nproc", type=int, default=None)
+    parser.add_argument("--dist-pid", type=int, default=None)
     args = parser.parse_args(argv)
 
     config = load_config(args.config)
@@ -43,10 +52,20 @@ def main(argv=None):
         run_params["num_iter"] = args.num_iter
     if args.metrics_every is not None:
         run_params["metrics_every"] = args.metrics_every
-    return bo(task=args.task, bayes=args.bayes, bo_params=bo_params,
-              run_params=run_params, n_rounds=args.rounds,
-              plot=not args.no_plot, resume=args.resume,
-              screen_iters=args.screen_iters)
+    sweep = dict(task=args.task, bayes=args.bayes, bo_params=bo_params,
+                 run_params=run_params, n_rounds=args.rounds,
+                 plot=not args.no_plot, resume=args.resume,
+                 screen_iters=args.screen_iters)
+    if args.dist_coordinator is None:
+        return bo(**sweep)
+    import torch.distributed as dist
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://{args.dist_coordinator}",
+                            world_size=args.dist_nproc, rank=args.dist_pid)
+    try:
+        return bo(**sweep)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

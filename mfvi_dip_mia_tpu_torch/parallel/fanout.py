@@ -1,14 +1,31 @@
 """Candidate -> device fanout of the BO loop, on one process (counterpart of
-mfvi_dip_mia_tpu/parallel/fanout.py's thread-per-candidate mode).
+mfvi_dip_mia_tpu/parallel/fanout.py).
 
-Candidate i runs on ``devices[i % len(devices)]``, one after another in
-candidate order, in the calling thread. The JAX package starts a thread per
-candidate; here concurrent fits would share the port's process-wide state:
-the kernel launch counters that every capture reads and takes back
-(ops/kernels: ``counts`` / ``take_counts_since``), the ``device_cache``
-tables, the capture stream of each card (utils/graphs.py::capture_stream),
-and PyTorch's global capture-error mode. The target is one H100, where the
-fits would queue on the card anyway.
+``run_candidates`` dispatches as JAX's does (fanout.py:172-298):
+
+  * with more candidates than devices (``interleave="auto"``; ``True``
+    forces it, ``False`` forbids it), and for every method but dip, the
+    candidates are grouped round-robin, candidate i onto ``devices[i %
+    n]``, and each group runs as one interleaved multi-fit
+    (tasks/runners.py::run_group_interleaved: no MC summary, each score
+    bit-identical to the candidate's ``run_task``), group after group;
+  * ``use_spmd=True`` runs every candidate as one program over a device
+    mesh (``run_candidates_spmd``, parallel/sharding.py::run_sweep_spmd);
+  * ``sp_split`` takes JAX's routing: with k >= 2 devices for each
+    candidate the spatial split would run, which needs at least two cards
+    per fit and is not ported (ROADMAP Queue 1 item 10); with fewer the
+    candidates fall through to the dispatch above;
+  * otherwise candidate i runs through ``run_task`` on ``devices[i % n]``,
+    one after another.
+
+A given ``runner`` ignores ``use_spmd``, ``sp_split`` and ``interleave`` and
+runs per candidate, as in JAX. Everything runs in the calling thread, where
+the JAX package starts a thread per candidate or group: concurrent fits
+would share the port's process-wide state (the kernel launch counters that
+every capture reads and takes back, ``ops/kernels``; the ``device_cache``
+tables; each card's capture stream, utils/graphs.py::capture_stream; and
+PyTorch's global capture-error mode), and on one card they would queue
+anyway. Candidates spread over processes through parallel/multihost.py.
 
 A crashed or NaN candidate contributes nothing: it is logged, dropped with
 its score (the pairs are filtered together), and the sweep goes on; a
@@ -43,6 +60,56 @@ def candidate_kwargs(bayes: str, candidate) -> dict:
     return {name: float(candidate[i]) for i, name in enumerate(axes)}
 
 
+def _kept(candidates, scores, keep_nan: bool):
+    """(candidates, scores) as tuples and floats, NaN pairs dropped unless
+    ``keep_nan``."""
+    pairs = [(tuple(np.asarray(c, np.float64)), float(y))
+             for c, y in zip(candidates, scores)]
+    if not keep_nan:
+        pairs = [(c, y) for c, y in pairs if np.isfinite(y)]
+    return [c for c, _ in pairs], [y for _, y in pairs]
+
+
+def run_candidates_spmd(task: str, bayes: str, candidates: Sequence,
+                        run_params: dict, keep_nan: bool = False):
+    """Every candidate as one program over a device mesh
+    (parallel/sharding.py::run_sweep_spmd; fanout.py:48-95). The mesh is
+    ``run_params["mesh"]`` or the default one of the cards, and the problem
+    is built on its first ``cand`` device with ``build_problem``'s own
+    noise stream, as JAX's is. Returns (kept_candidates, kept_scores) with
+    NaN candidates dropped and printed (``keep_nan``: every one)."""
+    from ..tasks.problems import build_problem
+    from ..tasks.runners import method_for
+    from .sharding import run_sweep_spmd
+
+    task = TASK_ALIASES[task]
+    rp = dict(run_params)
+    rp.pop("bo_results_path", None)
+    img = rp.pop("img", 0)
+    lr = rp.pop("lr", 3e-4)
+    num_iter = rp.pop("num_iter", 5000)
+    seed = rp.pop("seed", 42)
+    build_kw = {k: rp.pop(k) for k in ("p_sigma", "input_depth") if k in rp}
+    sweep_kw = {k: rp.pop(k) for k in ("show_every", "metrics_every",
+                                       "chunk_iters", "compute_dtype",
+                                       "layout", "reparam", "mesh")
+                if k in rp}
+
+    methods = [method_for(task, bayes, candidate_kwargs(bayes, c))
+               for c in candidates]
+    mesh = sweep_kw.get("mesh")
+    problem = build_problem(task, bayes, img, device=(
+        None if mesh is None else mesh.along("cand")[0]), **build_kw)
+    finals, _ = run_sweep_spmd(problem, methods, lr=lr, num_iter=num_iter,
+                               seed=seed, **sweep_kw)
+    if not keep_nan:
+        for cand, y in zip(candidates, finals):
+            if not np.isfinite(y):
+                print(f"[fanout/spmd] candidate {cand} diverged (NaN); "
+                      "dropped", flush=True)
+    return _kept(candidates, finals, keep_nan)
+
+
 def run_candidates(task: str, bayes: str, candidates: Sequence,
                    run_params: dict, devices=None, runner=None,
                    keep_nan: bool = False, use_spmd: bool = False,
@@ -54,53 +121,82 @@ def run_candidates(task: str, bayes: str, candidates: Sequence,
     candidate, NaN where it failed).
 
     ``devices``: names or ordinals as ``utils/device.py::resolve_device``
-    takes them ("tpu:0" and "cuda:0" alike), or None for the card.
-    ``runner(idx, device, candidate) -> score`` overrides ``run_task``
-    (tests). ``failures``, when given, receives one dict per failed
-    candidate: ``index``, ``candidate``, ``crashed`` (an exception, not a
-    NaN score) and ``error`` (the traceback, or None).
-
-    The JAX package's SPMD sweep (``use_spmd``), spatial split (``sp_split``)
-    and interleaved groups (``interleave=True``) are not ported (ROADMAP
-    Queue 1 item 9); "auto" runs the candidates one after another."""
-    if use_spmd or sp_split or interleave is True:
-        raise NotImplementedError(
-            "use_spmd, sp_split and interleave=True are not ported: the "
-            "port's fanout runs candidates one after another on one process "
-            "(ROADMAP Queue 1 item 9)")
-    from ..tasks.runners import run_task
-    from ..utils.device import resolve_device
+    takes them ("tpu:0" and "cuda:0" alike), or None for every card of this
+    process. ``runner(idx, device, candidate) -> score`` overrides
+    ``run_task`` (tests). ``use_spmd``, ``sp_split`` and ``interleave``
+    route as the module docstring says. ``failures``, when given, receives
+    one dict per failed candidate: ``index``, ``candidate``, ``crashed``
+    (an exception, not a NaN score) and ``error`` (the traceback, or
+    None)."""
+    from ..tasks.runners import run_group_interleaved, run_task
+    from ..utils.device import local_cards, resolve_device
 
     task = TASK_ALIASES[task]
-    devices = [resolve_device(d) for d in (devices or [None])]
+    results = [float("nan")] * len(candidates)
+    errors = [None] * len(candidates)
+
+    if use_spmd and runner is None:
+        _, results = run_candidates_spmd(task, bayes, candidates, run_params,
+                                         keep_nan=True)
+        return _record(candidates, results, errors, keep_nan, failures)
+
+    devices = ([resolve_device(d) for d in devices] if devices
+               else local_cards())
+    if sp_split and runner is None:
+        n_sp = (len(devices) // max(1, len(candidates))
+                if isinstance(sp_split, bool) else int(sp_split))
+        if n_sp >= 2 and n_sp * len(candidates) <= len(devices):
+            raise NotImplementedError(
+                f"sp_split={sp_split}: a spatial split of each fit over "
+                f"{n_sp} devices (fit_sp) needs at least two cards per "
+                "candidate and is not ported (ROADMAP Queue 1 item 10)")
+        # fewer than two devices a candidate: the standard dispatch
+
+    if (runner is None and bayes != "dip"
+            and (interleave is True
+                 or (interleave == "auto"
+                     and len(candidates) > len(devices)))):
+        for d, dev in enumerate(devices):
+            idxs = list(range(d, len(candidates), len(devices)))
+            if not idxs:
+                continue
+            try:
+                scores = run_group_interleaved(
+                    task, bayes, [candidates[i] for i in idxs], device=dev,
+                    **run_params)
+                for i, y in zip(idxs, scores):
+                    results[i] = float(y)
+            except Exception:
+                error = traceback.format_exc()
+                print(f"[fanout] interleaved group {idxs} failed on {dev}:\n"
+                      f"{error}", flush=True)
+                for i in idxs:
+                    errors[i] = error
+        return _record(candidates, results, errors, keep_nan, failures)
 
     if runner is None:
         def runner(idx, dev, cand):
             return run_task(task, bayes, index=idx, device=dev,
                             **candidate_kwargs(bayes, cand), **run_params)
 
-    results = []
     for i, cand in enumerate(candidates):
         dev = devices[i % len(devices)]
         try:
-            y = float(runner(i, dev, cand))
-            error = None
+            results[i] = float(runner(i, dev, cand))
         except Exception:
-            error = traceback.format_exc()
-            print(f"[fanout] candidate {cand} failed on {dev}:\n{error}",
+            errors[i] = traceback.format_exc()
+            print(f"[fanout] candidate {cand} failed on {dev}:\n{errors[i]}",
                   flush=True)
-            y = float("nan")
-        if not np.isfinite(y) and failures is not None:
-            failures.append(dict(index=i, candidate=tuple(cand),
-                                 crashed=error is not None, error=error))
-        results.append(y)
+    return _record(candidates, results, errors, keep_nan, failures)
 
-    if keep_nan:
-        return ([tuple(np.asarray(c, np.float64)) for c in candidates],
-                results)
-    kept_c, kept_y = [], []
-    for cand, y in zip(candidates, results):
-        if np.isfinite(y):
-            kept_c.append(tuple(np.asarray(cand, np.float64)))
-            kept_y.append(y)
-    return kept_c, kept_y
+
+def _record(candidates, results, errors, keep_nan, failures):
+    """Record each failed candidate in ``failures`` (when given), then
+    ``_kept``."""
+    if failures is not None:
+        for i, (cand, y, error) in enumerate(zip(candidates, results,
+                                                 errors)):
+            if not np.isfinite(y):
+                failures.append(dict(index=i, candidate=tuple(cand),
+                                     crashed=error is not None, error=error))
+    return _kept(candidates, results, keep_nan)

@@ -229,6 +229,22 @@ def build_problem(task: str, method: str, img: int, *, p_sigma: float = 0.1,
                    dev, img_np, target[0].cpu().numpy())
 
 
+def problem_on(problem: Problem, device) -> Problem:
+    """``problem`` with its device tensors on ``device`` (itself when it
+    lives there already); the CT operator's state is built anew there."""
+    dev = resolve_device(device)
+    if dev == problem.device:
+        return problem
+    operator = problem.operator
+    if isinstance(operator, FastRadonTransform):
+        operator = FastRadonTransform(problem.gt.shape, operator.theta_deg,
+                                      mode=operator.mode, device=dev)
+    return dataclasses.replace(
+        problem, gt=problem.gt.to(dev), target=problem.target.to(dev),
+        mask=None if problem.mask is None else problem.mask.to(dev),
+        operator=operator, device=dev)
+
+
 def reinit_conv_weights_normal(params: dict, generator: torch.Generator,
                                std: float = 0.1) -> dict:
     """sr mcd's quirk (problems.py:254): every conv kernel re-drawn from

@@ -1,5 +1,7 @@
 """The 16 ``run_{task}_{method}`` entry points (counterpart of
-mfvi_dip_mia_tpu/tasks/runners.py), each a thin closure over ``run_task``.
+mfvi_dip_mia_tpu/tasks/runners.py), each a thin closure over ``run_task``,
+and ``run_group_interleaved``, which fits several same-method BO candidates
+on one device at once (``fit_interleaved``).
 
 A run creates ``save_path/<timestamp>/`` with ``locals.txt``, fits, takes a
 25-sample MC posterior summary from the final parameters (every method but
@@ -24,7 +26,7 @@ from ..ops.metrics import psnr, ssim
 from ..utils.config import dump_locals
 from ..utils.device import resolve_device
 from .problems import METHODS, build_problem
-from .trainer import Method, fit
+from .trainer import Method, fit, fit_interleaved
 
 MC_SAMPLES = 25
 
@@ -194,6 +196,68 @@ def run_task(task: str, method_name: str, *, img: int = 0,
         np.savez(str(out_dir / "save.npz"),
                  **_npz_payload(task, problem, res, method_name), **summary)
     return res.final_psnr
+
+
+def run_group_interleaved(task: str, method_name: str, candidates,
+                          device=None, *, img: int = 0, num_iter: int = 5000,
+                          lr: float = 3e-4, p_sigma: float = 0.1,
+                          input_depth: int = 16, seed: int = 42,
+                          show_every: int = 100, metrics_every: int = 1,
+                          chunk_iters=None, early_stop=None,
+                          compute_dtype=None, plot: bool = False,
+                          save: bool = False, save_path: str = "./logs",
+                          **kwargs) -> list:
+    """Several same-method BO candidates on one device (default: the card)
+    through ``fit_interleaved`` (runners.py:213-289). Each candidate's
+    problem is built from its own ``default_rng(seed)``, so each fit's net
+    input stream is the one ``run_task`` would hand it, and each score is
+    the bit-identical final smoothed PSNR of that candidate's ``run_task``
+    (NaN where a fit diverged). No MC summary runs. With ``plot`` / ``save``
+    each candidate gets a ``{time}_{i}`` directory with ``locals.txt``
+    (``interleaved=True``), ``save.npz`` without the MC summary's keys
+    (``save``) and the loss plot (``plot``). Other keywords of the config's
+    run_params (``layout``, ``index``, ...) are taken and change nothing."""
+    from ..parallel.fanout import candidate_kwargs
+    from ..utils import viz
+
+    dev = resolve_device(device)
+    on_card = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+    with on_card:
+        methods, rngs = [], []
+        for cand in candidates:
+            rng = np.random.default_rng(seed)
+            overrides = candidate_kwargs(method_name, cand)
+            problem = build_problem(task, method_name, img, p_sigma=p_sigma,
+                                    input_depth=input_depth,
+                                    dropout_p=overrides.get("dropout_p", 0.3),
+                                    device=dev, rng=rng)
+            methods.append(method_for(task, method_name, overrides))
+            rngs.append(rng)
+        results = fit_interleaved(
+            problem, methods, num_iter=num_iter, lr=lr, seed=seed, rngs=rngs,
+            show_every=show_every, metrics_every=metrics_every,
+            chunk_iters=chunk_iters, device=dev, early_stop=early_stop,
+            compute_dtype=compute_dtype)
+
+    if plot or save:
+        for i, (cand, res) in enumerate(zip(candidates, results)):
+            # suffixed: two groups of one sweep can share a clock tick
+            out_dir = Path(save_path) / f"{time.time()}_{i}"
+            out_dir.mkdir(parents=True, exist_ok=False)
+            dump_locals(str(out_dir / "locals.txt"), dict(
+                task=task, bayes=method_name, img=img, num_iter=num_iter,
+                lr=lr, seed=seed, device=str(dev), interleaved=True,
+                **candidate_kwargs(method_name, cand)))
+            if save:
+                np.savez(str(out_dir / "save.npz"),
+                         **_npz_payload(task, problem, res, method_name))
+            if plot:
+                viz.plot_loss(res.mse_corrupted, res.mse_gt, res.psnrs,
+                              num_iter,
+                              str(out_dir / f"loss_{method_name}.png"),
+                              f"MSE {method_name.upper()}")
+    return [res.final_psnr for res in results]
 
 
 def _make_runner(task, method):

@@ -50,6 +50,10 @@ rows once per ``chunk_iters`` iterations and the snapshot maps after each
 write a checkpoint (every StepState tensor, the generator's state, the host
 rows and snapshots) and resume from one before it captures, and an opt-in
 early stop decides on the rows the host has read (trainer.py:557-579).
+``fit_interleaved`` runs K fits of one problem on one card, each its own
+pair of graphs replayed chunk by chunk in turn, each giving the bits of
+its sequential ``fit``; ``capture_steps`` captures several fits' steps
+back to back as one graph per variant (parallel/sharding.py's blocks).
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ from .problems import METHODS, Problem, reinit_conv_weights_normal
 MC_RING = 25
 EXP_WEIGHT = 0.99
 REG_NOISE_STD = 0.1
+N_OUT = {"ct": 1, "den": 2, "sr": 2, "inp": 4}   # the net's output channels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,7 +309,7 @@ def prepare_fit(problem: Problem, method: Method, *, iterations: int,
     dtype = resolve_compute_dtype(compute_dtype)
     h, w = problem.imsize
     mc = problem.mean_ch
-    n_out = {"ct": 1, "den": 2, "sr": 2, "inp": 4}[problem.task]
+    n_out = N_OUT[problem.task]
 
     z_np = I.get_noise(problem.input_depth, (h, w),
                        rng=np.random.default_rng(seed) if rng is None else rng)
@@ -328,43 +333,57 @@ def prepare_fit(problem: Problem, method: Method, *, iterations: int,
 def capture_step(step: Callable, state: StepState,
                  gen: torch.Generator) -> dict:
     """``step``'s two variants captured as CUDA graphs on ``state``:
-    {with_metrics: (graph, the kernel launches one replay makes)}.
+    {with_metrics: (graph, the kernel launches one replay makes)}
+    (``capture_steps`` of one fit)."""
+    return capture_steps([(step, state, gen)])
 
-    Both variants first run once eagerly on a copy of the state, on the
-    capture's side stream: that builds the kernels, sets their attributes,
-    and fills every lazy cache (the dw tickets, the pad tables, the Radon
-    plans, the interpolation and blur matrices) before capture, so a capture
-    records kernels only and puts nothing of its pool into a cache. The
-    copy's iteration index starts at 0, so a resumed state warms up in
-    bounds too. ``gen`` is reset to where it was, so the fit's random
-    stream starts where the eager step's would. Raises if a capture
+
+def capture_steps(fits: list) -> dict:
+    """The steps of ``fits`` (a list of (step, state, generator) on one
+    card) captured back to back as one CUDA graph per variant, so that one
+    replay advances every fit by one iteration: {with_metrics: (graph, the
+    kernel launches one replay makes)}.
+
+    Each fit's two variants first run once eagerly on a copy of its state,
+    on the capture's side stream: that builds the kernels, sets their
+    attributes, and fills every lazy cache (the dw tickets, the pad tables,
+    the Radon plans, the interpolation and blur matrices) before capture,
+    so a capture records kernels only and puts nothing of its pool into a
+    cache. The copy's iteration index starts at 0, so a resumed state warms
+    up in bounds too. Each fit's generator is reset to where it was (a warm
+    up draws from its own fit's generator only), so each fit's random
+    stream starts where its eager step's would. Raises if a capture
     fails."""
-    dev = state.flat.device
+    dev = fits[0][1].flat.device
     side = capture_stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
-    start = gen.get_state()
+    starts = [gen.get_state() for _, _, gen in fits]
     with torch.cuda.stream(side):
-        scratch = state.clone()
-        # a fit resumed at its last chunk would write a row past the end
-        scratch.it.zero_()
-        for with_metrics in (False, True):
-            step(scratch, with_metrics)
+        for step, state, _ in fits:
+            scratch = state.clone()
+            # a fit resumed at its last chunk would write a row past the end
+            scratch.it.zero_()
+            for with_metrics in (False, True):
+                step(scratch, with_metrics)
     torch.cuda.current_stream(dev).wait_stream(side)
     del scratch
-    gen.set_state(start)
-    return {with_metrics: capture_variant(step, state, gen, side,
-                                          with_metrics)
+    for (_, _, gen), start in zip(fits, starts):
+        gen.set_state(start)
+    return {with_metrics: capture_variant(fits, side, with_metrics)
             for with_metrics in (False, True)}
 
 
-def capture_variant(step: Callable, state: StepState, gen: torch.Generator,
-                    stream: torch.cuda.Stream, with_metrics: bool) -> tuple:
-    """One variant of ``step`` captured on ``stream``: (graph, the kernel
-    launches one replay makes). ``gen`` is registered with the graph, so
-    each replay draws the next numbers of the fit's stream, as the eager
-    step would."""
-    graph, launches, _ = capture(lambda: step(state, with_metrics), gen,
-                                 stream)
+def capture_variant(fits: list, stream: torch.cuda.Stream,
+                    with_metrics: bool) -> tuple:
+    """One variant of the steps of ``fits`` captured on ``stream``, one
+    after another: (graph, the kernel launches one replay makes). Every
+    fit's generator is registered with the graph, so each replay draws the
+    next numbers of each fit's stream, as the eager steps would."""
+    def steps():
+        for step, state, _ in fits:
+            step(state, with_metrics)
+
+    graph, launches, _ = capture(steps, [gen for _, _, gen in fits], stream)
     return graph, launches
 
 
@@ -568,3 +587,109 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
                        if steady_iters > 0 and steady_s > 0 else 0.0),
         compile_seconds=t_first - t0, final_psnr=final, executed=executed,
         wall_seconds=total_s, replays=replays, warmup_steps=warmup_steps)
+
+
+def fit_interleaved(problem: Problem, methods, *, num_iter: int, lr: float,
+                    seed: int = 42, rngs=None, show_every: int = 100,
+                    metrics_every: int = 1,
+                    chunk_iters: Optional[int] = None, reparam: str = "rt",
+                    device=None, compute_dtype="f32", eager: bool = False,
+                    early_stop: Optional[dict] = None) -> list:
+    """K fits of the same problem, one per ``methods`` entry (all of one
+    method name), time-multiplexed on one device (default: the card):
+    trainer.py:771-904. Each fit is ``fit``'s with the same ``seed``: its
+    own state, its own generator seeded ``seed``, and its net input drawn
+    from ``rngs[j]`` (default ``default_rng(seed)``), so each gives the bits
+    of its sequential ``fit``. The fits share the problem's device tensors.
+
+    On the card each fit's step is captured as its own pair of CUDA graphs
+    (``capture_step``; K private memory pools); each chunk of
+    ``chunk_iters`` iterations (default ``show_every``) replays fit 0's
+    chunk, then fit 1's, and so on, on the current stream, and the host
+    reads fit j's metric rows while the later fits' replays run.
+    ``eager=True``, and the CPU, run each step eagerly instead. Per fit: an
+    optional early stop (``fit``'s ``early_stop``) ends its replays; no
+    snapshot stacks (zero-sized) and no checkpoint. ``iters_per_sec`` is
+    each fit's iterations after the first chunk over the wall time of the
+    chunks after the first, as JAX reckons it. The graphs and their memory
+    are released on return. Returns one FitResult per method."""
+    if len({m.name for m in methods}) != 1:
+        raise ValueError("interleaved fits must share a method")
+    num_iter = num_iter + 1
+    chunk = chunk_iters or show_every
+    k_fits = len(methods)
+    h, w = problem.imsize
+    mc = problem.mean_ch
+    preps = [prepare_fit(problem, m, iterations=num_iter, lr=lr, seed=seed,
+                         rng=(rngs[j] if rngs is not None
+                              else np.random.default_rng(seed)),
+                         device=device, compute_dtype=compute_dtype,
+                         reparam=reparam)
+             for j, m in enumerate(methods)]
+    dev = preps[0].state.flat.device
+    rows = [np.full((num_iter, 8), np.nan) for _ in range(k_fits)]
+    stops = [_EarlyStop(early_stop) if early_stop else None
+             for _ in range(k_fits)]
+    executed = [num_iter] * k_fits
+    active = [True] * k_fits
+    replays = [0] * k_fits
+    n_chunks = -(-num_iter // chunk)
+
+    t0 = time.perf_counter()
+    graphs = ([capture_step(p.step, p.state, p.generator) for p in preps]
+              if dev.type == "cuda" and not eager else None)
+    warmup_steps = 0 if graphs is None else 2   # one per variant, per fit
+    t_first = None
+    for s in range(n_chunks):
+        start = s * chunk
+        end = min(start + chunk, num_iter)
+        running = [j for j in range(k_fits) if active[j]]
+        for j in running:
+            for it in range(start, end):
+                with_metrics = it % metrics_every == 0
+                if graphs is None:
+                    preps[j].step(preps[j].state, with_metrics)
+                else:
+                    graph, launches = graphs[j][with_metrics]
+                    graph.replay()
+                    kernels.add_counts(launches)
+                    replays[j] += 1
+        for j in running:
+            # blocks until fit j's chunk is done; the later fits' run on
+            rows[j][start:end] = preps[j].state.rows[start:end].cpu().numpy()
+            if (stops[j] is not None
+                    and stops[j].should_stop(rows[j][start:end, 4], start)):
+                active[j] = False
+                executed[j] = end
+        if t_first is None:
+            _sync(dev)
+            t_first = time.perf_counter()
+        if not any(active):
+            break
+
+    _sync(dev)
+    graphs = None                  # frees the graphs and their memory pools
+    t_end = time.perf_counter()
+    steady_s = t_end - t_first
+    first_iters = min(chunk, num_iter)
+    empty = np.zeros((0, mc, h, w), np.float32)
+    results = []
+    for j, prep in enumerate(preps):
+        psnrs = rows[j][:, 2:5]
+        valid = np.where(np.isfinite(psnrs[:, 2]))[0]
+        steady_iters = executed[j] - first_iters
+        results.append(FitResult(
+            mse_corrupted=rows[j][:, 0], mse_gt=rows[j][:, 1], psnrs=psnrs,
+            ssims=rows[j][:, 5:8], recons=empty, uncerts_epi=empty,
+            uncerts_ale=empty,
+            params={k: t.detach().cpu().numpy() for k, t in
+                    prep.params.with_flat(prep.state.flat).leaves().items()},
+            net_input=prep.net_input,
+            iters_per_sec=(steady_iters / steady_s
+                           if steady_iters > 0 and steady_s > 0 else 0.0),
+            compile_seconds=t_first - t0,
+            final_psnr=(float(psnrs[valid[-1], 2]) if len(valid)
+                        else float("nan")),
+            executed=executed[j], wall_seconds=t_end - t0,
+            replays=replays[j], warmup_steps=warmup_steps))
+    return results

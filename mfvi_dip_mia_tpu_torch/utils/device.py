@@ -29,6 +29,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def local_cards() -> list:
+    """Every card this process sees, as ``cuda:<i>`` devices; raises without
+    one (the counterpart of ``jax.local_devices()`` as the JAX package's
+    fanout and mesh take it)."""
+    _require_cuda()
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def _require_cuda() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError(

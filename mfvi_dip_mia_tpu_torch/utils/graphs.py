@@ -1,10 +1,11 @@
-"""CUDA graph capture for the port's replayed work (a fit's step, an MC
-sample): one capture stream per card, and a capture that registers the
-random stream and counts what a replay launches."""
+"""CUDA graph capture for the port's replayed work (a fit's step, the steps
+of a block of candidates, an MC sample): one capture stream per card, and a
+capture that registers the random streams and counts what a replay
+launches."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -23,16 +24,18 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     return _CAPTURE_STREAMS[device]
 
 
-def capture(fn: Callable, generator: torch.Generator,
+def capture(fn: Callable, generators: Sequence[torch.Generator],
             stream: torch.cuda.Stream) -> tuple:
     """``fn()`` captured on ``stream`` as a CUDA graph: (graph, the kernel
     launches one replay makes, what ``fn`` returned, in the graph's
-    memory). ``generator`` is registered with the graph, so each replay
-    draws the next numbers of its stream, as an eager call would. The
-    capture's launch counts are taken back off the counters; the caller
-    adds them once per replay (``kernels.add_counts``)."""
+    memory). Every generator of ``generators`` is registered with the
+    graph, so each replay draws the next numbers of each stream, as an
+    eager call would. The capture's launch counts are taken back off the
+    counters; the caller adds them once per replay
+    (``kernels.add_counts``)."""
     graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(generator)
+    for generator in generators:
+        graph.register_generator_state(generator)
     before = kernels.counts()
     with torch.cuda.graph(graph, stream=stream):
         out = fn()

@@ -23,6 +23,7 @@ import mfvi_dip_mia_tpu.bo.loop as JL
 import mfvi_dip_mia_tpu.cli as jcli
 import mfvi_dip_mia_tpu.eval_cli as jeval
 import mfvi_dip_mia_tpu.tasks.data as JD
+from mfvi_dip_mia_tpu.parallel import fanout as JF
 from mfvi_dip_mia_tpu.bo import acquisition as jacq
 from mfvi_dip_mia_tpu.bo import gp as jgp
 import mfvi_dip_mia_tpu_torch.bo.loop as TL
@@ -255,9 +256,22 @@ def test_fanout_filters_failures_pairwise_in_candidate_order():
                                   dict(sp_split=True),
                                   dict(interleave=True)])
 def test_fanout_modes_not_ported_raise(mode):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TF.run_candidates("ct", "mfvi", [(1e-3, 1e-3)], {}, devices=["cpu"],
-                          runner=mock_runner, **mode)
+    """With a runner given the fanout modes are ignored, as JAX's
+    run_candidates ignores them (fanout.py:205, :209, :234): the runner
+    runs once per candidate, on devices[i % n], with JAX's scores."""
+    cands = [(10.0 ** -k, 10.0 ** -k) for k in range(1, 6)]
+    seen = []
+
+    def runner(idx, dev, cand):
+        seen.append((idx, str(dev)))
+        return mock_runner(idx, dev, cand)
+
+    got = TF.run_candidates("ct", "mfvi", cands, {},
+                            devices=["cpu", "cpu:0"], runner=runner, **mode)
+    assert seen == [(i, ("cpu", "cpu:0")[i % 2]) for i in range(5)]
+    assert got == JF.run_candidates("ct", "mfvi", cands, {},
+                                    devices=["cpu", "cpu"],
+                                    runner=mock_runner, **mode)
 
 
 def test_plots_without_matplotlib_fail_before_a_fit(tmp_path, monkeypatch):

@@ -71,15 +71,23 @@ def eps_pair(jax_tree, port_params: tvi.FlatParams, seed=0):
     """One standard-normal eps, as the JAX vector (in ``jax_tree``'s walk
     order, HWIO kernels) and the port's (in its eps_order, OIHW)."""
     rng = np.random.default_rng(seed)
-    by_name = {}
-    chunks = []
+    eps = np.concatenate([rng.standard_normal(shape).astype(np.float32)
+                          .reshape(-1)
+                          for _, shape in jax_eps_order(jax_tree)])
+    return eps, port_eps(jax_tree, port_params, eps)
+
+
+def port_eps(jax_tree, port_params: tvi.FlatParams, eps) -> torch.Tensor:
+    """The JAX eps vector ``eps`` (in ``jax_tree``'s walk order, HWIO
+    kernels) as the port's (in its eps_order, OIHW)."""
+    eps = np.asarray(eps, np.float32)
+    by_name, off = {}, 0
     for name, shape in jax_eps_order(jax_tree):
-        e = rng.standard_normal(shape).astype(np.float32)
-        by_name[name] = e
-        chunks.append(e.reshape(-1))
-    port = [bridge.leaf_from_jax(name, by_name[name]).reshape(-1)
-            for name, _ in tvi.eps_order(port_params)]
-    return np.concatenate(chunks), torch.cat(port)
+        size = int(np.prod(shape))
+        by_name[name] = eps[off:off + size].reshape(shape)
+        off += size
+    return torch.cat([bridge.leaf_from_jax(name, by_name[name]).reshape(-1)
+                      for name, _ in tvi.eps_order(port_params)])
 
 
 class MixtureTable:
