@@ -195,6 +195,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``launches_by_path["parallel"]``: the launches of the interleaved and
    one-program fits.
 
+12. (run after 11) One fit split by image rows (``parallel/sharding.py::
+   fit_sp``, nn/sp.py) over meshes that name cuda:0 2 and 4 times, at
+   bench.py's den widths (256^2, input depth 16, lr 1e-3, seed 1), each
+   part's seconds by ``PhaseTimer``: the unsplit den/MFVI f32 graph fit of
+   300 iterations and the same with every site on the unfused chain (the
+   route a split takes), then per split a 300-iteration graph fit (every
+   iteration a replay; launches per step exactly ``sp_step_launches``,
+   predicted from the net; its first 80 rows' smoothed PSNR within JAX's
+   sp tolerance of the unsplit fit's, its current iterate's PSNRs and its
+   final smoothed PSNR within that tolerance, or 0.1 dB, plus the two
+   unsplit routes' spread; its it/s and peak allocated memory beside the
+   unsplit fit's), two graph fits and an eager one of 40 iterations with
+   equal bits, and every cache unchanged by each capture; CT/MFVI bf16
+   over 2 shards (100 iterations: finite, the final smoothed PSNR above
+   iteration 0's, its gap to the unsplit fit's logged); and
+   ``run_candidates("den", "mfvi", 2 candidates, devices=["cuda:0"] * 4,
+   sp_split=True)`` (100 iterations a fit, a 2-entry sub-mesh each), its
+   scores within 0.1 dB of the plain route's (``run_task`` each) and of
+   each candidate's unsplit fit. Phase 2 holds the conv kernels at every
+   shard slab of these fits (f32 and bf16). ``launches_by_path["sp"]``:
+   the launches of the split den and CT fits.
+
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the package beside it, the script exits
@@ -515,6 +537,45 @@ def conv_sites(net, size: int) -> list[dict]:
     for i, cfg in enumerate(net.levels):
         s = size >> i
         first = i == 0            # level 0's skip and down1 read the input z
+        if cfg.skip_conv is not None:
+            add(f"levels.{i}.skip", cfg.skip_conv, s, not first)
+        add(f"levels.{i}.down1", cfg.down1, s, not first)
+        add(f"levels.{i}.down2", cfg.down2, s // 2)
+        add(f"levels.{i}.up", cfg.up, s)
+        if cfg.up1x1 is not None:
+            add(f"levels.{i}.up1x1", cfg.up1x1, s)
+    add("out", net.out_conv, size)
+    return sites
+
+
+def split_conv_sites(net, size: int, n_sp: int) -> list[dict]:
+    """Every conv site of ``net`` on a size^2 input split by rows into
+    ``n_sp`` even shards (nn/sp.py), as the VALID conv the kernel sees on
+    one shard's halo slab (every shard's slab has one shape): the shard's
+    rows of the site's level plus the pad or halo rows its output reads,
+    the columns padded as the unsplit site's; a stride-2 site's slab as k3
+    parity planes. Bounds and needs_dx as ``conv_sites``."""
+    sites = []
+
+    def add(name, site, s_in, needs_dx=True):
+        k, p = site.kernel, (site.kernel - 1) // 2
+        stride = 1 if site.downsample_mode != "stride" else site.stride
+        hp, wp = s_in // n_sp + k - stride, s_in + 2 * p
+        ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
+        own = dict(flops=2.0 * site.c_out * site.c_in * k * k * ho * wo,
+                   x_elems=site.c_in * hp * wp)
+        if stride == 1:
+            xp, w = (site.c_in, hp, wp), (site.c_out, site.c_in, k, k)
+        else:
+            k2 = (k + 1) // 2
+            xp = (4 * site.c_in, ho + k2 - 1, wo + k2 - 1)
+            w = (site.c_out, 4 * site.c_in, k2, k2)
+        sites.append(dict(name=f"{name} sp{n_sp}", xp=xp, w=w,
+                          needs_dx=needs_dx, **own))
+
+    for i, cfg in enumerate(net.levels):
+        s = size >> i
+        first = i == 0
         if cfg.skip_conv is not None:
             add(f"levels.{i}.skip", cfg.skip_conv, s, not first)
         add(f"levels.{i}.down1", cfg.down1, s, not first)
@@ -1700,6 +1761,8 @@ def cache_state() -> dict:
                            ("radon._MATRIX_CACHE", R._MATRIX_CACHE),
                            ("pad._tables", PD._tables.entries),
                            ("layers._matrix_on", L._matrix_on.entries),
+                           ("layers.band_on", L.band_on.entries),
+                           ("downsampler._band_on", DS._band_on.entries),
                            ("downsampler._matrices_on",
                             DS._matrices_on.entries),
                            ("metrics._blur_on", M._blur_on.entries),
@@ -4574,6 +4637,356 @@ def parallel_phase() -> dict:
     return out
 
 
+# -- phase 12: one fit split by rows over a one-card mesh (fit_sp) ------------
+
+SP_SPLITS = (2, 4)            # shards of the den fits: 128 and 64 rows each
+SP_ITERS = 300                # each den fit, split or not: 100 warm + 200
+SP_SHOW = 100
+SP_BITS_ITERS = 40            # two graph fits and an eager one, equal bits
+SP_BITS_SHOW = 20
+# A split fit against the unsplit fits of the same seed, over its first
+# SP_PSNR_ITERS rows: the smoothed PSNR (the BO objective) within JAX's sp
+# tolerance (tests/test_sharding.py:122-127) of the unsplit fit's (fused
+# sites) and of the unsplit fit on the split's own route (every site on
+# the unfused chain); the current iterate's two PSNRs within that
+# tolerance plus the spread between the two unsplit routes, of the
+# same-route fit's; the final smoothed PSNR within SP_FINAL_DB plus that
+# final spread, of the same-route fit's. At 300 iterations the current
+# iterate's PSNR swings by dB from one iteration to the next and the
+# smoothed PSNR climbs ~0.05 dB an iteration, so another summation order
+# alone moves them by 0.2-0.3 dB (PERF.md §6), while the smoothed
+# rows of the first 80 iterations agree to about 1e-3 dB.
+SP_PSNR_ITERS = 80
+SP_RTOL, SP_ATOL_DB = 1e-3, 6e-2
+SP_FINAL_DB = 0.1
+SP_CT_SPLIT = 2               # CT/MFVI bf16: 2 shards, 100 iterations
+SP_CT_ITERS = 100
+SP_FANOUT_ITERS = 100         # each fanout fit
+SP_FANOUT_DEVICES = 4         # 2 candidates, sp_split=True: 2 shards each
+SP_FANOUT_DB = 0.1
+
+
+def sp_step_launches(n_sp: int, task: str = "den") -> dict:
+    """Launches per step of a fit split over ``n_sp`` shards (PERF.md §6):
+    no site fuses, so each of the 5-scale net's 26 sites runs one
+    cf_conv_fwd and one cf_conv_dw per shard, and one dx (cf_conv_fwd) per
+    shard at the 24 sites whose input has a gradient (all but level 0's
+    skip and down1, which read the net input); CT's banded Radon pair runs
+    once, on the gathered output."""
+    launches = dict(cf_conv_fwd=50 * n_sp, cf_conv_dw=26 * n_sp)
+    if task == "ct":
+        launches.update(radon_banded_fwd=1, radon_banded_adj=1)
+    return launches
+
+
+def sp_mesh(n_sp: int):
+    from mfvi_dip_mia_tpu_torch.parallel.sharding import make_mesh
+    return make_mesh(n_sp, names=("sp",), devices=["cuda:0"] * n_sp)
+
+
+def _peak_fit(fn):
+    """(fn(), the launches it counted, its peak allocated bytes above what
+    was allocated before it)."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    return (res, {k.name: k.launches for k in kernels.KERNELS},
+            torch.cuda.max_memory_allocated() - base)
+
+
+def sp_den_fits() -> dict:
+    """den/MFVI f32 at bench.py's widths: the unsplit graph fit of SP_ITERS
+    iterations, and the same with every site on the unfused chain (the
+    route a split takes: ``fused_block.supported`` False for the fit), then
+    for each of SP_SPLITS ``fit_sp`` on a mesh that names cuda:0 that many
+    times: a graph fit of SP_ITERS (held to the unsplit fit as the
+    constants above say, every iteration a replay, the launches per step
+    exactly ``sp_step_launches`` in its captured step and over the fit; its
+    it/s and peak allocated memory beside the unsplit fit's), then two
+    graph fits and an eager one of SP_BITS_ITERS iterations with equal bits
+    (rows and parameters), whose rows are also the long fit's first ones
+    bit for bit; every cache of ``cache_state`` the same before and after
+    each capture."""
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.tasks.trainer as T
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block
+    from mfvi_dip_mia_tpu_torch.parallel.sharding import fit_sp
+
+    problem = den_tail_problem()
+    method = T.Method("mfvi", temp=5.66e-7, sigma=1.46e-5)
+    kw = dict(num_iter=SP_ITERS - 1, lr=1e-3, seed=1, show_every=SP_SHOW,
+              collect_snapshots=False)
+    out, fits = {}, {}
+    supported = fused_block.supported
+    for label in ("unsplit", "unsplit unfused"):
+        if label == "unsplit unfused":
+            fused_block.supported = lambda x, k: False
+        try:
+            res, counted, peak = _peak_fit(
+                lambda: T.fit(problem, method, device=DEVICE, **kw))
+        finally:
+            fused_block.supported = supported
+        hold_replays(f"the {label} den fit", res)
+        log(f"[12] den/MFVI f32 {SIZE}^2 {label}, {SP_ITERS} it, graph: "
+            f"{res.iters_per_sec:.2f} it/s, peak allocated "
+            f"{peak / 2 ** 20:.1f} MiB, final smoothed PSNR "
+            f"{res.final_psnr:.4f} dB")
+        fits[label] = res
+        out[label] = dict(iters_per_sec=res.iters_per_sec,
+                          peak_allocated_bytes=peak,
+                          final_psnr=res.final_psnr, psnrs=res.psnrs.tolist(),
+                          launches_per_step={k: n / steps_run(res)
+                                             for k, n in counted.items()})
+    ref, same_route = fits["unsplit"], fits["unsplit unfused"]
+    head = slice(0, SP_PSNR_ITERS)
+
+    def gaps(res, to) -> tuple:
+        """(the smoothed column's, the current iterate's columns') largest
+        gap to the fit ``to`` over ``head``, and the final's."""
+        d = np.abs(res.psnrs[head] - to.psnrs[head])
+        return (float(d[:, 2].max()), float(d[:, :2].max()),
+                res.final_psnr - to.final_psnr)
+
+    spread_smoothed, spread, spread_final = gaps(same_route, ref)
+    spread_final = abs(spread_final)
+    tol = SP_ATOL_DB + SP_RTOL * float(np.abs(ref.psnrs[head]).max())
+    log(f"[12] the two unsplit routes' spread over the first "
+        f"{SP_PSNR_ITERS} rows: current iterate {spread:.4f} dB, smoothed "
+        f"{spread_smoothed:.4f} dB; final {spread_final:.4f} dB")
+    out["spread"] = dict(current=spread, smoothed=spread_smoothed,
+                         final=spread_final)
+    ref_peak = out["unsplit"]["peak_allocated_bytes"]
+    captured, kept = [], []
+    capture_step, capture_variant = T.capture_step, T.capture_variant
+
+    def watched_step(*a, **k):
+        graphs = capture_step(*a, **k)
+        captured.append({wm: _named(l) for wm, (_, l) in graphs.items()})
+        return graphs
+
+    def watched_variant(*a, **k):
+        before = cache_state()
+        graph = capture_variant(*a, **k)
+        kept.append(before == cache_state())
+        return graph
+
+    T.capture_step, T.capture_variant = watched_step, watched_variant
+    launches, failed = {}, []
+    try:
+        for n_sp in SP_SPLITS:
+            mesh = sp_mesh(n_sp)
+            expected = sp_step_launches(n_sp)
+            captured.clear()
+            res, counted, peak = _peak_fit(
+                lambda: fit_sp(problem, method, mesh=mesh, **kw))
+            for name, n in counted.items():
+                launches[name] = launches.get(name, 0) + n
+            hold_replays(f"the {n_sp}-shard den fit", res)
+            for with_metrics in (False, True):
+                hold_step_launches(f"the {n_sp}-shard den fit's captured "
+                                   "step", captured[0][with_metrics], 1,
+                                   expected)
+            per_step = hold_step_launches(f"the {n_sp}-shard den fit",
+                                          counted, steps_run(res), expected)
+            smoothed, current_fused, final_gap = gaps(res, ref)
+            smoothed_route, current, final_route = gaps(res, same_route)
+            close = [max(smoothed, smoothed_route) <= tol,
+                     current <= tol + spread,
+                     abs(final_route) <= SP_FINAL_DB + spread_final]
+            bits_kw = dict(kw, num_iter=SP_BITS_ITERS - 1,
+                           show_every=SP_BITS_SHOW)
+            graphs = [fit_sp(problem, method, mesh=mesh, **bits_kw)
+                      for _ in range(2)]
+            eager = fit_sp(problem, method, mesh=mesh, eager=True, **bits_kw)
+            equal = [same_bits(graphs[0], graphs[1]),
+                     same_bits(graphs[0], eager),
+                     bool(np.array_equal(res.psnrs[:SP_BITS_ITERS],
+                                         graphs[0].psnrs))]
+            for g in graphs:
+                hold_replays(f"a {n_sp}-shard den fit", g)
+            if eager.replays:
+                raise AssertionError("an eager split fit replayed a graph")
+            log(f"[12] fit_sp den/MFVI f32 over {n_sp} shards of "
+                f"{SIZE // n_sp} rows on cuda:0, {SP_ITERS} it, graph: "
+                f"{res.iters_per_sec:.2f} it/s (unsplit "
+                f"{ref.iters_per_sec:.2f}), peak allocated "
+                f"{peak / 2 ** 20:.1f} MiB (unsplit "
+                f"{ref_peak / 2 ** 20:.1f}); launches per step "
+                f"{ {k: v for k, v in per_step.items() if v} } (as "
+                f"predicted); over the first {SP_PSNR_ITERS} rows the "
+                f"smoothed PSNR within {smoothed:.4f} dB of the unsplit "
+                f"fit's and {smoothed_route:.4f} of the same-route fit's "
+                f"(limit {tol:.4f}), the current iterate's within "
+                f"{current:.4f} dB of the same-route fit's (limit "
+                f"{tol + spread:.4f}; of the unsplit fit's "
+                f"{current_fused:.4f}); final smoothed PSNR "
+                f"{res.final_psnr:.4f} dB, {final_route:+.4f} dB from the "
+                f"same-route fit's (limit {SP_FINAL_DB + spread_final:.4f}),"
+                f" {final_gap:+.4f} from the unsplit fit's; "
+                f"{SP_BITS_ITERS}-it fits: two "
+                "graph fits " + ("equal" if equal[0] else "DIFFERENT")
+                + ", the eager fit " + ("equal" if equal[1] else "DIFFERENT")
+                + ", the long fit's first rows "
+                + ("equal" if equal[2] else "DIFFERENT")
+                + f" (eager {eager.iters_per_sec:.2f} it/s over the last "
+                f"{SP_BITS_ITERS - SP_BITS_SHOW}); caches unchanged by "
+                f"{sum(kept)} of {len(kept)} captures so far")
+            out[n_sp] = dict(
+                iters_per_sec=res.iters_per_sec, peak_allocated_bytes=peak,
+                launches_per_step=per_step, smoothed_gap=smoothed,
+                smoothed_gap_route=smoothed_route, current_gap=current,
+                current_gap_fused=current_fused, final_psnr=res.final_psnr,
+                final_gap=final_gap, final_gap_route=final_route,
+                within=close, equal_bits=equal,
+                eager_iters_per_sec=eager.iters_per_sec,
+                compile_seconds=res.compile_seconds,
+                psnrs=res.psnrs.tolist())
+            if not (all(close) and all(equal) and all(kept)
+                    and np.isfinite(res.final_psnr)):
+                failed.append(n_sp)
+    finally:
+        T.capture_step, T.capture_variant = capture_step, capture_variant
+    out["launches"] = launches
+    if failed:
+        raise AssertionError(f"the den fits split {failed} ways failed their "
+                             "checks")
+    return out
+
+
+def sp_ct_fit() -> dict:
+    """CT/MFVI bf16 (bench.py's CT configuration, metric rows every
+    iteration) over SP_CT_SPLIT shards for SP_CT_ITERS iterations, graph:
+    finite, the final smoothed PSNR above iteration 0's, the launches per
+    step exactly ``sp_step_launches(SP_CT_SPLIT, "ct")``; its gap to the
+    unsplit fit's final PSNR logged."""
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    import mfvi_dip_mia_tpu_torch.tasks.trainer as T
+    from mfvi_dip_mia_tpu_torch.parallel.sharding import fit_sp
+
+    use_bench_images()
+    problem = P.build_problem("ct", "mfvi", 0, input_depth=16, device=DEVICE)
+    method = T.Method("mfvi", temp=2.2e-10, sigma=1.7e-7)
+    kw = dict(num_iter=SP_CT_ITERS - 1, lr=1e-3, seed=1, show_every=50,
+              compute_dtype="bf16", collect_snapshots=False)
+    ref = T.fit(problem, method, device=DEVICE, **kw)
+    res, launches, peak = _peak_fit(
+        lambda: fit_sp(problem, method, mesh=sp_mesh(SP_CT_SPLIT), **kw))
+    hold_replays("the split CT fit", res)
+    per_step = hold_step_launches("the split CT fit", launches,
+                                  steps_run(res),
+                                  sp_step_launches(SP_CT_SPLIT, "ct"))
+    learned = bool(np.isfinite(res.psnrs).all()
+                   and res.final_psnr > res.psnrs[0, 2])
+    log(f"[12] fit_sp CT/MFVI bf16 over {SP_CT_SPLIT} shards, "
+        f"{SP_CT_ITERS} it, graph: {res.iters_per_sec:.2f} it/s (unsplit "
+        f"{ref.iters_per_sec:.2f}); final smoothed PSNR "
+        f"{res.final_psnr:.4f} dB (iteration 0 {res.psnrs[0, 2]:.4f}), "
+        f"{res.final_psnr - ref.final_psnr:+.4f} dB from the unsplit fit's; "
+        f"launches per step {({k: v for k, v in per_step.items() if v})}; "
+        f"peak allocated {peak / 2 ** 20:.1f} MiB")
+    if not learned:
+        raise AssertionError("the split CT fit did not learn")
+    return dict(iters_per_sec=res.iters_per_sec,
+                unsplit_iters_per_sec=ref.iters_per_sec,
+                final_psnr=res.final_psnr, psnr0=float(res.psnrs[0, 2]),
+                final_gap=res.final_psnr - ref.final_psnr,
+                launches_per_step=per_step, launches=launches,
+                peak_allocated_bytes=peak)
+
+
+def sp_fanout() -> dict:
+    """bo_mfvi_den.json's first two candidates through ``run_candidates(
+    ..., devices=["cuda:0"] * SP_FANOUT_DEVICES, sp_split=True)`` (each fit
+    split over its own sub-mesh of 2 entries, SP_FANOUT_ITERS iterations),
+    against the plain route (``devices=["cuda:0"], interleave=False``:
+    ``run_task`` each) and against each candidate's unsplit ``fit`` of the
+    route's own problem and seed: both within SP_FANOUT_DB."""
+    import numpy as np
+    import mfvi_dip_mia_tpu_torch.parallel.sharding as S
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    import mfvi_dip_mia_tpu_torch.tasks.trainer as T
+    from mfvi_dip_mia_tpu_torch.parallel import fanout
+
+    use_bench_images()
+    grid, methods = den_candidates()
+    grid, methods = grid[:2], methods[:2]
+    rp = dict(img=0, num_iter=SP_FANOUT_ITERS, lr=1e-3, seed=1,
+              show_every=50, input_depth=16, plot=False, save=False)
+    meshes = []
+    fit_sp = S.fit_sp
+
+    def watched(problem, method, *, mesh, **kw):
+        meshes.append(mesh.shape)
+        return fit_sp(problem, method, mesh=mesh, **kw)
+
+    S.fit_sp = watched
+    try:
+        t0 = time.perf_counter()
+        failures = []
+        kept, y_sp = fanout.run_candidates(
+            "den", "mfvi", grid, rp, ["cuda:0"] * SP_FANOUT_DEVICES,
+            sp_split=True, failures=failures)
+        sp_s = time.perf_counter() - t0
+    finally:
+        S.fit_sp = fit_sp
+    t0 = time.perf_counter()
+    _, y_plain = fanout.run_candidates("den", "mfvi", grid, rp, ["cuda:0"],
+                                       interleave=False)
+    plain_s = time.perf_counter() - t0
+    problem = P.build_problem("den", "mfvi", 0, input_depth=16,
+                              device=DEVICE)
+    y_fit = [T.fit(problem, m, num_iter=SP_FANOUT_ITERS, lr=1e-3, seed=1,
+                   show_every=50, device=DEVICE,
+                   collect_snapshots=False).final_psnr for m in methods]
+    gap_plain = np.abs(np.subtract(y_sp, y_plain)) if len(y_sp) == 2 else None
+    gap_fit = np.abs(np.subtract(y_sp, y_fit)) if len(y_sp) == 2 else None
+    log(f"[12] run_candidates(sp_split=True) of 2 den/MFVI candidates on "
+        f"{SP_FANOUT_DEVICES} entries of cuda:0, {SP_FANOUT_ITERS} it a "
+        f"fit: sub-meshes {meshes}, scores {y_sp} ({sp_s:.1f} s); the plain "
+        f"route's {y_plain} ({plain_s:.1f} s), gap {gap_plain}; the "
+        f"unsplit fits' {y_fit}, gap {gap_fit}; failures {failures}")
+    if (failures or meshes != [{"sp": 2}] * 2 or gap_plain is None
+            or gap_plain.max() > SP_FANOUT_DB or gap_fit.max() > SP_FANOUT_DB):
+        raise AssertionError("the sp_split fanout failed its checks")
+    return dict(scores=y_sp, plain_scores=y_plain, fit_scores=y_fit,
+                seconds=sp_s, plain_seconds=plain_s)
+
+
+def sp_phase() -> dict:
+    """Phase 12: the row split of one fit (``fit_sp``) on meshes that name
+    cuda:0 2 and 4 times at bench.py's widths, den/MFVI f32 and CT/MFVI
+    bf16, and the fanout's ``sp_split`` route; each part timed by
+    ``PhaseTimer``. Returns the phase's results, with "launches" those of
+    the split den and CT fits (their warm-up steps included)."""
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.utils.profiling import PhaseTimer
+
+    t0 = time.perf_counter()
+    timer = PhaseTimer()
+    out = {}
+    with timer.phase("den split fits", sync=True):
+        out["den"] = sp_den_fits()
+    with timer.phase("ct split fit", sync=True):
+        out["ct"] = sp_ct_fit()
+    with timer.phase("fanout", sync=True):
+        out["fanout"] = sp_fanout()
+    out["launches"] = {k.name: out["den"]["launches"].get(k.name, 0)
+                       + out["ct"]["launches"][k.name]
+                       for k in kernels.KERNELS}
+    out["timer"] = timer.summary()
+    out["seconds"] = time.perf_counter() - t0
+    log("[12] parts: " + ", ".join(f"{k} {v['total_s']:.1f} s"
+                                   for k, v in out["timer"].items()))
+    log(f"[12] phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4640,12 +5053,17 @@ def main(argv=None) -> int:
     # phase 10's pooled den net: its down1 sites convolve at stride 1, at
     # their level's full resolution (the other sites are den's)
     p10_conv = conv_sites(den_net(downsample_mode="lanczos2"), SIZE)
+    # phase 12's split fits: every site's shard slab of the den net over 2
+    # and 4 shards (down to 2 rows a shard at the deepest level)
+    p12_conv = [site for n_sp in SP_SPLITS
+                for site in split_conv_sites(nets[2], SIZE, n_sp)]
     # the dw runs at every conv site of the CT net (bf16), of the den net
     # (f32, the non-fused sites) and of path A (f32, 2 per site): every
     # distinct shape of both nets, in both dtypes; and at every site of the
     # sr and inp nets
     with timer.phase("2 kernels against plain", sync=True):
-        check_conv_kernels(sites + l_sites + p8_conv + p10_conv, results)
+        check_conv_kernels(sites + l_sites + p8_conv + p10_conv + p12_conv,
+                           results)
         states = check_radon_kernels(results)
         check_fused_kernels(f_sites + p8_fused, results)
         check_lrt_kernel(l_sites + p8_conv, results)
@@ -4701,6 +5119,8 @@ def main(argv=None) -> int:
         fits["lib"] = lib_phase()
     with timer.phase("11 parallel", sync=True):
         fits["parallel"] = parallel_phase()
+    with timer.phase("12 spatial split", sync=True):
+        fits["sp"] = sp_phase()
 
     line = []
     for k in kernels.KERNELS:
@@ -4719,7 +5139,7 @@ def main(argv=None) -> int:
             launches_by_path={p: fits[p]["launches"][k.name]
                               for p in ("ct", "den", "lrt_den", "dense_ct",
                                         "bo_ct", "sr", "inp", "tail",
-                                        "lib", "parallel")},
+                                        "lib", "parallel", "sp")},
             max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],

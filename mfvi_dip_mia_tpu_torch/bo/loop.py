@@ -132,8 +132,8 @@ def bo(task: str, bayes: str, bo_params: dict, run_params: dict,
 
     ``use_spmd=True`` runs each round's candidates as one program over a
     device mesh (parallel/sharding.py::run_sweep_spmd); ``sp_split`` routes
-    as ``fanout.run_candidates`` says (a split of each fit over two or more
-    cards is not ported).
+    as ``fanout.run_candidates`` says (each candidate's fit split by rows
+    over its own sub-mesh of ``run_params["devices"]``).
 
     In a process group of more than one (parallel/multihost.py) the
     candidates are split across the processes and only rank 0 prints and

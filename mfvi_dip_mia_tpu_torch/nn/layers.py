@@ -141,6 +141,27 @@ def _matrix_on(mode: str, in_size: int, out_size: int, scale: float,
         device=device, dtype=dtype)
 
 
+def matrix_band(rows: np.ndarray, r0: int, r1: int) -> tuple:
+    """The rows [r0, r1) of a resize matrix, cut to the columns [c0, c1)
+    that hold their nonzero weights: (band, c0, c1). A row split resizes
+    each shard's output rows from the input rows [c0, c1) alone (nn/sp.py);
+    the weights it leaves out are zeros."""
+    m = rows[r0:r1]
+    nonzero = np.flatnonzero(m.any(axis=0))
+    c0, c1 = int(nonzero[0]), int(nonzero[-1]) + 1
+    return np.ascontiguousarray(m[:, c0:c1]), c0, c1
+
+
+@device_cache
+def band_on(mode: str, in_size: int, out_size: int, scale: float, r0: int,
+            r1: int, device: str, dtype: torch.dtype) -> tuple:
+    """``matrix_band`` of the ``mode`` resize matrix on ``device``:
+    (band tensor, c0, c1)."""
+    band, c0, c1 = matrix_band(_MATRICES[mode](in_size, out_size, scale),
+                               r0, r1)
+    return torch.from_numpy(band).to(device=device, dtype=dtype), c0, c1
+
+
 def apply_matrices(x: torch.Tensor, mh: torch.Tensor,
                    mw: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) -> (N, C, OH, OW): two matrix products, rows by the
@@ -197,9 +218,16 @@ def upsample2x(x: torch.Tensor, mode: str) -> torch.Tensor:
     raise ValueError(f"unknown upsample mode {mode!r}")
 
 
-def concat_center_crop(xs: list[torch.Tensor]) -> torch.Tensor:
-    """Concat along channels, center-cropping to the smallest H and W."""
+def concat_center_crop(xs: list[torch.Tensor],
+                       rows_split: bool = False) -> torch.Tensor:
+    """Concat along channels, center-cropping to the smallest H and W.
+    ``rows_split``: the inputs are one shard each of row-split activations
+    (nn/sp.py), which can be cropped in their columns only; at the skip
+    net's equal heights no row crop is due, and any other raises."""
     th = min(x.shape[2] for x in xs)
+    if rows_split and any(x.shape[2] != th for x in xs):
+        raise ValueError("a row-split concat needs inputs of one height, got "
+                         f"{[x.shape[2] for x in xs]}")
     tw = min(x.shape[3] for x in xs)
     cropped = []
     for x in xs:

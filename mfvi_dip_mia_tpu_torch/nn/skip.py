@@ -49,6 +49,12 @@ skip sites fuse.
 site in activation space on the LRT double-conv kernel (nn/var_conv.py): no
 site elides its bias and none fuses, since the activation noise sits between
 the conv and the BN (skip.py:318-333). The output conv is an LRT site too.
+
+``forward(..., split=RowSplit)`` runs the net split by image rows
+(nn/sp.py; parallel/sharding.py::fit_sp): the same sites, draws and
+order, each site convolving its shards' halo slabs with padding 0, every
+BatchNorm (bn_cat too) on the whole's moments; no site fuses, since the
+fused forward takes the moments of its own launch.
 """
 
 from __future__ import annotations
@@ -62,8 +68,9 @@ from torch import nn
 from ..ops import downsampler
 from ..ops.kernels import fused_block
 from . import init as init_lib
-from . import layers
-from .var_conv import apply_conv_leaf, sample_rt_kernel
+from . import layers, sp
+from .var_conv import (apply_conv_leaf, conv_leaf_drawn, draw_conv_leaf,
+                       sample_rt_kernel)
 
 _CONV_KEYS = ("w", "b", "w_mu", "w_rho", "b_mu", "b_rho")
 DOWNSAMPLE_MODES = ("stride", "avg", "max", "lanczos2", "lanczos3")
@@ -101,6 +108,17 @@ def _as_list(v, n):
             raise ValueError(f"expected {n} entries, got {len(v)}")
         return list(v)
     return [v] * n
+
+
+def _skips_bias(s: ConvSite, reparam: str) -> bool:
+    """Whether site ``s`` feeding its train-mode BN elides its conv bias: a
+    per-channel constant that the BN's mean subtraction removes exactly
+    (skip.py:325-327), unless dropout or LRT noise sits between the conv
+    and the BN, or a Lanczos pool (JAX keeps the bias there, and so does
+    the port)."""
+    return (s.dropout_mode == "None" and reparam != "lrt"
+            and (s.stride == 1
+                 or s.downsample_mode in ("stride", "avg", "max")))
 
 
 class SkipNet(nn.Module):
@@ -252,15 +270,9 @@ class SkipNet(nn.Module):
 
     def _conv_bn_act(self, s: ConvSite, params, prefix, x, generator,
                      training, reparam, dropout_p):
-        # the conv bias is a per-channel constant that the train-mode BN's
-        # mean subtraction removes exactly: skip it (skip.py:325-327),
-        # unless dropout or LRT noise sits between the conv and the BN, or
-        # a Lanczos pool (JAX keeps the bias there, and so does the port);
-        # such a site does not fuse either, nor does a pooled one (its
-        # declared stride is 2)
-        skip_bias = (s.dropout_mode == "None" and reparam != "lrt"
-                     and (s.stride == 1
-                          or s.downsample_mode in ("stride", "avg", "max")))
+        # a site that keeps its bias does not fuse, nor does a pooled one
+        # (its declared stride is 2)
+        skip_bias = _skips_bias(s, reparam)
         scale = params[f"{prefix}.bn.scale"]
         offset = params[f"{prefix}.bn.offset"]
         if (s.stride == 1 and skip_bias and self.act_name == "LeakyReLU"
@@ -302,14 +314,135 @@ class SkipNet(nn.Module):
                                   generator, training, reparam, dropout_p)
         return z
 
+    # -- the row-split forward (nn/sp.py) ------------------------------------
+
+    def _conv_site_sp(self, s: ConvSite, params, prefix, xs, split, level,
+                      generator, training, reparam, dropout_p=None,
+                      skip_bias=False) -> list:
+        """``_conv_site`` of the shards ``xs`` (rows ``split.at(level)``):
+        the site's draws once for its whole output, then per shard the
+        conv of its halo slab (``sp.halo_slab``: the pad rows and columns
+        included, so the kernels run with padding 0), then the dropout
+        (one mask for the whole) and the pool."""
+        pooled = s.stride != 1 and s.downsample_mode != "stride"
+        stride = 1 if pooled else s.stride
+        k, p = s.kernel, (s.kernel - 1) // 2
+        b_in = split.at(level)
+        b_out = split.at(level + (stride == 2))
+        w_out = (xs[0].shape[3] + 2 * p - k) // stride + 1
+        leaf = self._leaf(params, f"{prefix}.conv")
+        draws = draw_conv_leaf(leaf, (xs[0].shape[0], s.c_out, b_out[-1],
+                                      w_out),
+                               generator=generator, training=training,
+                               skip_bias=skip_bias, reparam=reparam,
+                               site_id=s.site_id)
+        eps = (sp.slice_rows(draws["eps"], b_out, split.devices)
+               if "eps" in draws else None)
+        # output rows [lo', hi') read the padded rows [stride lo' - p,
+        # stride (hi' - 1) + k - p)
+        slabs = sp.halo_slab(xs, b_in, p, k - p - stride, s.pad_mode, p)
+        out = []
+        for i, slab in enumerate(slabs):
+            dev = slab.device
+            mine = ({"eps": eps[i]} if eps is not None else
+                    {n: None if t is None else t.to(dev)
+                     for n, t in draws.items()})
+            out.append(conv_leaf_drawn({n: t.to(dev) for n, t in leaf.items()},
+                                       mine, slab, stride=stride, padding=0))
+        if s.dropout_mode != "None" and training:
+            if generator is None:
+                raise ValueError("dropout needs a generator when training")
+            out = sp.dropout_sp(out, b_out, s.dropout_p if dropout_p is None
+                                else dropout_p, generator,
+                                channels=s.dropout_mode == "2d")
+        if not pooled:
+            return out
+        if s.downsample_mode == "avg":
+            return [layers.avg_pool(t, s.stride) for t in out]
+        if s.downsample_mode == "max":
+            return [layers.max_pool(t, s.stride) for t in out]
+        ds = self.downsamplers[s.site_id]
+        h, dtype = b_out[-1], out[0].dtype
+        return sp.rows_by_matrix(
+            out, b_out, split.at(level + 1),
+            lambda r0, r1, dev: ds.band(h, r0, r1, dev, dtype),
+            ds.matrices(h, out[0].shape[3], out[0].device, dtype)[1])
+
+    def _conv_bn_act_sp(self, s: ConvSite, params, prefix, xs, split, level,
+                        generator, training, reparam, dropout_p) -> list:
+        """``_conv_bn_act`` of split shards: the conv site, the BatchNorm
+        with the whole's moments, the activation. No site fuses: the fused
+        forward takes the moments of its own launch, a shard's."""
+        xs = self._conv_site_sp(s, params, prefix, xs, split, level,
+                                generator, training, reparam, dropout_p,
+                                _skips_bias(s, reparam))
+        out_level = level + (s.stride == 2)
+        xs = sp.batch_norm_train_sp(xs, split.at(out_level),
+                                    params[f"{prefix}.bn.scale"],
+                                    params[f"{prefix}.bn.offset"])
+        return [self.act(t) for t in xs]
+
+    def _apply_level_sp(self, params, i, xs, split, generator, training,
+                        reparam, dropout_p) -> list:
+        cfg = self.levels[i]
+        p = f"levels.{i}"
+        args = (generator, training, reparam, dropout_p)
+        h = self._conv_bn_act_sp(cfg.down1, params, f"{p}.down1", xs,
+                                 split, i, *args)
+        h = self._conv_bn_act_sp(cfg.down2, params, f"{p}.down2", h,
+                                 split, i + 1, *args)
+        if i < self.n_scales - 1:
+            h = self._apply_level_sp(params, i + 1, h, split, *args)
+        h = sp.upsample2x_sp(h, split.at(i + 1), cfg.upsample_mode)
+        if cfg.skip_conv is not None:
+            s = self._conv_bn_act_sp(cfg.skip_conv, params, f"{p}.skip", xs,
+                                     split, i, *args)
+            z = [layers.concat_center_crop([a, b], rows_split=True)
+                 for a, b in zip(s, h)]
+        else:
+            z = h
+        z = sp.batch_norm_train_sp(z, split.at(i),
+                                   params[f"{p}.bn_cat.scale"],
+                                   params[f"{p}.bn_cat.offset"])
+        z = self._conv_bn_act_sp(cfg.up, params, f"{p}.up", z, split, i,
+                                 *args)
+        if cfg.up1x1 is not None:
+            z = self._conv_bn_act_sp(cfg.up1x1, params, f"{p}.up1x1", z,
+                                     split, i, *args)
+        return z
+
     def forward(self, params: dict, x: torch.Tensor, generator=None,
                 training: bool = True, reparam: str = "rt",
-                dropout_p=None) -> torch.Tensor:
+                dropout_p=None, split: sp.RowSplit | None = None
+                ) -> torch.Tensor:
         """x: (1, C, H, W). ``generator`` drives the RT weight draws (or,
         with ``reparam='lrt'``, the activation noise) of a variational tree
         and the dropout masks; a deterministic (or pre-sampled) tree on a
         net without dropout needs none. ``dropout_p`` overrides every
-        dropout site's rate, as JAX's ``apply`` does."""
+        dropout site's rate, as JAX's ``apply`` does.
+
+        ``split`` runs the net row-split over its shards (nn/sp.py; the
+        counterpart of JAX's ``sp`` sharding): x is cut into the shards'
+        rows, every activation stays split, every site reads its halo rows
+        from its neighbours, every BatchNorm takes the whole's moments, no
+        site fuses, and the output is gathered in row order onto the first
+        shard's device; the draws are the unsplit forward's, draw for draw,
+        so the result is the unsplit one up to the order of its sums.
+        Raises ValueError unless each shard's rows are a multiple of
+        2^n_scales."""
+        if split is not None:
+            sp.RowSplit.check(x.shape[2], split.n, self.n_scales)
+            if split.bounds0[-1] != x.shape[2]:
+                raise ValueError(f"a split of {split.bounds0[-1]} rows for "
+                                 f"an input of {x.shape[2]}")
+            z = self._apply_level_sp(params, 0, sp.split_rows(x, split),
+                                     split, generator, training, reparam,
+                                     dropout_p)
+            z = self._conv_site_sp(self.out_conv, params, "out", z, split, 0,
+                                   generator, training, reparam, dropout_p)
+            if self.need_sigmoid:
+                z = [torch.sigmoid(t) for t in z]
+            return sp.gather_rows(z, split.first)
         z = self._apply_level(params, 0, x, generator, training, reparam,
                               dropout_p)
         z = self._conv_site(self.out_conv, params, "out", z, generator,

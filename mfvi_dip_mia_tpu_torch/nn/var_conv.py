@@ -70,30 +70,44 @@ def _on_kernel(x: torch.Tensor, w: torch.Tensor) -> bool:
     return w.dim() == 4 and x.dim() == 4 and x.shape[0] == 1
 
 
-def apply_conv_leaf(leaf, x: torch.Tensor, *, stride: int, padding: int,
-                    generator=None, training: bool = True,
-                    skip_bias: bool = False, pad_mode: str = "zero",
-                    reparam: str = "rt", site_id: int = 0) -> torch.Tensor:
-    """One conv site. ``skip_bias`` elides the bias (and its sample) where
-    the site feeds train-mode BatchNorm directly: the per-channel constant is
-    removed exactly by the mean subtraction, as in the JAX package; the
-    caller decides where it holds. ``reparam='lrt'`` samples a
-    training-mode variational site in activation space (var_conv.py:86-95)
-    with noise from ``lrt_eps``; eval mode takes w_mu / b_mu under either
-    reparameterization. ``x`` is (N, C, H, W) with an OIHW kernel or
-    (N, C, D, H, W) with an OIDHW one."""
+def draw_conv_leaf(leaf, out_shape, *, generator=None, training: bool = True,
+                   skip_bias: bool = False, reparam: str = "rt",
+                   site_id: int = 0) -> dict:
+    """The random draws of one conv site, for its whole output of shape
+    ``out_shape`` (N, O, *spatial; read by a training LRT site only):
+    ``{'eps'}``, the activation noise of a training variational site under
+    ``reparam='lrt'`` (``lrt_eps``), else ``{'w', 'b'}``, the kernel and
+    bias it convolves with (``sample_rt_kernel``; the bias sampled after
+    the kernel, None under ``skip_bias``). A row-split forward (nn/sp.py)
+    draws once for the whole output and convolves each shard's slab with
+    the draws sliced to it."""
     if reparam not in REPARAMS:
         raise ValueError(f"unknown reparam {reparam!r}")
-    lrt = reparam == "lrt" and is_variational_leaf(leaf)
-    if lrt and training:
+    if reparam == "lrt" and is_variational_leaf(leaf) and training:
         if generator is None:
             raise ValueError("variational conv needs a generator when "
                              "training")
-        w_mu = leaf["w_mu"]
-        shape = (x.shape[0], w_mu.shape[0]) + tuple(
-            (n + 2 * padding - k) // stride + 1
-            for n, k in zip(x.shape[2:], w_mu.shape[2:]))
-        eps = lrt_eps(shape, generator, site_id)
+        return {"eps": lrt_eps(out_shape, generator, site_id)}
+    w = sample_rt_kernel(leaf, generator, training)
+    b = None
+    if not skip_bias:
+        if is_variational_leaf(leaf):
+            b_mu = leaf.get("b_mu")
+            if b_mu is not None:
+                b = (b_mu + F.softplus(leaf["b_rho"])
+                     * _normal_like(b_mu, generator) if training else b_mu)
+        else:
+            b = leaf.get("b")
+    return {"w": w, "b": b}
+
+
+def conv_leaf_drawn(leaf, draws: dict, x: torch.Tensor, *, stride: int,
+                    padding: int, pad_mode: str = "zero") -> torch.Tensor:
+    """One conv site on ``x`` with the draws of ``draw_conv_leaf`` (the LRT
+    noise of this output's shape). ``padding=0`` on a slab that carries its
+    own pad rows and columns runs the same kernels as the padded site."""
+    if "eps" in draws:
+        eps, w_mu = draws["eps"], leaf["w_mu"]
         if _on_kernel(x, w_mu):
             return lrt_conv(x, w_mu, leaf["w_rho"], leaf.get("b_mu"),
                             leaf.get("b_rho"), stride, padding, pad_mode, eps)
@@ -106,16 +120,33 @@ def apply_conv_leaf(leaf, x: torch.Tensor, *, stride: int, padding: int,
             act_var = act_var + (F.softplus(leaf["b_rho"]) ** 2).reshape(
                 (-1,) + (1,) * (act_var.dim() - 2))
         return act_mu + torch.sqrt(1e-16 + act_var) * eps.to(act_mu.dtype)
-    w = sample_rt_kernel(leaf, generator, training)
-    b = None
-    if not skip_bias:
-        if is_variational_leaf(leaf):
-            b_mu = leaf.get("b_mu")
-            if b_mu is not None:
-                b = (b_mu + F.softplus(leaf["b_rho"])
-                     * _normal_like(b_mu, generator) if training else b_mu)
-        else:
-            b = leaf.get("b")
+    w, b = draws["w"], draws["b"]
     if not _on_kernel(x, w):
         return _library_conv(x, w, b, stride, padding, pad_mode)
     return conv2d_cf(x, w, b, stride, padding, pad_mode)
+
+
+def apply_conv_leaf(leaf, x: torch.Tensor, *, stride: int, padding: int,
+                    generator=None, training: bool = True,
+                    skip_bias: bool = False, pad_mode: str = "zero",
+                    reparam: str = "rt", site_id: int = 0) -> torch.Tensor:
+    """One conv site. ``skip_bias`` elides the bias (and its sample) where
+    the site feeds train-mode BatchNorm directly: the per-channel constant is
+    removed exactly by the mean subtraction, as in the JAX package; the
+    caller decides where it holds. ``reparam='lrt'`` samples a
+    training-mode variational site in activation space (var_conv.py:86-95)
+    with noise from ``lrt_eps``; eval mode takes w_mu / b_mu under either
+    reparameterization. ``x`` is (N, C, H, W) with an OIHW kernel or
+    (N, C, D, H, W) with an OIDHW one. ``draw_conv_leaf``, then
+    ``conv_leaf_drawn``."""
+    shape = None
+    if reparam == "lrt" and is_variational_leaf(leaf):
+        w_mu = leaf["w_mu"]
+        shape = (x.shape[0], w_mu.shape[0]) + tuple(
+            (n + 2 * padding - k) // stride + 1
+            for n, k in zip(x.shape[2:], w_mu.shape[2:]))
+    draws = draw_conv_leaf(leaf, shape, generator=generator,
+                           training=training, skip_bias=skip_bias,
+                           reparam=reparam, site_id=site_id)
+    return conv_leaf_drawn(leaf, draws, x, stride=stride, padding=padding,
+                           pad_mode=pad_mode)

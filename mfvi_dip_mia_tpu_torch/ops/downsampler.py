@@ -16,7 +16,8 @@ last columns of each matrix, and a matrix product has one summation order,
 so the forward and its backward are deterministic (no atomics, as
 ``F.pad(mode="replicate")``'s CUDA backward has, and no depthwise conv
 algorithm choice). The matrices are built once per (size, device) and
-cached (``_matrices_on``), so a CUDA graph's capture finds them built.
+cached (``_matrices_on``), so a CUDA graph's capture finds them built; so
+are the row bands a row-split site applies to each shard (``band``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from ..nn.layers import apply_matrices
+from ..nn.layers import apply_matrices, matrix_band
 from ..utils.device import device_cache
 
 KINDS = ("lanczos", "gauss", "box")
@@ -110,6 +111,13 @@ def _matrices_on(size: int, taps: tuple, factor: int, pad: int, device: str,
         device=device, dtype=dtype)
 
 
+@device_cache
+def _band_on(size: int, taps: tuple, factor: int, pad: int, r0: int, r1: int,
+             device: str, dtype: torch.dtype) -> tuple:
+    band, c0, c1 = matrix_band(_axis_matrix(size, taps, factor, pad), r0, r1)
+    return torch.from_numpy(band).to(device=device, dtype=dtype), c0, c1
+
+
 class Downsampler:
     """Fixed anti-aliasing downsampler; call on NCHW input."""
 
@@ -146,6 +154,16 @@ class Downsampler:
         pad = self.pad if self.preserve_size else 0
         return tuple(_matrices_on(n, self.taps, self.factor, pad, str(device),
                                   dtype) for n in (h, w))
+
+    def band(self, h: int, r0: int, r1: int, device,
+             dtype=torch.float32) -> tuple:
+        """The output rows [r0, r1) of the row matrix for an h-row input,
+        cut to the input rows [c0, c1) they read: (band, c0, c1), built on
+        the first call and cached. A row-split pooled site (nn/sp.py::
+        rows_by_matrix) applies it to a shard's rows and their halo."""
+        pad = self.pad if self.preserve_size else 0
+        return _band_on(h, self.taps, self.factor, pad, r0, r1, str(device),
+                        dtype)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         mh, mw = self.matrices(x.shape[2], x.shape[3], x.device, x.dtype)

@@ -12,9 +12,10 @@ mfvi_dip_mia_tpu/parallel/fanout.py).
   * ``use_spmd=True`` runs every candidate as one program over a device
     mesh (``run_candidates_spmd``, parallel/sharding.py::run_sweep_spmd);
   * ``sp_split`` takes JAX's routing: with k >= 2 devices for each
-    candidate the spatial split would run, which needs at least two cards
-    per fit and is not ported (ROADMAP Queue 1 item 10); with fewer the
-    candidates fall through to the dispatch above;
+    candidate, candidate i's fit is split by rows over its own ``sp``
+    sub-mesh ``devices[i*k:(i+1)*k]`` (``_run_candidates_sp``,
+    parallel/sharding.py::fit_sp), candidate after candidate; with fewer
+    the candidates fall through to the other routes;
   * otherwise candidate i runs through ``run_task`` on ``devices[i % n]``,
     one after another.
 
@@ -110,6 +111,52 @@ def run_candidates_spmd(task: str, bayes: str, candidates: Sequence,
     return _kept(candidates, finals, keep_nan)
 
 
+def _run_candidates_sp(task: str, bayes: str, candidates: Sequence,
+                       run_params: dict, devices, n_sp: int) -> tuple:
+    """Each candidate's fit split by rows over its own ``n_sp``-device
+    ``sp`` sub-mesh, ``devices[i*n_sp:(i+1)*n_sp]`` (fanout.py:98-170;
+    parallel/sharding.py::fit_sp), one candidate after another. The problem
+    is built once on the first device with ``build_problem``'s own noise
+    stream, as JAX's is, and each fit takes ``run_params``' seed, without
+    snapshots. Raises ValueError up front when the image height does not
+    split into ``n_sp`` shards the net can halve to its deepest scale;
+    otherwise a failing candidate is logged and scores NaN. Returns
+    (scores, tracebacks: None where the fit returned)."""
+    from ..nn.sp import RowSplit
+    from ..tasks.problems import build_problem
+    from ..tasks.runners import method_for
+    from .sharding import fit_sp, make_mesh
+
+    rp = dict(run_params)
+    rp.pop("bo_results_path", None)
+    img = rp.pop("img", 0)
+    lr = rp.pop("lr", 3e-4)
+    num_iter = rp.pop("num_iter", 5000)
+    seed = rp.pop("seed", 42)
+    build_kw = {k: rp.pop(k) for k in ("p_sigma", "input_depth") if k in rp}
+    fit_kw = {k: rp.pop(k) for k in ("show_every", "metrics_every",
+                                     "chunk_iters", "compute_dtype")
+              if k in rp}
+    problem = build_problem(task, bayes, img, device=devices[0], **build_kw)
+    RowSplit.check(problem.imsize[0], n_sp, problem.net.n_scales)
+
+    results = [float("nan")] * len(candidates)
+    errors = [None] * len(candidates)
+    for i, cand in enumerate(candidates):
+        group = devices[i * n_sp:(i + 1) * n_sp]
+        try:
+            method = method_for(task, bayes, candidate_kwargs(bayes, cand))
+            mesh = make_mesh(n_sp, names=("sp",), devices=group)
+            res = fit_sp(problem, method, mesh=mesh, num_iter=num_iter,
+                         lr=lr, seed=seed, collect_snapshots=False, **fit_kw)
+            results[i] = float(res.final_psnr)
+        except Exception:
+            errors[i] = traceback.format_exc()
+            print(f"[fanout/sp] candidate {cand} failed on {group}:\n"
+                  f"{errors[i]}", flush=True)
+    return results, errors
+
+
 def run_candidates(task: str, bayes: str, candidates: Sequence,
                    run_params: dict, devices=None, runner=None,
                    keep_nan: bool = False, use_spmd: bool = False,
@@ -146,10 +193,9 @@ def run_candidates(task: str, bayes: str, candidates: Sequence,
         n_sp = (len(devices) // max(1, len(candidates))
                 if isinstance(sp_split, bool) else int(sp_split))
         if n_sp >= 2 and n_sp * len(candidates) <= len(devices):
-            raise NotImplementedError(
-                f"sp_split={sp_split}: a spatial split of each fit over "
-                f"{n_sp} devices (fit_sp) needs at least two cards per "
-                "candidate and is not ported (ROADMAP Queue 1 item 10)")
+            results, errors = _run_candidates_sp(task, bayes, candidates,
+                                                 run_params, devices, n_sp)
+            return _record(candidates, results, errors, keep_nan, failures)
         # fewer than two devices a candidate: the standard dispatch
 
     if (runner is None and bayes != "dip"

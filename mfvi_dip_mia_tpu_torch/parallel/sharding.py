@@ -21,9 +21,17 @@ torch devices with axis names, and the one program becomes CUDA graphs:
     its samples one after another and the mean of the losses, gradients
     and outputs takes the place of JAX's ``pmean``.
 
-The spatial split (``sp_shardings`` / ``fit_sp``) needs at least two cards
-per fit and is not ported (ROADMAP Queue 1 item 10), nor is the sharded
-step on a mesh that spans several devices.
+  * ``fit_sp`` / ``sp_shardings`` — one fit split by image rows over the
+    mesh's ``sp`` axis. GSPMD's partitioning is spelled out in nn/sp.py:
+    every activation of the skip net is cut into row blocks, each conv site
+    gathers its halo rows from its neighbours, every BatchNorm sums its
+    moments over the shards, and the net's output is gathered onto the
+    first device, where the loss, the optimizer and the state stay whole.
+    On a mesh that names one card several times the split step is one CUDA
+    graph, as ``fit``'s; over several cards it runs eagerly.
+
+The sharded step is not ported on a mesh that spans several devices
+(ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -34,12 +42,14 @@ import numpy as np
 import torch
 
 from ..bayes import vi
+from ..nn.sp import RowSplit
 from ..ops import kernels
 from ..optim.fused_adamw import flat_adamw_update
 from ..tasks import trainer as T
 from ..tasks.problems import problem_on
 from ..tasks.trainer import (EXP_WEIGHT, N_OUT, HyperParams, Method,
-                             capture_steps, init_params, prepare_fit)
+                             StepState, capture_steps, init_params,
+                             prepare_fit)
 from ..utils.device import local_cards, resolve_device
 
 
@@ -88,6 +98,52 @@ def make_mesh(n_devices: int | None = None, shape=None,
     arr = np.empty(n, dtype=object)
     arr[:] = devs[:n]
     return Mesh(arr.reshape(shape), tuple(names))
+
+
+def sp_shardings(mesh: Mesh, problem, state) -> dict:
+    """The placement of a fit split over ``mesh``'s ``sp`` axis
+    (sharding.py:174-229), as the port uses it: ``split``, the net's
+    ``RowSplit`` over the axis's devices in mesh order, and ``state``, the
+    first of them for every StepState tensor.
+
+    JAX hands GSPMD a per-leaf tree that also splits the EMA, the MC rings,
+    the snapshots, the net input, the ground truth and the den / inp target
+    by rows, and replicates the parameters and optimizer state; XLA then
+    partitions the whole step. Here only the net runs split: its input is
+    cut into the shards' rows inside the forward, and its output is
+    gathered in row order onto the first device, where the loss (with the
+    Radon operator or the x1/4 resize, as JAX keeps the sinogram and the
+    low-resolution target replicated), the KL, AdamW, the NaN guard, the
+    EMA, the rings and the metric row run as in the unsplit step, on
+    tensors that are not split. The parameters have one copy on the first
+    device; each shard reads them through ``.to``, and autograd adds the
+    shards' gradients, the counterpart of GSPMD's parameter psum. Raises
+    ValueError unless each shard's rows are a multiple of 2^n_scales of the
+    problem's net, or if the problem lives elsewhere than the first
+    device."""
+    split = RowSplit.of(mesh.along("sp"), problem.imsize[0],
+                        problem.net.n_scales)
+    if state.flat.device != split.first:
+        raise ValueError(f"the fit's state lives on {state.flat.device}, the "
+                         f"mesh's first 'sp' device is {split.first}")
+    return {"split": split,
+            "state": {f: split.first for f in StepState.__dataclass_fields__}}
+
+
+def fit_sp(problem, method, *, mesh: Mesh, num_iter: int, lr: float,
+           **fit_kwargs):
+    """One fit split by rows over ``mesh``'s ``sp`` axis
+    (sharding.py:232-249): ``trainer.fit`` on the axis's first device with
+    ``shardings`` the callable that gives ``sp_shardings`` the fit's own
+    prepared state. The problem moves to that device if it lives elsewhere
+    (``problem_on``). The same fit as the unsplit one, up to the order of
+    its sums (tests/test_torch_sp_fit.py)."""
+    first = RowSplit.of(mesh.along("sp"), problem.imsize[0],
+                        problem.net.n_scales).first
+    problem = problem_on(problem, first)
+    return T.fit(problem, method, num_iter=num_iter, lr=lr, device=first,
+                 shardings=lambda state: sp_shardings(mesh, problem, state),
+                 **fit_kwargs)
 
 
 class SweepState(NamedTuple):

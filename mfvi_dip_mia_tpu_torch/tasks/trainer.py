@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ..bayes import vi
+from ..nn.sp import RowSplit
 from ..ops import kernels
 from ..optim import sgld
 from ..optim.fused_adamw import flat_adamw_update
@@ -205,17 +206,21 @@ class Prepared(NamedTuple):
     params: vi.FlatParams          # the leaf layout of state.flat
     net_input: np.ndarray          # the fixed DIP input (1, H, W, D)
     generator: torch.Generator     # the fit's random stream
+    split: Optional[RowSplit] = None   # the net's row split, if any
 
 
 def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
               gen: torch.Generator, hp: HyperParams, dtype: torch.dtype,
-              reparam: str, method_name: str) -> Callable:
+              reparam: str, method_name: str,
+              split: Optional[RowSplit] = None) -> Callable:
     """The fit's step: ``step(state, with_metrics)`` runs one iteration of
     ``method_name`` on ``state`` in place (the one at ``state.it``) and
     writes its metric row when ``with_metrics``. It reads nothing back to
     the host, so the same calls can be captured as a CUDA graph: whatever
     it needs besides the state (sgld's kernel positions and decay
-    constants) is made here, before any capture."""
+    constants) is made here, before any capture. ``split`` runs the net
+    row-split (nn/skip.py's ``split``); its input jitter is drawn whole and
+    its output gathered, so everything else is the unsplit step's."""
     if method_name not in METHODS:
         raise ValueError(f"unknown method {method_name!r}")
     h, w = problem.imsize
@@ -232,6 +237,7 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
     # ct sgld keeps the constant lr (trainer.py:275-287)
     decay = (sgld.DecayedLR(hp.lr, hp.gamma, z.device)
              if is_sgld and problem.task != "ct" else None)
+    net_kw = {} if split is None else {"split": split}
 
     def step(s: StepState, with_metrics: bool) -> None:
         x = z
@@ -253,7 +259,7 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
             leaves = {k: t.to(dtype) for k, t in leaves.items()}
             x = x.to(dtype)
         out = problem.net(leaves, x, gen, reparam=reparam,
-                          dropout_p=dropout_p).float()
+                          dropout_p=dropout_p, **net_kw).float()
         loss = problem.data_loss(out)
         if mix is not None:
             # the MC KL's gradient through autograd, none from the AdamW
@@ -298,10 +304,15 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
 def prepare_fit(problem: Problem, method: Method, *, iterations: int,
                 lr: float, seed: int = 42,
                 rng: np.random.Generator | None = None, device=None,
-                compute_dtype="f32", reparam: str = "rt") -> Prepared:
+                compute_dtype="f32", reparam: str = "rt",
+                shardings=None) -> Prepared:
     """The initialization ``fit`` performs for ``iterations`` iterations in
     all: the state at iteration 0 on ``device`` and its step function.
-    ``rng`` draws the net input (default ``default_rng(seed)``)."""
+    ``rng`` draws the net input (default ``default_rng(seed)``).
+    ``shardings``: a placement (parallel/sharding.py::sp_shardings), or a
+    callable that makes one from the state at iteration 0; its ``split``
+    runs the step's net row-split, its first shard on ``device``, where the
+    state stays whole."""
     dev = resolve_device(device)
     if problem.device != dev:
         raise ValueError(f"problem lives on {problem.device}, fit asked for "
@@ -325,9 +336,16 @@ def prepare_fit(problem: Problem, method: Method, *, iterations: int,
         ring_ale=torch.zeros((MC_RING, mc * h * w), device=dev),
         rows=torch.full((iterations, 8), float("nan"), device=dev),
         it=torch.zeros(1, dtype=torch.int64, device=dev))
+    split = None
+    if shardings is not None:
+        placed = shardings(state) if callable(shardings) else shardings
+        split = placed["split"]
+        if split.first != flat.device:
+            raise ValueError(f"the state lives on {flat.device}, the split's "
+                             f"first shard on {split.first}")
     step = make_step(problem, params, z, gen, HyperParams.of(method, lr),
-                     dtype, reparam, method.name)
-    return Prepared(step, state, params, z_np, gen)
+                     dtype, reparam, method.name, split)
+    return Prepared(step, state, params, z_np, gen, split)
 
 
 def capture_step(step: Callable, state: StepState,
@@ -459,7 +477,7 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         reparam: str = "rt", chunk_iters: Optional[int] = None,
         eager: bool = False, checkpoint_path: Optional[str] = None,
         checkpoint_every_chunks: int = 100, resume: bool = False,
-        early_stop: Optional[dict] = None) -> FitResult:
+        early_stop: Optional[dict] = None, shardings=None) -> FitResult:
     """Run one DIP fit of ``method`` on ``device`` (default: the card).
     Returns the per-iteration metric traces, the snapshot stacks and the
     final smoothed PSNR as ``final_psnr``. ``snapshot_fn(i, recon, epi,
@@ -480,9 +498,17 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
     NaN, ``executed`` counts the iterations run and ``final_psnr`` is the
     last finite one.
 
+    ``shardings`` (trainer.py:640-651): a placement, or a callable that
+    makes one from the prepared state, as parallel/sharding.py::
+    sp_shardings does for ``fit_sp``: the step's net then runs row-split
+    over the placement's ``split`` (nn/sp.py); the state, and so the
+    checkpoints, stay whole on ``device``.
+
     On the card every iteration is a replay of the step's CUDA graph
     (``capture_step``); ``eager=True`` runs the step eagerly instead, with
-    the same bits. The graphs and their memory are released on return."""
+    the same bits. A split over several cards runs eagerly, since a graph
+    belongs to one device. The graphs and their memory are released on
+    return."""
     num_iter = num_iter + 1
     chunk = chunk_iters or show_every
     if collect_snapshots and chunk != show_every:
@@ -492,7 +518,8 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
             "runners) to use longer chunks")
     prep = prepare_fit(problem, method, iterations=num_iter, lr=lr,
                        seed=seed, rng=rng, device=device,
-                       compute_dtype=compute_dtype, reparam=reparam)
+                       compute_dtype=compute_dtype, reparam=reparam,
+                       shardings=shardings)
     state, dev = prep.state, prep.state.flat.device
     h, w = problem.imsize
     mc = problem.mean_ch
@@ -517,7 +544,9 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
 
     t0 = time.perf_counter()
     graphs = (capture_step(prep.step, state, prep.generator)
-              if dev.type == "cuda" and not eager else None)
+              if dev.type == "cuda" and not eager
+              and not (prep.split is not None and prep.split.spans_devices)
+              else None)
     warmup_steps = 0 if graphs is None else len(graphs)   # one per variant
     t_first = None
     replays = 0

@@ -9,6 +9,10 @@ sharding.py) and the fanout's ``use_spmd`` / ``sp_split`` routing
   its own port ``fit`` at the same seed, on a one-entry and on a two-entry
   CPU mesh (two candidates per block; JAX's
   test_spmd_sweep_two_candidates_per_slice case).
+* the fanout's ``sp_split`` route: the spatial branch (fit_sp per
+  candidate on its sub-mesh) where JAX takes it, the plain dispatch
+  where it falls through; the split fits themselves are
+  tests/test_torch_sp_fit.py's.
 * ``build_sharded_sweep_step``: 2 candidates x 2 MC samples on a (2, 2)
   mesh, in lockstep with JAX's step: the same parameters, jitter off, and
   each sample's RT draw fed to both sides from one table (JAX's net draws
@@ -236,15 +240,26 @@ def test_run_candidates_spmd_route(monkeypatch):
 def test_sp_split_routing(monkeypatch):
     """JAX's routing (fanout.py:209-219): too few devices for a >= 2-way
     split per candidate fall through to the plain dispatch; enough of them
-    take the spatial branch, which is not ported."""
+    take the spatial branch, candidate i's fit split over devices[i*k:
+    (i+1)*k] (fit_sp, its scores here from a stand-in); a split the net
+    cannot halve to its deepest scale raises up front."""
     def group(task, bayes, cands, device=None, **kw):
         return [float(c[0]) for c in cands]
 
     def task_run(task, bayes, index=0, device=None, temp=0.0, **kw):
         return 100.0 + temp
 
+    meshes = []
+
+    def split_fit(problem, method, *, mesh, num_iter, lr, **kw):
+        meshes.append((mesh.shape, problem.imsize, num_iter))
+        return TT.FitResult(*([None] * 11), final_psnr=200.0 + method.temp
+                            + mesh.shape["sp"])
+
+    _patch_problems(monkeypatch, SIZE)
     monkeypatch.setattr(TR, "run_group_interleaved", group)
     monkeypatch.setattr(TR, "run_task", task_run)
+    monkeypatch.setattr(TS, "fit_sp", split_fit)
     cands = [(1.0, 1.0), (2.0, 2.0)]
     plain = TF.run_candidates("den", "mfvi", cands, {}, devices=["cpu"])
     assert plain[1] == [1.0, 2.0]
@@ -254,10 +269,20 @@ def test_sp_split_routing(monkeypatch):
     two = ["cpu", "cpu"]
     assert TF.run_candidates("den", "mfvi", cands, {}, devices=two,
                              sp_split=2)[1] == [101.0, 102.0]
-    for sp, n in ((2, 1), (True, 1), (2, 2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            TF.run_candidates("den", "mfvi", cands[:n], {},
-                              devices=["cpu"] * (2 * n), sp_split=sp)
+    rp = dict(img=0, num_iter=7, lr=LR, input_depth=DEPTH)
+    # (sp_split, candidates, devices, k, scores)
+    for sp, n, n_dev, k, want in ((2, 1, 2, 2, [203.0]),
+                                  (True, 1, 2, 2, [203.0]),
+                                  (2, 2, 4, 2, [203.0, 204.0]),
+                                  (True, 2, 8, 4, [205.0, 206.0])):
+        meshes.clear()
+        kept = TF.run_candidates("den", "mfvi", cands[:n], rp,
+                                 devices=["cpu"] * n_dev, sp_split=sp)
+        assert kept == ([tuple(c) for c in cands[:n]], want)
+        assert meshes == [({"sp": k}, (SIZE, SIZE), 7)] * n
+    with pytest.raises(ValueError, match="multiple of 4"):
+        TF.run_candidates("den", "mfvi", cands[:1], rp, devices=["cpu"] * 16,
+                          sp_split=True)
 
 
 def test_entry_points_need_a_card(monkeypatch):
