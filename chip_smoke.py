@@ -35,7 +35,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the 256^2 nets on the card against the CPU's plain path. Then the paths,
    each a fit on the card, where every iteration is a replay of the step's
    CUDA graph (checked), and the same fit once more eagerly
-   (``fit(..., eager=True)``) for its it/s beside the graph's:
+   (``fit(..., eager=True)``, its first chunk and 50 more iterations) for
+   its it/s beside the graph's:
    bench.py's CT configuration (256^2, input depth 16, temp 2.2e-10, sigma
    1.7e-7, lr 1e-3, seed 1, bf16, metrics every 10) through ``fit``, 100
    warm-up and 200 timed iterations; the den/MFVI f32 fit of 300 iterations
@@ -217,6 +218,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shard slab of these fits (f32 and bf16). ``launches_by_path["sp"]``:
    the launches of the split den and CT fits.
 
+13. (run after 12) The fanout's threads (parallel/fanout.py) on cuda:0,
+   at bench.py's den widths (256^2, input depth 16, f32, lr 1e-3, seed 1,
+   300 iterations a fit), each route's round once through
+   ``run_candidates`` and once one candidate after another in this
+   thread: (a) 3 dip candidates, a thread each; (b) configs/
+   bo_mfvi_den.json's 4 candidates on ``["cuda:0", "cuda:0"]`` (a thread
+   per interleaved group of 2) and with ``interleave=False`` (a thread per
+   candidate, ``run_task`` with its MC summary); (c) 2 of them with
+   ``sp_split=2`` over ``["cuda:0"] * 4`` (a thread per ``fit_sp``). Every
+   candidate's score, metric rows and parameters equal its sequential
+   run's bit for bit, every iteration is a replay, the round's launches
+   equal the sequential round's, and the threads ran on streams of their
+   own with overlapping fits. Logged per route, threaded beside
+   sequential: wall seconds, graph it/s (summed over the threaded fits),
+   capture seconds, peak allocated memory, launches per fit.
+   ``launches_by_path["threads"]``: the threaded rounds' launches. Phase 2
+   launches ``cf_conv_dw``, ``fused_block_fwd``, ``fused_block_bwd_dw``
+   and ``radon_dense_adj`` from two threads on two streams at once, at the
+   widest den sites and path B's matrix: every result equal to its
+   single-stream bits.
+
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the package beside it, the script exits
@@ -233,6 +255,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor-core rate,
@@ -1042,6 +1065,129 @@ ODD_DENSE_SHAPES = ((270, 96), (1000, 4104))
 DENSE_REPEATS = 40
 
 
+# Phase 2's concurrent launches: threads, each on a stream of its own, and
+# the launches of each kernel a thread makes; a thread not done within the
+# timeout fails the phase (a deadlock of two cooperative launches)
+CONCURRENT_THREADS = 2
+CONCURRENT_REPEATS = 20
+CONCURRENT_TIMEOUT = 120
+
+
+def concurrent_sites(conv_sites_den, fused_sites_den) -> tuple:
+    """(the widest den conv site the dw runs at, i.e. not fused; the widest
+    fused den site), by their convs' operations."""
+    fused = {f["name"] for f in fused_sites_den}
+    conv = max((s for s in conv_sites_den if s["name"] not in fused),
+               key=lambda s: s["flops"])
+    wide = max(fused_sites_den, key=lambda s: s["ci"] * s["co"] * s["h"]
+               * s["w"] * s["k"] ** 2)
+    return conv, wide
+
+
+def check_concurrent_streams(conv_site, fused_site, a, results) -> None:
+    """The kernels whose launches share state across calls, from several
+    threads at once, as the fanout's threads launch them
+    (parallel/fanout.py): ``cf_conv_dw`` at ``conv_site`` (f32),
+    ``fused_block_fwd`` and ``fused_block_bwd_dw`` at ``fused_site`` and
+    ``radon_dense_adj`` on path B's matrix ``a`` at one column. The two dw
+    kernels and the dense adjoint count blocks in a ticket buffer (one per
+    stream, ops/kernels/cf_conv.py::_tickets); the fused forward is a
+    cooperative launch on every co-resident block. Each first runs alone
+    on the current stream, held against its plain version; then
+    CONCURRENT_THREADS threads, each on a stream of its own and started
+    together, launch all four CONCURRENT_REPEATS times without a sync.
+    Every result must equal the one alone bit for bit, and every thread
+    end within CONCURRENT_TIMEOUT seconds."""
+    import traceback
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
+    from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
+    from mfvi_dip_mia_tpu_torch.ops.kernels import radon_dense as rd
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    xp, _, g = conv_operands(conv_site, torch.float32, gen)
+    k = conv_site["w"][2]
+    fxp, fwk, gamma, beta, fg = fused_operands(fused_site, gen)
+    fk = fused_site["k"]
+    out_p, stats_p = tfb.fwd_plain(fxp, fwk, gamma, beta)
+    dc_p = tfb.bwd_dc_plain(fg, out_p, stats_p, gamma, beta)[0]
+    y = torch.randn((1, a.shape[0]), generator=gen, device=DEVICE)
+    # name: (the kernel's call, its plain version's, a tolerance per output)
+    calls = {
+        "cf_conv_dw": (lambda: (tcf.conv_dw(xp, g, k, k),),
+                       lambda: (tcf.conv_dw_plain(xp, g, k, k),),
+                       (TOL[("dw", "f32")],)),
+        "fused_block_fwd": (lambda: tfb.fwd(fxp, fwk, gamma, beta),
+                            lambda: (out_p, stats_p),
+                            (TOL_FUSED["out"], TOL_FUSED["mu"])),
+        "fused_block_bwd_dw": (lambda: (tfb.bwd_dw(dc_p, fxp, fk),),
+                               lambda: (tfb.bwd_dw_plain(dc_p, fxp, fk),),
+                               (TOL_FUSED["dw"],)),
+        "radon_dense_adj": (lambda: (rd.radon_dense_adj(a, y),),
+                            lambda: (rd.radon_dense_adj_plain(a, y),),
+                            (TOL[("radon_dense", "bf16")],)),
+    }
+    alone = {name: fn() for name, (fn, _, _) in calls.items()}
+    torch.cuda.synchronize()
+    for name, (_, plain, tols) in calls.items():
+        for got, ref, tol in zip(alone[name], plain(), tols):
+            err, r = rel_err(got, ref)
+            if got.shape != ref.shape or r > tol:
+                raise AssertionError(f"{name} alone for the concurrent "
+                                     f"check: rel err {r:.3e} > {tol:.0e}")
+    barrier = threading.Barrier(CONCURRENT_THREADS)
+    got = [[] for _ in range(CONCURRENT_THREADS)]
+    streams, errors = [None] * CONCURRENT_THREADS, []
+
+    def work(t):
+        try:
+            stream = streams[t] = torch.cuda.Stream(DEVICE)
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                for _ in range(CONCURRENT_REPEATS):
+                    got[t].append({name: fn()
+                                   for name, (fn, _, _) in calls.items()})
+            stream.synchronize()
+        except Exception:
+            errors.append(traceback.format_exc())
+            barrier.abort()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, args=(t,), daemon=True)
+               for t in range(CONCURRENT_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(CONCURRENT_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"a concurrent-launch thread did not end within "
+                             f"{CONCURRENT_TIMEOUT} s")
+    if errors:
+        raise AssertionError("a concurrent-launch thread failed:\n"
+                             + "\n".join(errors))
+    if len({s.cuda_stream for s in streams}) != CONCURRENT_THREADS:
+        raise AssertionError("the concurrent-launch threads shared a stream")
+    differ = {name: sum(not all(torch.equal(o, r) for o, r in
+                                zip(launch[name], alone[name]))
+                        for outs in got for launch in outs)
+              for name in calls}
+    log(f"[2] concurrent launches: {CONCURRENT_THREADS} threads on streams "
+        f"of their own, {CONCURRENT_REPEATS} x (cf_conv_dw at "
+        f"{conv_site['name']} xp {conv_site['xp']}, fused_block_fwd and "
+        f"fused_block_bwd_dw at {fused_site['name']} (Ci, Co, H, W, k) "
+        f"{tuple(fused_site[n] for n in ('ci', 'co', 'h', 'w', 'k'))}, "
+        f"radon_dense_adj on A {tuple(a.shape)}, 1 column) each, "
+        f"{seconds:.2f} s: launches with other bits than alone {differ}")
+    if any(differ.values()):
+        raise AssertionError(f"concurrent launches gave other bits: {differ}")
+    for name in calls:
+        results.setdefault(name, {})["concurrent_equal_bits"] = dict(
+            threads=CONCURRENT_THREADS, launches_each=CONCURRENT_REPEATS,
+            differing=differ[name])
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 def check_step_against_cpu(net, task: str, reparam: str = "rt") -> dict:
@@ -1157,10 +1303,18 @@ def hold_replays(path: str, res) -> None:
                              "iterations were graph replays")
 
 
+# the eager fit of each phase-3 path: its first chunk, then this many
+# iterations timed (a diagnostic beside the graph fit's it/s, kept short so
+# that the whole script stays near half its time limit)
+EAGER_ITERS_TIMED = 50
+
+
 def eager_rate(problem, method, **kw) -> float:
-    """it/s of the same fit run eagerly (``fit(..., eager=True)``), for the
-    line beside the graph fit's."""
+    """it/s of the same fit run eagerly (``fit(..., eager=True)``) over
+    EAGER_ITERS_TIMED iterations after its first chunk, for the line beside
+    the graph fit's."""
     from mfvi_dip_mia_tpu_torch.tasks.trainer import fit
+    kw = dict(kw, num_iter=kw["show_every"] + EAGER_ITERS_TIMED - 1)
     res = fit(problem, method, eager=True, **kw)
     if res.replays:
         raise AssertionError("an eager fit replayed a graph")
@@ -1286,8 +1440,9 @@ def run_fits(results: dict) -> dict:
     eager = eager_rate(problem, method, **kw)
     traj = res.psnrs[::10, 2]
     log(f"[3] ct/mfvi bf16 {SIZE}^2: {res.executed} iterations, graph "
-        f"{res.iters_per_sec:.2f} it/s, eager {eager:.2f} it/s over the last "
-        f"{CT_ITERS_TIMED} (graph's first chunk incl. set-up "
+        f"{res.iters_per_sec:.2f} it/s over the last {CT_ITERS_TIMED}, eager "
+        f"{eager:.2f} it/s over {EAGER_ITERS_TIMED} (graph's first chunk "
+        "incl. set-up "
         f"{res.compile_seconds:.1f} s)")
     log("    smoothed PSNR every 10 it: "
         + " ".join(f"{p:.2f}" for p in traj))
@@ -1338,7 +1493,7 @@ def run_lrt_den(kernels) -> dict:
     eager = eager_rate(problem, method, **kw)
     log(f"[3] path A, den/mfvi f32 LRT {SIZE}^2 through fit(reparam='lrt'): "
         f"{res.executed} iterations, graph {res.iters_per_sec:.2f} it/s, "
-        f"eager {eager:.2f} it/s over the last {PATH_ITERS_TIMED} (graph's "
+        f"eager {eager:.2f} it/s over {EAGER_ITERS_TIMED} (graph's "
         f"first chunk incl. set-up {res.compile_seconds:.1f} s), final "
         f"smoothed PSNR {res.final_psnr:.3f} dB (iteration 0: "
         f"{res.psnrs[0, 2]:.3f})")
@@ -1405,7 +1560,7 @@ def run_dense_ct(kernels) -> dict:
     log(f"[3] path B, ct/mfvi bf16 {SIZE}^2 with the dense bf16 matrix: "
         f"problem built in {build_s:.1f} s (matrix cached), "
         f"{res.executed} iterations, graph {res.iters_per_sec:.2f} it/s, "
-        f"eager {eager:.2f} it/s over the last {PATH_ITERS_TIMED}, final "
+        f"eager {eager:.2f} it/s over {EAGER_ITERS_TIMED}, final "
         f"smoothed PSNR {res.final_psnr:.3f} dB (iteration 0: "
         f"{res.psnrs[0, 2]:.3f})")
     log(f"    launches per step {per_step}")
@@ -1481,7 +1636,8 @@ def run_den(kernels) -> dict:
         if k not in ("rng", "log_fn", "snapshot_fn")})
     log(f"[3] den/mfvi f32 {SIZE}^2 through run_den_mfvi: {res.executed} "
         f"iterations, graph {res.iters_per_sec:.2f} it/s (run wall "
-        f"{wall:.1f} s), eager {eager:.2f} it/s, final smoothed PSNR "
+        f"{wall:.1f} s), eager {eager:.2f} it/s over {EAGER_ITERS_TIMED}, "
+        "final smoothed PSNR "
         f"{final:.3f} dB (iteration 0: {res.psnrs[0, 2]:.3f}), 25-sample MC "
         f"mean PSNR {mc_psnr:.3f} dB")
     log(f"    launches per fit step {per_step}; whole run {launches}")
@@ -1758,7 +1914,7 @@ def cache_state() -> dict:
                                                     radon_dense)
     out = {name: {repr(k): _tensor_ptrs(v) for k, v in d.items()}
            for name, d in (("cf_conv._TICKETS", cf_conv._TICKETS),
-                           ("radon._MATRIX_CACHE", R._MATRIX_CACHE),
+                           ("radon._dense_matrix", R._dense_matrix.entries),
                            ("pad._tables", PD._tables.entries),
                            ("layers._matrix_on", L._matrix_on.entries),
                            ("layers.band_on", L.band_on.entries),
@@ -1977,7 +2133,8 @@ class SweepProbe:
 
     def reset(self):
         self.candidates, self.rounds, self.failures = [], [], []
-        self._cand = {}
+        # each fanout thread's candidate: its fit's and MC summary's seconds
+        self._local = threading.local()
 
     def __enter__(self):
         import torch
@@ -1989,8 +2146,9 @@ class SweepProbe:
             def wrapper(*a, **kw):
                 t0 = time.perf_counter()
                 r = fn(*a, **kw)
-                self._cand[key] = time.perf_counter() - t0
-                self._cand[key + "_result"] = r
+                cand = self._local.__dict__.setdefault("cand", {})
+                cand[key] = time.perf_counter() - t0
+                cand[key + "_result"] = r
                 return r
             return wrapper
 
@@ -2004,25 +2162,27 @@ class SweepProbe:
                 executed=getattr(res, "executed", None),
                 final_psnr=getattr(res, "final_psnr", None)))
 
+        # a candidate's thread waits for its own stream only: a device-wide
+        # sync would break another fanout thread's capture
         def run_task_w(*a, **kw):
-            self._cand = {}
+            self._local.cand = {}
             t0 = time.perf_counter()
             try:
                 return run_task(*a, **kw)
             finally:
-                torch.cuda.synchronize()
-                c = self._cand
+                torch.cuda.current_stream().synchronize()
+                c = self._local.cand
                 record(c.get("fit_result"), time.perf_counter() - t0,
                        c.get("fit", 0.0), c.get("mc_summary", 0.0), "run_task")
 
         def group_w(*a, **kw):
-            self._cand = {}
+            self._local.cand = {}
             t0 = time.perf_counter()
             try:
                 return group(*a, **kw)
             finally:
-                torch.cuda.synchronize()
-                c, k = self._cand, len(a[2])
+                torch.cuda.current_stream().synchronize()
+                c, k = self._local.cand, len(a[2])
                 total = time.perf_counter() - t0
                 for res in c.get("fit_interleaved_result") or [None] * k:
                     record(res, total / k, c.get("fit_interleaved", 0.0) / k,
@@ -2072,9 +2232,10 @@ def sweep(probe: SweepProbe, tmp: str) -> dict:
     SWEEP_ITERS iterations a fit and SWEEP_ROUNDS rounds, no plots, paths
     in ``tmp``; then round 1 again, resumed from a copy of round 0's
     ``0_fig_data.npz``; then round 0's candidates again through the
-    per-candidate route (``interleave=False``: ``run_task``, with its MC
-    summary). Round 0's 4 candidates on one card take JAX's interleaved
-    route (``run_group_interleaved``, no MC summary). Raises on a crashed
+    per-candidate route (``interleave=False``: ``run_task`` on a thread
+    each, with its MC summary). Round 0's 4 candidates on one card take
+    JAX's interleaved route (``run_group_interleaved`` on one thread, no
+    MC summary). Raises on a crashed
     candidate, a round without a kept one, a round-0 candidate off the
     interleaved route, fig_data keys other than the JAX loop's, a resumed
     (X, Y) or round-1 fig_data that is not the straight sweep's bit for
@@ -2158,7 +2319,7 @@ def sweep(probe: SweepProbe, tmp: str) -> dict:
         raise AssertionError("the resumed sweep differs from the straight "
                              "one")
 
-    # round 0 once more, one candidate after another through run_task
+    # round 0 once more, a thread per candidate through run_task
     from mfvi_dip_mia_tpu_torch.parallel import fanout
     grid = [tuple(c) for c in itertools.product(
         *[v["candidates"] for v in bo_params.values()])]
@@ -2172,8 +2333,8 @@ def sweep(probe: SweepProbe, tmp: str) -> dict:
     routes = {c["route"] for c in probe.candidates[n_before:]}
     k0 = rounds[0]["kept"]
     same = plain_c == list(X[:k0]) and plain_y == list(Y[:k0])
-    log(f"[5] round 0's {len(grid)} candidates one after another through "
-        f"run_task (interleave=False, with MC summaries): {plain_s:.2f} s, "
+    log(f"[5] round 0's {len(grid)} candidates through run_task, a thread "
+        f"each (interleave=False, with MC summaries): {plain_s:.2f} s, "
         f"Y {plain_y}: "
         + ("the interleaved scores bit for bit" if same else
            f"DIFFERENT from the interleaved {list(Y[:k0])}"))
@@ -4345,15 +4506,15 @@ DIST_CHILD = ("import json, sys\n"
               "                   Y=[float(y) for y in Y]), f)\n")
 
 
-def den_candidates() -> tuple:
-    """(grid, Methods) of configs/bo_mfvi_den.json's first PAR_K
+def den_candidates(k: int = PAR_K) -> tuple:
+    """(grid, Methods) of configs/bo_mfvi_den.json's first ``k``
     candidates (the runners' Method for each)."""
     from mfvi_dip_mia_tpu_torch.parallel.fanout import candidate_kwargs
     from mfvi_dip_mia_tpu_torch.tasks.runners import method_for
     from mfvi_dip_mia_tpu_torch.utils.config import load_config
     cfg = load_config(os.path.join(REPO, "configs", "bo_mfvi_den.json"))
     grid = list(itertools.product(
-        *[v.candidates for v in cfg.bo_params.values()]))[:PAR_K]
+        *[v.candidates for v in cfg.bo_params.values()]))[:k]
     return grid, [method_for("den", "mfvi", candidate_kwargs("mfvi", c))
                   for c in grid]
 
@@ -4987,6 +5148,261 @@ def sp_phase() -> dict:
     return out
 
 
+# -- phase 13: the fanout's threads on one card -------------------------------
+
+THREAD_ITERS = 300            # each fit: 100 warm + 200
+THREAD_SHOW = 100
+THREAD_DIP = 3                # route (a): dip den candidates, a thread each
+THREAD_K = 4                  # route (b): bo_mfvi_den.json's four candidates
+THREAD_SP = 2                 # route (c): 2 candidates, sp_split=2 each
+
+
+class FitRecorder:
+    """Records, while installed, every fit the runners and ``fit_sp``
+    return (the candidate's Method, its FitResult, the thread and stream it
+    ran on, its start and end on the host clock) and every warm-up and
+    capture (``trainer.capture_steps``: start, end)."""
+
+    def __init__(self):
+        self.fits, self.captures = [], []
+        self._lock = threading.Lock()
+
+    def clear(self):
+        self.fits, self.captures = [], []
+
+    @contextlib.contextmanager
+    def installed(self):
+        import torch
+        import mfvi_dip_mia_tpu_torch.tasks.runners as R
+        import mfvi_dip_mia_tpu_torch.tasks.trainer as T
+        saved = dict(fit=(R.fit, T.fit), fit_interleaved=R.fit_interleaved,
+                     capture_steps=T.capture_steps)
+        fit, fit_interleaved = saved["fit"][1], saved["fit_interleaved"]
+        capture_steps = saved["capture_steps"]
+
+        def note(methods, results, t0):
+            t1 = time.perf_counter()
+            stream = torch.cuda.current_stream().cuda_stream
+            with self._lock:
+                for m, r in zip(methods, results):
+                    self.fits.append(dict(
+                        method=m, result=r, thread=threading.get_ident(),
+                        stream=stream, start=t0, end=t1))
+
+        def one(problem, method, **kw):
+            t0 = time.perf_counter()
+            res = fit(problem, method, **kw)
+            note([method], [res], t0)
+            return res
+
+        def several(problem, methods, **kw):
+            t0 = time.perf_counter()
+            results = fit_interleaved(problem, methods, **kw)
+            note(methods, results, t0)
+            return results
+
+        def captured(fits):
+            t0 = time.perf_counter()
+            graphs = capture_steps(fits)
+            with self._lock:
+                self.captures.append((t0, time.perf_counter()))
+            return graphs
+
+        R.fit, T.fit, R.fit_interleaved = one, one, several
+        T.capture_steps = captured
+        try:
+            yield self
+        finally:
+            R.fit, T.fit = saved["fit"]
+            R.fit_interleaved = saved["fit_interleaved"]
+            T.capture_steps = saved["capture_steps"]
+
+
+def _key(method) -> tuple:
+    return (method.name, method.temp, method.sigma)
+
+
+def _round(rec: FitRecorder, run) -> dict:
+    """``run()`` (a round of candidates) with the launch counters zeroed
+    just before it and read just after, the peak allocated bytes above
+    those allocated before it, its wall seconds (the card synchronized)
+    and the fits it recorded."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    rec.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    scores = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    fits = list(rec.fits)
+    iters = sum(f["result"].executed for f in fits)
+    return dict(scores=[float(y) for y in scores], wall_seconds=wall,
+                launches=launches,
+                launches_per_fit={k: n / len(fits)
+                                  for k, n in launches.items()},
+                peak_allocated_bytes=torch.cuda.max_memory_allocated() - base,
+                iters_per_sec=[f["result"].iters_per_sec for f in fits],
+                summed_iters_per_sec=sum(f["result"].iters_per_sec
+                                         for f in fits),
+                round_iters_per_sec=iters / wall,
+                capture_seconds=sum(b - a for a, b in rec.captures),
+                captures=len(rec.captures),
+                captured_by=max((b for _, b in rec.captures), default=t0) - t0,
+                threads=len({f["thread"] for f in fits}),
+                streams=len({f["stream"] for f in fits}),
+                overlap=(max(f["start"] for f in fits)
+                         < min(f["end"] for f in fits)),
+                fits=fits)
+
+
+def _hold_route(label: str, seq: dict, thr: dict, workers: int,
+                fits: int) -> dict:
+    """The threaded round ``thr`` against the sequential round ``seq`` of
+    the same candidates: equal scores, every candidate's fits bit-equal
+    (rows and parameters), every iteration a replay, the same launches,
+    ``workers`` threads, none the main thread, on as many streams, whose
+    fits overlapped in time. Logs both rounds; returns their numbers."""
+    ok = {"scores": seq["scores"] == thr["scores"]
+          and all(y == y for y in thr["scores"]),
+          "fits": len(seq["fits"]) == len(thr["fits"]) == fits}
+    by_key = {}
+    for f in seq["fits"]:
+        by_key.setdefault(_key(f["method"]), []).append(f["result"])
+    ok["bits"] = all(any(same_bits(f["result"], r)
+                         for r in by_key.get(_key(f["method"]), []))
+                     for f in thr["fits"])
+    for f in seq["fits"] + thr["fits"]:
+        hold_replays(f"{label}'s fit", f["result"])
+    ok["launches"] = seq["launches"] == thr["launches"]
+    ok["threads"] = (thr["threads"] == thr["streams"] == workers
+                     and threading.get_ident() not in
+                     {f["thread"] for f in thr["fits"]})
+    ok["overlap"] = thr["overlap"]
+    per_fit = {k: v for k, v in thr["launches_per_fit"].items() if v}
+    log(f"[13] {label}: sequential {seq['wall_seconds']:.2f} s, threaded "
+        f"{thr['wall_seconds']:.2f} s ({thr['threads']} threads on "
+        f"{thr['streams']} streams, fits overlapping: {thr['overlap']}); "
+        f"graph it/s one fit at a time "
+        f"{[round(v, 2) for v in seq['iters_per_sec']]}, threaded summed "
+        f"{thr['summed_iters_per_sec']:.2f} "
+        f"({[round(v, 2) for v in thr['iters_per_sec']]}); round it/s "
+        f"{seq['round_iters_per_sec']:.2f} / "
+        f"{thr['round_iters_per_sec']:.2f}; capture seconds "
+        f"{seq['capture_seconds']:.2f} / {thr['capture_seconds']:.2f} "
+        f"({thr['captures']} captures, the last done "
+        f"{seq['captured_by']:.2f} / {thr['captured_by']:.2f} s into the "
+        f"round); peak allocated {seq['peak_allocated_bytes'] / 2 ** 20:.1f}"
+        f" / {thr['peak_allocated_bytes'] / 2 ** 20:.1f} MiB; launches per "
+        f"fit {per_fit}; checks {ok}")
+    if not all(ok.values()):
+        raise AssertionError(f"{label}: the threaded round failed {ok}")
+    out = {}
+    for name, r in (("sequential", seq), ("threaded", thr)):
+        out[name] = {k: v for k, v in r.items() if k != "fits"}
+    out["checks"] = ok
+    return out
+
+
+def threads_phase() -> dict:
+    """Phase 13: ``run_candidates``' threads on cuda:0 at bench.py's den
+    widths (256^2, input depth 16, f32, lr 1e-3, seed 1, THREAD_ITERS
+    iterations a fit, plots and saves off), each route's round once
+    threaded and once one candidate after another in this thread: (a)
+    THREAD_DIP dip candidates on ``["cuda:0"]`` (a thread per candidate,
+    ``run_task``); (b) configs/bo_mfvi_den.json's THREAD_K candidates on
+    ``["cuda:0", "cuda:0"]`` (a thread per interleaved group of 2) and with
+    ``interleave=False`` (a thread per candidate, ``run_task`` with its MC
+    summary); (c) THREAD_SP of them with ``sp_split=2`` over ``["cuda:0"]
+    * 4`` (a thread per candidate, ``fit_sp`` over 2 shards). Every
+    candidate's score and fit equal its sequential run's bit for bit and
+    the launches equal the sequential round's (``_hold_route``). Returns
+    each route's numbers, and "launches" the threaded rounds'."""
+    import mfvi_dip_mia_tpu_torch.tasks.problems as P
+    import mfvi_dip_mia_tpu_torch.tasks.runners as R
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.parallel import fanout
+    from mfvi_dip_mia_tpu_torch.parallel.sharding import fit_sp, make_mesh
+    from mfvi_dip_mia_tpu_torch.utils.profiling import PhaseTimer
+
+    t0 = time.perf_counter()
+    timer = PhaseTimer()
+    use_bench_images()
+    rp = dict(img=0, num_iter=THREAD_ITERS - 1, lr=1e-3, seed=1,
+              show_every=THREAD_SHOW, input_depth=16, plot=False,
+              save=False)
+    grid, methods = den_candidates(THREAD_K)
+    rec = FitRecorder()
+    out = {"candidates": [list(map(float, c)) for c in grid]}
+
+    def scores(kept):
+        return kept[1]
+
+    def interleaved_sequential():
+        ys = [None] * THREAD_K
+        for g in range(2):
+            idx = range(g, THREAD_K, 2)
+            for i, y in zip(idx, R.run_group_interleaved(
+                    "den", "mfvi", [grid[i] for i in idx], device=DEVICE,
+                    **rp)):
+                ys[i] = y
+        return ys
+
+    def sp_sequential():
+        # _run_candidates_sp's problem and fits, one after another
+        problem = P.build_problem("den", "mfvi", 0, input_depth=16,
+                                  device="cuda:0")
+        mesh = make_mesh(2, names=("sp",), devices=["cuda:0"] * 2)
+        return [fit_sp(problem, m, mesh=mesh, num_iter=rp["num_iter"],
+                       lr=rp["lr"], seed=rp["seed"], collect_snapshots=False,
+                       show_every=THREAD_SHOW).final_psnr
+                for m in methods[:THREAD_SP]]
+
+    routes = (
+        ("(a) dip, a thread per candidate", THREAD_DIP, THREAD_DIP,
+         lambda: [R.run_task("den", "dip", index=i, device=DEVICE, **rp)
+                  for i in range(THREAD_DIP)],
+         lambda: scores(fanout.run_candidates(
+             "den", "dip", [()] * THREAD_DIP, rp, ["cuda:0"],
+             keep_nan=True))),
+        ("(b) mfvi, a thread per interleaved group", 2, THREAD_K,
+         interleaved_sequential,
+         lambda: scores(fanout.run_candidates(
+             "den", "mfvi", grid, rp, ["cuda:0", "cuda:0"],
+             keep_nan=True))),
+        ("(b) mfvi, a thread per candidate", THREAD_K, THREAD_K,
+         lambda: [R.run_task("den", "mfvi", index=i, device=DEVICE,
+                             **fanout.candidate_kwargs("mfvi", c), **rp)
+                  for i, c in enumerate(grid)],
+         lambda: scores(fanout.run_candidates(
+             "den", "mfvi", grid, rp, ["cuda:0"], interleave=False,
+             keep_nan=True))),
+        ("(c) mfvi sp_split=2, a thread per candidate", THREAD_SP,
+         THREAD_SP, sp_sequential,
+         lambda: scores(fanout.run_candidates(
+             "den", "mfvi", grid[:THREAD_SP], rp, ["cuda:0"] * 4,
+             sp_split=2, keep_nan=True))),
+    )
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    with rec.installed():
+        for label, workers, n_fits, sequential, threaded in routes:
+            with timer.phase(label, sync=True):
+                seq = _round(rec, sequential)
+                thr = _round(rec, threaded)
+                out[label] = _hold_route(label, seq, thr, workers, n_fits)
+            for k, n in thr["launches"].items():
+                launches[k] += n
+    out["launches"] = launches
+    out["timer"] = timer.summary()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[13] phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -5068,6 +5484,8 @@ def main(argv=None) -> int:
         check_fused_kernels(f_sites + p8_fused, results)
         check_lrt_kernel(l_sites + p8_conv, results)
         dense = check_dense_radon(results)
+        check_concurrent_streams(*concurrent_sites(l_sites, f_sites), dense,
+                                 results)
 
     with timer.phase("3 main paths", sync=True):
         steps = {label: check_step_against_cpu(nets[n_out], task, reparam)
@@ -5121,6 +5539,8 @@ def main(argv=None) -> int:
         fits["parallel"] = parallel_phase()
     with timer.phase("12 spatial split", sync=True):
         fits["sp"] = sp_phase()
+    with timer.phase("13 threads", sync=True):
+        fits["threads"] = threads_phase()
 
     line = []
     for k in kernels.KERNELS:
@@ -5139,7 +5559,8 @@ def main(argv=None) -> int:
             launches_by_path={p: fits[p]["launches"][k.name]
                               for p in ("ct", "den", "lrt_den", "dense_ct",
                                         "bo_ct", "sr", "inp", "tail",
-                                        "lib", "parallel", "sp")},
+                                        "lib", "parallel", "sp",
+                                        "threads")},
             max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from ..nn.var_conv import REPARAMS
 from ..ops import kernels
+from ..utils import compile_guard
 from ..utils.graphs import capture, capture_stream
 from . import vi
 
@@ -64,18 +65,21 @@ def _replayed(one, generator: torch.Generator, n_samples: int,
     graph, so replay i draws what the i-th eager sample would. Each replay
     overwrites the graph's output, which is copied into the stacked result
     before the next; the graph and its memory pool are released on return.
-    Kernel launches are counted once per replay (ops/kernels)."""
+    Kernel launches are counted once per replay (ops/kernels). The warm
+    sample and the capture hold the compile lock (utils/compile_guard.py),
+    as a fit's do."""
     side = capture_stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    start = generator.get_state()
-    with torch.cuda.stream(side):
-        warm = one()
-    torch.cuda.current_stream(device).wait_stream(side)
-    generator.set_state(start)
-    outs = torch.empty((n_samples, *warm.shape), dtype=warm.dtype,
-                       device=device)
-    del warm
-    graph, launches, static = capture(one, [generator], side)
+    with compile_guard.LOCK:
+        side.wait_stream(torch.cuda.current_stream(device))
+        start = generator.get_state()
+        with torch.cuda.stream(side):
+            warm = one()
+        torch.cuda.current_stream(device).wait_stream(side)
+        generator.set_state(start)
+        outs = torch.empty((n_samples, *warm.shape), dtype=warm.dtype,
+                           device=device)
+        del warm
+        graph, launches, static = capture(one, [generator], side)
     for i in range(n_samples):
         graph.replay()
         kernels.add_counts(launches)

@@ -78,6 +78,9 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <mutex>
+
 #include "bulk_copy.cuh"
 #include "conv_mma.cuh"
 #include "conv_tile.cuh"
@@ -476,11 +479,14 @@ fused_bwd_dx_mma_kernel(const float* __restrict__ dc,
 // The co-resident block count of a cooperative kernel of `threads` threads
 // and `smem` bytes of dynamic shared memory on the current device, cached
 // per (kernel, smem). The kernel's dynamic shared memory limit is raised to
-// `smem` first, as its launch needs.
+// `smem` first, as its launch needs. Host threads launch concurrently (the
+// port's fanout), so the cache is read and filled under a mutex.
 int max_coop_blocks(const void* kern, int threads, int smem) {
+  static std::mutex mu;
   static const void* keys[64];
   static int smems[64], vals[64];
   static int n = 0;
+  std::lock_guard<std::mutex> hold(mu);
   for (int i = 0; i < n; ++i)
     if (keys[i] == kern && smems[i] == smem) return vals[i];
   int dev = 0, sms = 0, per_sm = 0;
@@ -600,7 +606,7 @@ int fused_block_bwd_dc(const float* g, const float* out, const float* stats,
                        float* dgb, int O, int HW, int cluster, int cpb,
                        int len, int res, int chunks, float inv_hw,
                        float slope, float inv_slope, void* stream) {
-  static bool allowed = false;
+  static std::atomic<bool> allowed{false};
   const int smem = cpb * 2 * res * (int)sizeof(float);
   if (O < 1 || HW < 1 || cluster < 1 || cluster > conv_mma::kMaxSplit ||
       (cpb != 1 && cpb != 2 && cpb != 4 && cpb != kDcMaxCpb) ||

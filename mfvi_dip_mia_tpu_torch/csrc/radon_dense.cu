@@ -55,6 +55,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "bulk_copy.cuh"
 #include "conv_tile.cuh"
 
@@ -365,8 +367,11 @@ radon_dense_adj_kernel(const __nv_bfloat16* __restrict__ a, const float* __restr
   }
 }
 
-// The kernel's dynamic shared memory limit, raised once to what it needs.
+// The kernel's dynamic shared memory limit, raised once to what it needs
+// (under a mutex: host threads launch concurrently).
 int allow_smem(const void* kern, int smem, bool& allowed) {
+  static std::mutex mu;
+  std::lock_guard<std::mutex> hold(mu);
   if (allowed) return 0;
   const int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (!err) allowed = true;

@@ -8,9 +8,14 @@ builds it once and rebuilds only when a source changes. Each source's
 ``nvcc -Xptxas -v`` report (registers, shared memory, spills per kernel)
 is kept beside the library as ``<source>.ptxas.log``.
 
-Each kernel's Python wrapper owns a :class:`Kernel` record whose ``launches``
-counter it increments where it launches the kernel (and nowhere else), so a
-run can show that its main path went through the kernels.
+Each kernel's Python wrapper owns a :class:`Kernel` record and calls its
+``count(t)`` where it launches the kernel (and nowhere else), so a run can
+show that its main path went through the kernels. Wrappers launch from any
+thread (parallel/fanout.py runs fits concurrently, and PyTorch runs a CUDA
+backward on its own autograd thread): ``count`` adds to the process total
+``launches`` and to the tally of the stream the launch went to, under one
+lock; a capture takes back exactly the launches on its own stream
+(ops/kernels/__init__.py).
 """
 
 from __future__ import annotations
@@ -56,14 +61,34 @@ _SIGNATURES = {
 }
 
 
+COUNT_LOCK = threading.Lock()       # guards every count below
+_BY_STREAM: dict = {}               # stream -> {kernel name: launches}
+
+
+def stream_tally(stream: int) -> dict:
+    """The launches counted on ``stream`` (a ``stream_of`` int) by kernel
+    name, since the process started (only ever increased); read it under
+    COUNT_LOCK."""
+    return _BY_STREAM.setdefault(stream, {})
+
+
 @dataclasses.dataclass
 class Kernel:
     """One ported TPU kernel: its CUDA source, the Pallas kernel it replaces,
-    and how many times its wrapper launched it."""
+    and how many times its wrapper launched it, in all threads."""
     name: str
     source: str        # repository path of the CUDA source
     replaces: str      # file:line (function) of the Pallas TPU kernel
     launches: int = 0
+
+    def count(self, t: torch.Tensor) -> None:
+        """One launch of the kernel on the current stream of ``t``'s
+        device."""
+        stream = stream_of(t)
+        with COUNT_LOCK:
+            self.launches += 1
+            tally = stream_tally(stream)
+            tally[self.name] = tally.get(self.name, 0) + 1
 
 
 _LOCK = threading.Lock()
@@ -126,8 +151,11 @@ def _build(out_dir: str) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call (thread-safe)."""
+    """The kernels' shared library, built on first call (thread-safe: one
+    thread builds, the others wait)."""
     global _LIB, BUILD_SECONDS
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
@@ -164,9 +192,15 @@ def ptxas_logs() -> dict:
     return logs
 
 
+def stream_of_device(device: torch.device) -> int:
+    """PyTorch's current stream on ``device`` (of the calling thread), as a
+    pointer-sized int."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a pointer-sized int."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return stream_of_device(t.device)
 
 
 def check(err: int, name: str) -> None:

@@ -38,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -346,7 +347,7 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
                           _DTYPE_CODE[x.dtype], i_ch, x.shape[1], x.shape[2],
                           o_ch, k, int(full), plan.tile, plan.split,
                           ctypes.c_void_p(build.stream_of(x)))
-    FWD.launches += 1
+    FWD.count(x)
     build.check(err, FWD.name)
 
 
@@ -361,18 +362,37 @@ def conv_dw_plain(xp: torch.Tensor, g: torch.Tensor, kh: int,
     return dw.reshape(o_ch, xp.shape[0], kh, kw)
 
 
+# (device, stream) -> every ticket buffer made for it, the newest last
 _TICKETS: dict = {}
+_TICKETS_LOCK = threading.Lock()
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The dw kernel's ticket counters on ``device``: zero, and left zero by
-    every launch (the last block of an output tile resets its counter), so
-    one buffer serves every launch on the device's stream."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(4096, n), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
+    """At least ``n`` ticket counters for a launch on ``device``'s current
+    stream: zero, and left zero by every launch (the last block of an
+    output tile resets its counter), so one buffer serves every launch on
+    that stream, in stream order. The buffers are keyed by (device,
+    stream): launches on two streams at once never share counters (the dw
+    kernels here, fused_block.py's and radon_dense.py's adjoint), and a
+    graph captured on a stream, replayed on it, shares them only with that
+    stream's work. A buffer is never freed or replaced: a larger one is
+    added beside it, since a live graph holds the pointer it was captured
+    with. A capture must find its buffer made by the warm-up; it raises
+    otherwise."""
+    key = (device, build.stream_of_device(device))
+    made = _TICKETS.get(key)
+    if made is None or made[-1].numel() < n:
+        with _TICKETS_LOCK:
+            made = _TICKETS.setdefault(key, [])
+            if not made or made[-1].numel() < n:
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError(
+                        f"a capture needs {n} dw tickets on {key}, which no "
+                        "warm-up made: run the captured work eagerly on the "
+                        "capture stream first")
+                made.append(torch.zeros(max(4096, n), dtype=torch.int32,
+                                        device=device))
+    return made[-1]
 
 
 def conv_dw(xp: torch.Tensor, g: torch.Tensor, kh: int,
@@ -403,7 +423,7 @@ def conv_dw(xp: torch.Tensor, g: torch.Tensor, kh: int,
                          _DTYPE_CODE[xp.dtype], i_ch, hp, wp, o_ch, kh,
                          plan.tile, plan.cluster, plan.groups,
                          ctypes.c_void_p(build.stream_of(xp)))
-    DW.launches += 1
+    DW.count(xp)
     build.check(err, DW.name)
     return out
 

@@ -144,7 +144,7 @@ def fwd(xp, w, gamma, beta, slope=SLOPE, eps=EPS):
         out.data_ptr(), stats.data_ptr(), part.data_ptr(),
         part[part_sum:].data_ptr(), ci, h, wd, co, k, plan.tile,
         1.0 / (h * wd), slope, eps, st)
-    FWD.launches += 1
+    FWD.count(xp)
     build.check(err, FWD.name)
     return out, stats
 
@@ -248,7 +248,7 @@ def bwd_dc(g, out, stats, gamma, beta, slope=SLOPE):
         beta.data_ptr(), dc.data_ptr(), dgb.data_ptr(), co, h * wd,
         plan.cluster, plan.cpb, plan.length, plan.res, plan.chunks,
         1.0 / (h * wd), slope, 1.0 / slope, st)
-    DC.launches += 1
+    DC.count(out)
     build.check(err, DC.name)
     return (dc, *dgb.unbind())
 
@@ -292,7 +292,7 @@ def bwd_dw(dc, xp, k):
                                  partial.data_ptr(), ticket.data_ptr(),
                                  dw.data_ptr(), ci, h, wd, co, k, plan.tile,
                                  plan.cluster, plan.groups, st)
-    DW.launches += 1
+    DW.count(xp)
     build.check(err, DW.name)
     return dw
 
@@ -335,7 +335,7 @@ def bwd_dx(dc, w):
     lib, st = _lib_stream(dc)
     err = lib.fused_block_bwd_dx(dc.data_ptr(), w.data_ptr(), dx.data_ptr(),
                                  co, h, wd, ci, k, plan.tile, plan.split, st)
-    DX.launches += 1
+    DX.count(dc)
     build.check(err, DX.name)
     return dx
 

@@ -106,7 +106,7 @@ def double_conv_fwd(xp: torch.Tensor, w_mu: torch.Tensor,
                            act_mu.data_ptr(), act_var.data_ptr(),
                            _DTYPE_CODE[xp.dtype], c, hp, wp, o, k, plan.tile,
                            plan.split, ctypes.c_void_p(build.stream_of(xp)))
-    FWD.launches += 1
+    FWD.count(xp)
     build.check(err, FWD.name)
     return act_mu, act_var
 

@@ -253,7 +253,7 @@ def radon_fwd(state: BandedRadonState, v: torch.Tensor) -> torch.Tensor:
         partial.data_ptr(), out.data_ptr(), _DTYPE_CODE[state.blocks.dtype],
         g_count, t_pad, state.jwin, pp, w, cols, GCHUNK,
         ctypes.c_void_p(build.stream_of(v)))
-    FWD.launches += 1
+    FWD.count(v)
     build.check(err, FWD.name)
     return out
 
@@ -290,7 +290,7 @@ def radon_adj(state: BandedRadonState, gsino: torch.Tensor) -> torch.Tensor:
         state.blocks.data_ptr(), state.jlo.data_ptr(), gsino.data_ptr(),
         out.data_ptr(), _DTYPE_CODE[state.blocks.dtype], g_count, t_pad,
         state.jwin, pp, w, cols, ctypes.c_void_p(build.stream_of(gsino)))
-    ADJ.launches += 1
+    ADJ.count(gsino)
     build.check(err, ADJ.name)
     return out
 

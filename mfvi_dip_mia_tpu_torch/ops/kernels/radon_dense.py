@@ -202,7 +202,7 @@ def _launch_fwd(a, v, plan, tables):
                               tables[0].data_ptr(), p, q, v.shape[0],
                               plan.fwd_blocks,
                               ctypes.c_void_p(build.stream_of(v)))
-    FWD.launches += 1
+    FWD.count(v)
     build.check(err, FWD.name)
     return out
 
@@ -250,7 +250,7 @@ def _launch_adj(a, g, plan, tables):
                               plan.adj_blocks, plan.strip, n_tiles,
                               plan.n_strips,
                               ctypes.c_void_p(build.stream_of(g)))
-    ADJ.launches += 1
+    ADJ.count(g)
     build.check(err, ADJ.name)
     return out
 

@@ -31,7 +31,7 @@ import torch
 
 from .kernels import radon_banded as rb
 from .kernels import radon_dense as rd
-from ..utils.device import resolve_device
+from ..utils.device import device_cache, resolve_device
 
 MODES = ("banded", "banded-bf16", "dense-bf16", "matmul", "gather")
 
@@ -116,19 +116,18 @@ def _build_projection_matrix(theta_deg, h: int, w: int) -> np.ndarray:
     return a
 
 
-# The dense bf16 matrix, built once per process (radon.py:205-225 caches it
-# the same way): (angles, H, W, device) -> (T*W, H*W) bf16 on the device
-_MATRIX_CACHE: dict = {}
-
-
 def dense_matrix_bf16(theta_deg, h: int, w: int, device) -> torch.Tensor:
     """The bf16 projection matrix of ``theta_deg`` on ``device`` (cached)."""
-    key = (tuple(np.asarray(theta_deg, np.float32).tolist()), h, w,
-           str(torch.device(device)))
-    if key not in _MATRIX_CACHE:
-        _MATRIX_CACHE[key] = rd.prepare_matrix_bf16(
-            _build_projection_matrix(theta_deg, h, w), device)
-    return _MATRIX_CACHE[key]
+    return _dense_matrix(tuple(np.asarray(theta_deg, np.float64).tolist()),
+                         h, w, str(torch.device(device)))
+
+
+# The dense bf16 matrix, built once per process (radon.py:205-225 caches it
+# the same way): (angles, H, W, device) -> (T*W, H*W) bf16 on the device
+@device_cache
+def _dense_matrix(theta: tuple, h: int, w: int, device: str) -> torch.Tensor:
+    return rd.prepare_matrix_bf16(_build_projection_matrix(theta, h, w),
+                                  device)
 
 
 class FastRadonTransform:

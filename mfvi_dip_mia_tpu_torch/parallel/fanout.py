@@ -1,41 +1,51 @@
 """Candidate -> device fanout of the BO loop, on one process (counterpart of
 mfvi_dip_mia_tpu/parallel/fanout.py).
 
-``run_candidates`` dispatches as JAX's does (fanout.py:172-298):
+As JAX's, the fanout starts one *thread* per candidate or candidate group,
+round-robined over the devices, and joins them; each thread writes its
+score into its candidate's slot. ``run_candidates`` routes as JAX's does
+(fanout.py:172-298):
 
   * with more candidates than devices (``interleave="auto"``; ``True``
     forces it, ``False`` forbids it), and for every method but dip, the
     candidates are grouped round-robin, candidate i onto ``devices[i %
-    n]``, and each group runs as one interleaved multi-fit
-    (tasks/runners.py::run_group_interleaved: no MC summary, each score
-    bit-identical to the candidate's ``run_task``), group after group;
+    n]``, and each group runs on a thread of its own as one interleaved
+    multi-fit (tasks/runners.py::run_group_interleaved: no MC summary,
+    each score bit-identical to the candidate's ``run_task``);
   * ``use_spmd=True`` runs every candidate as one program over a device
-    mesh (``run_candidates_spmd``, parallel/sharding.py::run_sweep_spmd);
+    mesh (``run_candidates_spmd``, parallel/sharding.py::run_sweep_spmd),
+    in the calling thread;
   * ``sp_split`` takes JAX's routing: with k >= 2 devices for each
     candidate, candidate i's fit is split by rows over its own ``sp``
     sub-mesh ``devices[i*k:(i+1)*k]`` (``_run_candidates_sp``,
-    parallel/sharding.py::fit_sp), candidate after candidate; with fewer
-    the candidates fall through to the other routes;
+    parallel/sharding.py::fit_sp), a thread per candidate; with fewer the
+    candidates fall through to the other routes;
   * otherwise candidate i runs through ``run_task`` on ``devices[i % n]``,
-    one after another.
+    a thread per candidate.
 
 A given ``runner`` ignores ``use_spmd``, ``sp_split`` and ``interleave`` and
-runs per candidate, as in JAX. Everything runs in the calling thread, where
-the JAX package starts a thread per candidate or group: concurrent fits
-would share the port's process-wide state (the kernel launch counters that
-every capture reads and takes back, ``ops/kernels``; the ``device_cache``
-tables; each card's capture stream, utils/graphs.py::capture_stream; and
-PyTorch's global capture-error mode), and on one card they would queue
-anyway. Candidates spread over processes through parallel/multihost.py.
+runs a thread per candidate, as in JAX. Threads on one card overlap: each
+runs its fits on a stream of its own (utils/graphs.py::own_stream), and
+their warm-ups and captures go one at a time under the compile lock
+(utils/compile_guard.py), the counterpart of JAX's serialized compiles,
+while the others replay. Everything that fits share across threads is
+safe under them: the launch counters (a capture takes back the launches
+on its own stream, ops/kernels), the ``device_cache`` tables (filled once),
+the dw ticket buffers (one per stream, never freed under a graph), and
+each fit syncs its own stream only (tasks/trainer.py::_sync). A fit's
+arithmetic does not depend on what else runs: a candidate's score and rows
+are the bits of its run alone. Candidates spread over processes through
+parallel/multihost.py.
 
 A crashed or NaN candidate contributes nothing: it is logged, dropped with
-its score (the pairs are filtered together), and the sweep goes on; a
-caller that passes ``failures`` gets a record of each drop, so that a crash
-can be told from a diverged fit.
+its score (the pairs are filtered together), and the other threads go on;
+a caller that passes ``failures`` gets a record of each drop, so that a
+crash can be told from a diverged fit.
 """
 
 from __future__ import annotations
 
+import threading
 import traceback
 from typing import Sequence
 
@@ -115,16 +125,17 @@ def _run_candidates_sp(task: str, bayes: str, candidates: Sequence,
                        run_params: dict, devices, n_sp: int) -> tuple:
     """Each candidate's fit split by rows over its own ``n_sp``-device
     ``sp`` sub-mesh, ``devices[i*n_sp:(i+1)*n_sp]`` (fanout.py:98-170;
-    parallel/sharding.py::fit_sp), one candidate after another. The problem
-    is built once on the first device with ``build_problem``'s own noise
-    stream, as JAX's is, and each fit takes ``run_params``' seed, without
-    snapshots. Raises ValueError up front when the image height does not
-    split into ``n_sp`` shards the net can halve to its deepest scale;
+    parallel/sharding.py::fit_sp), a thread per candidate, each fit on its
+    own stream of its first device. The problem is built once on the first
+    device with ``build_problem``'s own noise stream, as JAX's is, and each
+    fit takes ``run_params``' seed, without snapshots. Raises ValueError up front when the image height does
+    not split into ``n_sp`` shards the net can halve to its deepest scale;
     otherwise a failing candidate is logged and scores NaN. Returns
     (scores, tracebacks: None where the fit returned)."""
     from ..nn.sp import RowSplit
     from ..tasks.problems import build_problem
     from ..tasks.runners import method_for
+    from ..utils.graphs import own_stream
     from .sharding import fit_sp, make_mesh
 
     rp = dict(run_params)
@@ -142,19 +153,35 @@ def _run_candidates_sp(task: str, bayes: str, candidates: Sequence,
 
     results = [float("nan")] * len(candidates)
     errors = [None] * len(candidates)
-    for i, cand in enumerate(candidates):
-        group = devices[i * n_sp:(i + 1) * n_sp]
+
+    def work(i, cand, group):
         try:
             method = method_for(task, bayes, candidate_kwargs(bayes, cand))
             mesh = make_mesh(n_sp, names=("sp",), devices=group)
-            res = fit_sp(problem, method, mesh=mesh, num_iter=num_iter,
-                         lr=lr, seed=seed, collect_snapshots=False, **fit_kw)
+            with own_stream(group[0]):
+                res = fit_sp(problem, method, mesh=mesh, num_iter=num_iter,
+                             lr=lr, seed=seed, collect_snapshots=False,
+                             **fit_kw)
             results[i] = float(res.final_psnr)
         except Exception:
             errors[i] = traceback.format_exc()
             print(f"[fanout/sp] candidate {cand} failed on {group}:\n"
                   f"{errors[i]}", flush=True)
+
+    _run_threads(work, [(i, cand, devices[i * n_sp:(i + 1) * n_sp])
+                        for i, cand in enumerate(candidates)])
     return results, errors
+
+
+def _run_threads(target, jobs) -> None:
+    """``target(*job)`` on a thread of its own for every job, all started,
+    then all joined (fanout.py:152-159, :255-264, :279-287)."""
+    threads = [threading.Thread(target=target, args=job, daemon=True)
+               for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
 
 
 def run_candidates(task: str, bayes: str, candidates: Sequence,
@@ -163,7 +190,8 @@ def run_candidates(task: str, bayes: str, candidates: Sequence,
                    sp_split: int | bool = False,
                    interleave: str | bool = "auto",
                    failures: list | None = None):
-    """Evaluate every candidate; returns (kept_candidates, kept_scores) with
+    """Evaluate every candidate concurrently, a thread per candidate or
+    group; returns (kept_candidates, kept_scores) in candidate order with
     NaN / crashed candidates dropped (``keep_nan=True``: a score for every
     candidate, NaN where it failed).
 
@@ -202,10 +230,7 @@ def run_candidates(task: str, bayes: str, candidates: Sequence,
             and (interleave is True
                  or (interleave == "auto"
                      and len(candidates) > len(devices)))):
-        for d, dev in enumerate(devices):
-            idxs = list(range(d, len(candidates), len(devices)))
-            if not idxs:
-                continue
+        def work_group(dev, idxs):
             try:
                 scores = run_group_interleaved(
                     task, bayes, [candidates[i] for i in idxs], device=dev,
@@ -218,6 +243,10 @@ def run_candidates(task: str, bayes: str, candidates: Sequence,
                       f"{error}", flush=True)
                 for i in idxs:
                     errors[i] = error
+
+        groups = [(dev, list(range(d, len(candidates), len(devices))))
+                  for d, dev in enumerate(devices)]
+        _run_threads(work_group, [g for g in groups if g[1]])
         return _record(candidates, results, errors, keep_nan, failures)
 
     if runner is None:
@@ -225,14 +254,16 @@ def run_candidates(task: str, bayes: str, candidates: Sequence,
             return run_task(task, bayes, index=idx, device=dev,
                             **candidate_kwargs(bayes, cand), **run_params)
 
-    for i, cand in enumerate(candidates):
-        dev = devices[i % len(devices)]
+    def work(i, cand, dev):
         try:
             results[i] = float(runner(i, dev, cand))
         except Exception:
             errors[i] = traceback.format_exc()
             print(f"[fanout] candidate {cand} failed on {dev}:\n{errors[i]}",
                   flush=True)
+
+    _run_threads(work, [(i, cand, devices[i % len(devices)])
+                        for i, cand in enumerate(candidates)])
     return _record(candidates, results, errors, keep_nan, failures)
 
 

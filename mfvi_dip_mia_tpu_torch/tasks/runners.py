@@ -8,12 +8,13 @@ A run creates ``save_path/<timestamp>/`` with ``locals.txt``, fits, takes a
 dip, runners.py:179), optionally plots, writes ``save.npz`` in the
 reference's per-task key schema, and returns the final
 smoothed-reconstruction PSNR (the BO objective). All 16 (task, method)
-pairs run; ``early_stop`` goes to ``fit`` (runners.py:162).
+pairs run; ``early_stop`` goes to ``fit`` (runners.py:162). On the card a
+run works on its thread's own stream (utils/graphs.py::own_stream), so runs
+on several threads (parallel/fanout.py) overlap on one card.
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
 from pathlib import Path
 
@@ -25,6 +26,7 @@ from ..bayes.uncertainty import mc_predict, uncert_regression_gal
 from ..ops.metrics import psnr, ssim
 from ..utils.config import dump_locals
 from ..utils.device import resolve_device
+from ..utils.graphs import own_stream
 from .problems import METHODS, build_problem
 from .trainer import Method, fit, fit_interleaved
 
@@ -140,9 +142,7 @@ def run_task(task: str, method_name: str, *, img: int = 0,
             input_depth=input_depth, device=str(device), seed=seed,
             show_every=show_every, **kwargs))
 
-    on_card = (torch.cuda.device(dev) if dev.type == "cuda"
-               else contextlib.nullcontext())
-    with on_card:
+    with own_stream(dev):
         # one stream draws the noisy image, then the net input
         rng = np.random.default_rng(seed)
         problem = build_problem(task, method_name, img, p_sigma=p_sigma,
@@ -221,9 +221,7 @@ def run_group_interleaved(task: str, method_name: str, candidates,
     from ..utils import viz
 
     dev = resolve_device(device)
-    on_card = (torch.cuda.device(dev) if dev.type == "cuda"
-               else contextlib.nullcontext())
-    with on_card:
+    with own_stream(dev):
         methods, rngs = [], []
         for cand in candidates:
             rng = np.random.default_rng(seed)

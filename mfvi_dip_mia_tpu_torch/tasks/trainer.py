@@ -72,6 +72,7 @@ from ..ops import kernels
 from ..optim import sgld
 from ..optim.fused_adamw import flat_adamw_update
 from ..utils import images as I
+from ..utils import compile_guard
 from ..utils.device import resolve_device
 from ..utils.graphs import capture, capture_stream
 from .problems import METHODS, Problem, reinit_conv_weights_normal
@@ -371,24 +372,32 @@ def capture_steps(fits: list) -> dict:
     up in bounds too. Each fit's generator is reset to where it was (a warm
     up draws from its own fit's generator only), so each fit's random
     stream starts where its eager step's would. Raises if a capture
-    fails."""
+    fails.
+
+    The warm-up and the captures hold the compile lock
+    (utils/compile_guard.py): fits on other threads capture one at a time,
+    and replay meanwhile. The side stream is the thread's own
+    (utils/graphs.py::capture_stream): inside ``own_stream`` the current
+    stream itself, where the graphs then replay."""
     dev = fits[0][1].flat.device
     side = capture_stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    starts = [gen.get_state() for _, _, gen in fits]
-    with torch.cuda.stream(side):
-        for step, state, _ in fits:
-            scratch = state.clone()
-            # a fit resumed at its last chunk would write a row past the end
-            scratch.it.zero_()
-            for with_metrics in (False, True):
-                step(scratch, with_metrics)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    del scratch
-    for (_, _, gen), start in zip(fits, starts):
-        gen.set_state(start)
-    return {with_metrics: capture_variant(fits, side, with_metrics)
-            for with_metrics in (False, True)}
+    with compile_guard.LOCK:
+        side.wait_stream(torch.cuda.current_stream(dev))
+        starts = [gen.get_state() for _, _, gen in fits]
+        with torch.cuda.stream(side):
+            for step, state, _ in fits:
+                scratch = state.clone()
+                # a fit resumed at its last chunk would write a row past the
+                # end
+                scratch.it.zero_()
+                for with_metrics in (False, True):
+                    step(scratch, with_metrics)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del scratch
+        for (_, _, gen), start in zip(fits, starts):
+            gen.set_state(start)
+        return {with_metrics: capture_variant(fits, side, with_metrics)
+                for with_metrics in (False, True)}
 
 
 def capture_variant(fits: list, stream: torch.cuda.Stream,
@@ -463,8 +472,10 @@ class _EarlyStop:
 
 
 def _sync(device: torch.device) -> None:
+    """Wait for the fit's own work: its stream, not the whole card, where
+    other threads' fits run and may be capturing."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,

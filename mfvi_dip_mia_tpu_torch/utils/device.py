@@ -4,8 +4,11 @@ the caller asks for the CPU, and never fall back to it quietly."""
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
+
+_FILL_LOCK = threading.RLock()   # a fill may ask for another table
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,15 +51,39 @@ def device_cache(fn):
     """``functools.cache`` for a function that builds device tensors
     (positional arguments only), with its entries readable as ``fn.entries``
     (argument tuple -> result): a CUDA graph's capture must find them built
-    and leave them as they are, and a check can show that it did."""
+    and leave them as they are, and a check can show that it did.
+
+    Fits on several threads (parallel/fanout.py) may ask for one entry at
+    once: its first fill runs once, under one lock for every table (not
+    the compile lock: PyTorch's autograd thread fills the backward's tables
+    while the capturing thread holds that), and an entry is published only
+    after the filling thread's stream has finished writing it, so that a
+    fit on another stream reads it whole. Reads of a filled entry take no
+    lock."""
     entries = {}
 
     @functools.wraps(fn)
     def cached(*args):
         if args not in entries:
-            entries[args] = fn(*args)
+            with _FILL_LOCK:
+                if args not in entries:
+                    value = fn(*args)
+                    _written(value)
+                    entries[args] = value
         return entries[args]
 
     cached.entries = entries
     cached.cache_clear = entries.clear
     return cached
+
+
+def _written(value) -> None:
+    """Wait until the current streams have written every CUDA tensor of
+    ``value`` (a tensor, or tuples and lists of them); a capture in
+    progress waits for nothing (it runs nothing)."""
+    if isinstance(value, (tuple, list)):
+        for v in value:
+            _written(v)
+    elif (isinstance(value, torch.Tensor) and value.is_cuda
+          and not torch.cuda.is_current_stream_capturing()):
+        torch.cuda.current_stream(value.device).synchronize()

@@ -40,7 +40,9 @@ def trace(logdir: str):
             yield prof
         finally:
             if torch.cuda.is_available():
-                torch.cuda.synchronize()
+                # the block's own stream: a device-wide wait would also wait
+                # for, and may break, other threads' captures
+                torch.cuda.current_stream().synchronize()
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
@@ -50,7 +52,8 @@ def debug_nans(enable: bool = True) -> None:
 
 class PhaseTimer:
     """Accumulates wall time per named phase (e.g. the first dispatch, which
-    builds and captures, against the later ones)."""
+    builds and captures, against the later ones). ``phase(name,
+    sync=True)`` first waits for the calling thread's current stream."""
 
     def __init__(self):
         self.totals: dict = {}
@@ -63,7 +66,7 @@ class PhaseTimer:
             yield
         finally:
             if sync:
-                torch.cuda.synchronize()
+                torch.cuda.current_stream().synchronize()
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1

@@ -197,15 +197,21 @@ def test_run_task_refuses_a_chunk_other_than_the_snapshots(small, tmp_path):
                         save_path=str(tmp_path), chunk_iters=4)
 
 
-def test_a_capture_takes_its_counts_back_and_a_replay_adds_them():
+def test_a_capture_takes_its_counts_back_and_a_replay_adds_them(
+        monkeypatch):
+    # every launch on one capture stream (a CUDA tensor's current stream)
+    monkeypatch.setattr(kernels.build, "stream_of", lambda t: 7)
     kernels.reset_launches()
     fwd, dw = kernels.cf_conv.FWD, kernels.cf_conv.DW
     fwd.launches = 3
-    before = kernels.counts()
-    fwd.launches += 2
-    dw.launches += 1
-    taken = kernels.take_counts_since(before)
-    assert kernels.counts() == before
+    totals = kernels.counts()
+    before = kernels.stream_counts(7)
+    x = torch.zeros(1)
+    fwd.count(x)
+    fwd.count(x)
+    dw.count(x)
+    taken = kernels.take_counts_since(before, 7)
+    assert kernels.counts() == totals
     assert dict(zip((k.name for k in kernels.KERNELS), taken)) == {
         k.name: {"cf_conv_fwd": 2, "cf_conv_dw": 1}.get(k.name, 0)
         for k in kernels.KERNELS}
