@@ -239,6 +239,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    widest den sites and path B's matrix: every result equal to its
    single-stream bits.
 
+14. (run last) The cand x mc sharded step (``parallel/sharding.py::
+   build_sharded_sweep_step``) and the port's entry points
+   (``mfvi_dip_mia_tpu_torch/entry.py``), each part's seconds by
+   ``PhaseTimer``: (a) ``dryrun_multichip(8)``, its mesh cuda:0 named 8
+   times (a 4 cand x 2 mc step on 64^2, two steps, then a 4-candidate
+   one-program sweep of 3 chunks); (b) the step at bench.py's den widths
+   (256^2, input depth 16, f32, lr 1e-3, jitter on), configs/
+   bo_mfvi_den.json's first 2 candidates, S = 2, on a 2 cand x 2 mc mesh
+   of cuda:0 x 4: 20 steps as one CUDA graph and 20 eagerly from the same
+   state and generator seeds, with equal bits in the losses, parameters,
+   moments, counts and EMA, every mc replica equal to its lead after
+   every step, launches exactly C x S x the den step's per step run and
+   2 C (n_mc - 1) copies between entries a step, steps/s, first-call
+   seconds and peak memory logged beside phase 3's den fit it/s; one step
+   against the CPU's plain path with the same draws (jitter off) at
+   TOL_STEP; (c) ``entry()``'s loss, output and gradient at 256^2 against
+   the CPU at TOL_STEP. ``launches_by_path["sharded"]``: (b)'s graph
+   steps' launches.
+
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the package beside it, the script exits
@@ -5403,6 +5422,331 @@ def threads_phase() -> dict:
     return out
 
 
+# -- phase 14: the cand x mc sharded step and the dry run on one card --------
+
+SHARD_SHAPE = (2, 2)          # (cand, mc): bo_mfvi_den.json's first two
+SHARD_SAMPLES = 2             # candidates, S = 2 samples, one an mc entry
+SHARD_STEPS = 20              # graph steps, and as many eager ones
+DRYRUN_ENTRIES = 8            # dryrun_multichip(8): cuda:0 named 8 times
+
+
+def shard_step_launches() -> dict:
+    """Launches per sharded step: each of C x S samples runs the den fit
+    step's forward and backward (STEP_LAUNCHES["5-scale"], PERF.md §6)."""
+    n = SHARD_SHAPE[0] * SHARD_SAMPLES
+    return {k: n * v for k, v in STEP_LAUNCHES["5-scale"].items()}
+
+
+def shard_copies_per_step() -> int:
+    """Copies between mesh entries a step: each candidate's n_mc - 1 packs
+    into its lead's rows, then the mean back to those n_mc - 1 entries."""
+    n_cand, n_mc = SHARD_SHAPE
+    return 2 * n_cand * (n_mc - 1)
+
+
+def _sweep_clone(state):
+    from mfvi_dip_mia_tpu_torch.parallel.sharding import SweepState
+    return SweepState(state.params.with_flat(state.params.flat.clone()),
+                      tuple(t.clone() for t in state.opt_state),
+                      state.out_avg.clone())
+
+
+def _replicas_equal(step):
+    """A device bool: every mc replica equal to its lead's bit for bit."""
+    import torch
+    same = [(a.view(torch.int32) == b.view(torch.int32)).all()
+            for row in step.replicas for rep in row[1:]
+            for a, b in zip(rep, row[0])]
+    return torch.stack(same).all()
+
+
+def _sharded_run(step, state, hp, gens, z) -> dict:
+    """SHARD_STEPS calls of ``step`` from ``state``: each step's losses and
+    replica check kept on the card, read after the last; the launch
+    counters zeroed just before and read just after; the first call's
+    seconds (a graph's warm-up and capture) and steps/s over the rest (the
+    card synchronized); the peak allocated bytes above those allocated
+    before."""
+    import torch
+    from mfvi_dip_mia_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, same = [], []
+    t0 = time.perf_counter()
+    for it in range(SHARD_STEPS):
+        state, loss = step(state, hp, gens, z, it)
+        losses.append(loss)
+        same.append(_replicas_equal(step))
+        if it == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(state=state, losses=torch.stack(losses).cpu(),
+                replicas_equal=bool(torch.stack(same).all()),
+                launches={k.name: k.launches for k in kernels.KERNELS},
+                first_call_seconds=t1 - t0,
+                steps_per_sec=(SHARD_STEPS - 1) / (t2 - t1),
+                peak_allocated_bytes=torch.cuda.max_memory_allocated() - base)
+
+
+def sharded_step_against_cpu(problem, methods) -> dict:
+    """One sharded step on the card (eager: the substituted draws are moved
+    to the card as they are used) against the same step on the CPU's plain
+    path, on a ``["cpu"] * 4`` mesh of the same shape: the same initial
+    state, jitter off, each sample's RT draw from one table (drawn on the
+    CPU, in call order). The losses, the first moments (0.1 x the mean
+    gradient) and the EMA (the transformed mean output at iteration 0) at
+    TOL_STEP."""
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.bayes.vi as vi
+    import mfvi_dip_mia_tpu_torch.parallel.sharding as S
+    import mfvi_dip_mia_tpu_torch.tasks.trainer as T
+    from mfvi_dip_mia_tpu_torch.tasks.problems import problem_on
+    from mfvi_dip_mia_tpu_torch.utils.images import get_noise
+
+    n_cand, n_mc = SHARD_SHAPE
+    state0 = S.init_sweep_state(problem, "mfvi", n_cand, seed=1)
+    gen = torch.Generator().manual_seed(11)
+    draws = [torch.randn(state0.params.n_var, generator=gen)
+             for _ in range(n_cand * SHARD_SAMPLES)]
+    z = torch.from_numpy(get_noise(16, SIZE, rng=np.random.default_rng(1))
+                         ).permute(0, 3, 1, 2).contiguous()
+    hp = S.stack_hyperparams(methods, 1e-3)
+    sample, calls = vi.sample_mfvi_tree, []
+
+    def table(params, generator=None, out_dtype=None, eps=None):
+        calls.append(len(calls))
+        return sample(params, out_dtype=out_dtype,
+                      eps=draws[(len(calls) - 1) % len(draws)].to(
+                          params.flat.device))
+
+    got = {}
+    saved_noise = T.REG_NOISE_STD
+    vi.sample_mfvi_tree, T.REG_NOISE_STD = table, 0.0
+    try:
+        for dev in ("cpu", DEVICE + ":0"):
+            placed = problem_on(problem, dev)
+            mesh = S.make_mesh(4, shape=SHARD_SHAPE, names=("cand", "mc"),
+                               devices=[dev] * 4)
+            step, _ = S.build_sharded_sweep_step(placed, "mfvi",
+                                                 SHARD_SAMPLES, mesh,
+                                                 eager=True)
+            state = S.SweepState(
+                state0.params.with_flat(state0.params.flat.to(dev,
+                                                              copy=True)),
+                tuple(t.to(dev, copy=True) for t in state0.opt_state),
+                state0.out_avg.to(dev, copy=True))
+            gens = [[torch.Generator(device=dev) for _ in range(SHARD_SAMPLES)]
+                    for _ in range(n_cand)]
+            state, loss = step(state, hp, gens, z.to(dev), 0)
+            got[dev] = (loss.cpu(), state.opt_state[1].cpu(),
+                        state.out_avg.cpu())
+    finally:
+        vi.sample_mfvi_tree, T.REG_NOISE_STD = sample, saved_noise
+    if len(calls) != 2 * len(draws):
+        raise AssertionError(f"{len(calls)} RT draws, expected "
+                             f"{2 * len(draws)}")
+    (l_c, m_c, o_c), (l_d, m_d, o_d) = got["cpu"], got[DEVICE + ":0"]
+    r_loss = float(((l_d - l_c).abs() / l_c.abs()).max())
+    r_grad = float((m_d - m_c).abs().max() / m_c.abs().max())
+    _, r_out = rel_err(o_d, o_c)
+    log(f"[14] one sharded step ({n_cand} x {n_mc} mesh, S = "
+        f"{SHARD_SAMPLES}) at {SIZE}^2, card vs CPU plain path: loss rel "
+        f"{r_loss:.2e}, mean gradient rel {r_grad:.2e}, EMA rel {r_out:.2e} "
+        f"(tolerances {TOL_STEP['loss']:.0e} / {TOL_STEP['grad']:.0e} / "
+        f"{TOL_STEP['out']:.0e})")
+    if not (r_loss <= TOL_STEP["loss"] and r_grad <= TOL_STEP["grad"]
+            and r_out <= TOL_STEP["out"]):
+        raise AssertionError("the card's sharded step disagrees with the "
+                             "CPU's")
+    return dict(loss_rel=r_loss, grad_rel=r_grad, out_rel=r_out)
+
+
+def sharded_step_on_card(den_iters_per_sec: float) -> dict:
+    """(b): the cand x mc step (parallel/sharding.py::
+    build_sharded_sweep_step) at bench.py's den widths (256^2, input depth
+    16, f32, lr 1e-3, jitter on), configs/bo_mfvi_den.json's first two
+    candidates, S = 2, on a (2 cand x 2 mc) mesh that names cuda:0 four
+    times: SHARD_STEPS steps as one CUDA graph and SHARD_STEPS eagerly
+    (``eager=True``) from the same state and generator seeds. Every loss,
+    parameter, moment, count and EMA equal bit for bit, every mc replica
+    equal to its lead after every step, every graph call a replay, the
+    launches exactly ``shard_step_launches`` per step run (the graph's
+    warm-up is one) in the captured step and over both runs, the entry
+    copies exactly ``shard_copies_per_step`` per step run; one step
+    against the CPU (``sharded_step_against_cpu``). Logs steps/s (graph,
+    eager), the first call's seconds and the peak allocated memory beside
+    one den fit's it/s (phase 3)."""
+    import numpy as np
+    import torch
+    import mfvi_dip_mia_tpu_torch.parallel.sharding as S
+    from mfvi_dip_mia_tpu_torch.utils.images import get_noise
+
+    problem = den_tail_problem()
+    _, methods = den_candidates(SHARD_SHAPE[0])
+    mesh = S.make_mesh(4, shape=SHARD_SHAPE, names=("cand", "mc"),
+                       devices=[DEVICE + ":0"] * 4)
+    hp = S.stack_hyperparams(methods, 1e-3)
+    z = torch.from_numpy(get_noise(16, SIZE, rng=np.random.default_rng(1))
+                         ).permute(0, 3, 1, 2).contiguous().to(DEVICE)
+    state0 = S.init_sweep_state(problem, "mfvi", SHARD_SHAPE[0], seed=1)
+    placement = S.sweep_placement(mesh)
+    s_local = SHARD_SAMPLES // SHARD_SHAPE[1]
+    runs = {}
+    for mode in ("graph", "eager"):
+        step, placed = S.build_sharded_sweep_step(
+            problem, "mfvi", SHARD_SAMPLES, mesh, eager=mode == "eager")
+        gens = [[torch.Generator(device=devs[s // s_local]).manual_seed(
+            100 * c + s) for s in range(SHARD_SAMPLES)]
+            for c, (_, devs) in enumerate(placement)]
+        runs[mode] = _sharded_run(step, _sweep_clone(state0), hp, gens, z)
+        runs[mode]["step"] = step
+    g, e = runs["graph"], runs["eager"]
+    gs, es = g["step"], e["step"]
+    per_step = shard_step_launches()
+    graph_launches = _named(gs.graph[1])
+    hold_step_launches("one replay of the sharded step", graph_launches, 1,
+                       per_step)
+    for mode, r in runs.items():
+        hold_step_launches(f"the {mode} sharded steps", r["launches"],
+                           r["step"].steps_run, per_step)
+    fields = ((g["state"].params.flat, e["state"].params.flat),
+              *zip(g["state"].opt_state, e["state"].opt_state),
+              (g["state"].out_avg, e["state"].out_avg),
+              (g["losses"], e["losses"]))
+    checks = dict(
+        graph_equals_eager=all(torch.equal(a, b) for a, b in fields),
+        replicas_equal=g["replicas_equal"] and e["replicas_equal"],
+        every_graph_call_a_replay=(gs.replays == SHARD_STEPS
+                                   and gs.steps_run == SHARD_STEPS + 1),
+        eager_no_graph=es.graph is None and es.steps_run == SHARD_STEPS,
+        copies=(gs.copies == gs.steps_run * shard_copies_per_step()
+                and es.copies == es.steps_run * shard_copies_per_step()
+                and gs.graph[2] == shard_copies_per_step()),
+        finite=bool(torch.isfinite(g["losses"]).all()),
+        placed=placed == {"device": problem.device, "cand": SHARD_SHAPE[0],
+                          "mc": SHARD_SHAPE[1]})
+    log(f"[14] sharded step, {SHARD_SHAPE[0]} cand x {SHARD_SHAPE[1]} mc on "
+        f"cuda:0 x 4, S = {SHARD_SAMPLES}, {SIZE}^2 den f32: graph "
+        f"{g['steps_per_sec']:.2f} steps/s ({g['steps_per_sec'] * SHARD_SHAPE[0]:.2f}"
+        f" candidate it/s), eager {e['steps_per_sec']:.2f} steps/s; first "
+        f"call (warm-up, capture, replay) {g['first_call_seconds']:.2f} s, "
+        f"eager {e['first_call_seconds']:.2f} s; peak allocated "
+        f"{g['peak_allocated_bytes'] / 2 ** 20:.1f} / "
+        f"{e['peak_allocated_bytes'] / 2 ** 20:.1f} MiB; one den fit "
+        f"{den_iters_per_sec:.2f} it/s (phase 3); launches per step "
+        f"{ {k: v for k, v in graph_launches.items() if v} }; copies per "
+        f"step {gs.graph[2]}; losses at step {SHARD_STEPS} "
+        f"{g['losses'][-1].tolist()}; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"the sharded step failed {checks}")
+    out = {mode: {k: v for k, v in r.items() if k not in ("state", "step")}
+           for mode, r in runs.items()}
+    for r in out.values():
+        r["losses"] = r["losses"].tolist()
+    out["launches_per_step"] = graph_launches
+    out["copies_per_step"] = gs.graph[2]
+    out["checks"] = checks
+    out["den_iters_per_sec"] = den_iters_per_sec
+    out["launches"] = g["launches"]
+    out["step_vs_cpu"] = sharded_step_against_cpu(problem, methods)
+    return out
+
+
+def entry_against_cpu() -> dict:
+    """(c): ``entry()``'s fn (the flagship MFVI net at 256^2: its loss nll +
+    1e-6 KL and output) on the card against the port's CPU path, with the
+    same parameters, input and RT draw (one table, drawn on the CPU): the
+    loss, the output and the gradient by the flat parameters at
+    TOL_STEP."""
+    import torch
+    import mfvi_dip_mia_tpu_torch.bayes.vi as vi
+    from mfvi_dip_mia_tpu_torch.entry import entry
+
+    fn_d, (params, x, gen_d) = entry(device=DEVICE)
+    fn_c, _ = entry(device="cpu")
+    table = torch.randn(params.n_var,
+                        generator=torch.Generator().manual_seed(12))
+    sample = vi.sample_mfvi_tree
+    got = {}
+
+    def fixed(p, generator=None, out_dtype=None, eps=None):
+        return sample(p, out_dtype=out_dtype, eps=table.to(p.flat.device))
+
+    vi.sample_mfvi_tree = fixed
+    try:
+        for fn, dev, gen in ((fn_c, "cpu", torch.Generator()),
+                             (fn_d, DEVICE, gen_d)):
+            p = params.flat.detach().to(dev).requires_grad_(True)
+            loss, out = fn(params.with_flat(p), x.to(dev), gen)
+            loss.backward()
+            got[dev] = (loss.detach().cpu(), out.detach().cpu(),
+                        p.grad.cpu())
+    finally:
+        vi.sample_mfvi_tree = sample
+    (l_c, o_c, g_c), (l_d, o_d, g_d) = got["cpu"], got[DEVICE]
+    r_loss = abs(float(l_d - l_c)) / abs(float(l_c))
+    _, r_out = rel_err(o_d, o_c)
+    r_grad = float((g_d - g_c).abs().max() / g_c.abs().max())
+    log(f"[14] entry() at {SIZE}^2, card vs CPU plain path: loss "
+        f"{float(l_d):.6f} / {float(l_c):.6f} (rel {r_loss:.2e}), output "
+        f"rel {r_out:.2e}, gradient rel {r_grad:.2e}")
+    if not (r_loss <= TOL_STEP["loss"] and r_out <= TOL_STEP["out"]
+            and r_grad <= TOL_STEP["grad"]):
+        raise AssertionError("entry()'s fn on the card disagrees with the "
+                             "CPU's")
+    return dict(loss_rel=r_loss, out_rel=r_out, grad_rel=r_grad)
+
+
+def dryrun_on_card() -> dict:
+    """(a): ``dryrun_multichip(DRYRUN_ENTRIES)`` with its default devices,
+    cuda:0 .. cuda:7 folded onto the one card: the (4 cand x 2 mc) step
+    as a CUDA graph on 64^2, two steps, then ``run_sweep_spmd`` of 4
+    candidates over cuda:0 x 4. Its two lines are logged; it raises on a
+    failed check."""
+    import io
+    from mfvi_dip_mia_tpu_torch.entry import dryrun_multichip
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        dryrun_multichip(DRYRUN_ENTRIES)
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        log(f"[14] {line}")
+    if len(lines) != 2:
+        raise AssertionError(f"the dry run printed {lines}")
+    return dict(lines=lines, seconds=time.perf_counter() - t0)
+
+
+def sharded_phase(den_iters_per_sec: float) -> dict:
+    """Phase 14: (a) the dry run, (b) the sharded step graph against eager
+    and against the CPU, (c) ``entry()`` against the CPU, each timed by
+    ``PhaseTimer``. Returns the phase's results, with "launches" those of
+    (b)'s graph steps."""
+    from mfvi_dip_mia_tpu_torch.utils.profiling import PhaseTimer
+
+    t0 = time.perf_counter()
+    timer = PhaseTimer()
+    out = {}
+    with timer.phase("dry run", sync=True):
+        out["dryrun"] = dryrun_on_card()
+    with timer.phase("sharded step", sync=True):
+        out["step"] = sharded_step_on_card(den_iters_per_sec)
+    with timer.phase("entry", sync=True):
+        out["entry"] = entry_against_cpu()
+    out["launches"] = out["step"]["launches"]
+    out["timer"] = timer.summary()
+    out["seconds"] = time.perf_counter() - t0
+    log("[14] parts: " + ", ".join(f"{k} {v['total_s']:.1f} s"
+                                   for k, v in out["timer"].items()))
+    log(f"[14] phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -5541,6 +5885,8 @@ def main(argv=None) -> int:
         fits["sp"] = sp_phase()
     with timer.phase("13 threads", sync=True):
         fits["threads"] = threads_phase()
+    with timer.phase("14 sharded step", sync=True):
+        fits["sharded"] = sharded_phase(fits["den"]["iters_per_sec"])
 
     line = []
     for k in kernels.KERNELS:
@@ -5560,7 +5906,7 @@ def main(argv=None) -> int:
                               for p in ("ct", "den", "lrt_den", "dense_ct",
                                         "bo_ct", "sr", "inp", "tail",
                                         "lib", "parallel", "sp",
-                                        "threads")},
+                                        "threads", "sharded")},
             max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],

@@ -16,10 +16,16 @@ torch devices with axis names, and the one program becomes CUDA graphs:
     bits of its sequential ``fit``. The candidates' weights are never
     batched into one grouped conv (sharding.py:298). Blocks on different
     cards replay on each card's current stream in turn.
-  * ``build_sharded_sweep_step`` — the cand x mc ELBO step that averages S
-    stochastic forwards per candidate; on one device the ``mc`` axis runs
-    its samples one after another and the mean of the losses, gradients
-    and outputs takes the place of JAX's ``pmean``.
+  * ``build_sharded_sweep_step`` / ``sweep_placement`` — the cand x mc
+    ELBO step that averages S stochastic forwards per candidate, placed as
+    JAX's shard_map places it: each (cand, mc) entry of the mesh holds a
+    replica of its candidate's state and runs its block of samples on its
+    own device; the blocks' losses, gradients and output means are copied
+    to the candidate's lead entry, averaged there (JAX's ``pmean``) and
+    copied back, and every entry updates its own replica. On a mesh that
+    names one card several times the step is one CUDA graph, which runs
+    every copy that as many cards would; over several cards it runs
+    eagerly, and no run has yet made its copies between distinct cards.
 
   * ``fit_sp`` / ``sp_shardings`` — one fit split by image rows over the
     mesh's ``sp`` axis. GSPMD's partitioning is spelled out in nn/sp.py:
@@ -30,12 +36,13 @@ torch devices with axis names, and the one program becomes CUDA graphs:
     On a mesh that names one card several times the split step is one CUDA
     graph, as ``fit``'s; over several cards it runs eagerly.
 
-The sharded step is not ported on a mesh that spans several devices
-(ROADMAP Queue 1 item 10).
+Across distinct cards none of these has run yet (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -50,7 +57,9 @@ from ..tasks.problems import problem_on
 from ..tasks.trainer import (EXP_WEIGHT, N_OUT, HyperParams, Method,
                              StepState, capture_steps, init_params,
                              prepare_fit)
+from ..utils import compile_guard
 from ..utils.device import local_cards, resolve_device
+from ..utils.graphs import capture, capture_stream
 
 
 class Mesh(NamedTuple):
@@ -175,90 +184,322 @@ def stack_hyperparams(methods, lr: float) -> HyperParams:
     return HyperParams(*zip(*(HyperParams.of(m, lr) for m in methods)))
 
 
-def build_sharded_sweep_step(problem, method_name: str, n_samples: int,
-                             mesh: Mesh, reparam: str = "rt"):
-    """One training step of C candidates x S MC samples
-    (sharding.py:75-171): ``step(state, hp_stack, generators, z, it) ->
-    (state, losses)``, the state updated in place. ``generators`` is C
-    lists of S torch generators; C must be the mesh's ``cand`` size and S a
-    multiple of its ``mc`` size. The S samples split into one block per
-    ``mc`` entry; a block's input jitter comes from its first generator
-    (the JAX step's ``keys_local[0]``), each sample's RT weights and
-    dropout masks from its own. Per candidate the block losses (+ temp x
-    KL under mfvi) and outputs are averaged over the blocks, the gradient
-    is that mean's, then AdamW at the candidate's lr and weight decay
-    (JAX's ``_build_optimizer(Method(name), 1e-3)`` with both injected: its
-    analytic KL term has temperature 0, so the flat AdamW without it), the
-    NaN guard and the EMA. ``n_samples`` is taken as JAX's is, and unused.
-    Returns (step, {"device", "cand", "mc"}). Every mesh entry must be the
-    problem's device: a mesh over several devices is not ported (ROADMAP
-    Queue 1 item 10)."""
-    if set(mesh.devices.reshape(-1)) != {problem.device}:
-        raise NotImplementedError(
-            "build_sharded_sweep_step runs on one device (every mesh entry "
-            f"{problem.device}); a mesh over several devices is not ported "
-            "(ROADMAP Queue 1 item 10)")
-    n_cand = mesh.shape["cand"]
-    n_mc = mesh.shape.get("mc", 1)
-    is_mfvi = method_name == "mfvi"
-    noise_std = T.REG_NOISE_STD
+def sweep_placement(mesh: Mesh) -> list:
+    """Where the cand x mc step puts each candidate (sharding.py:146-156):
+    ``[(lead, [its mc entries' devices])]``, one pair per entry of the
+    mesh's ``cand`` axis, the entries in ``mc`` order and ``lead`` the
+    first of them. Candidate c's state and hyperparameters sit on every
+    device of its list, as ``P("cand")`` replicates a (C, ...) stack over
+    ``mc``; sample key (c, s) of a (C, S) stack on entry s // (S / n_mc),
+    as ``P("cand", "mc")`` splits it. A pure function of the mesh: its
+    entries are read as they stand (a mesh of ``torch.device("cuda", i)``
+    objects is planned without a card). A mesh without an ``mc`` axis has
+    one entry a candidate."""
+    if "cand" not in mesh.axis_names or not set(mesh.axis_names) <= {
+            "cand", "mc"}:
+        raise ValueError(f"a cand x mc step needs a 'cand' axis and at most "
+                         f"an 'mc' one, not {mesh.axis_names}")
+    d = np.moveaxis(mesh.devices, mesh.axis_names.index("cand"), 0)
+    d = d.reshape(d.shape[0], -1)
+    return [(row[0], list(row)) for row in d]
 
-    def per_candidate(params: vi.FlatParams, hp: HyperParams, gens, z):
-        p = params.flat.detach().requires_grad_(True)
-        at = params.with_flat(p)
-        s_local = len(gens) // n_mc
-        block_losses, block_outs = [], []
-        for b in range(n_mc):
-            mine = gens[b * s_local:(b + 1) * s_local]
-            x = z
-            if noise_std:
-                x = z + noise_std * torch.randn(z.shape, generator=mine[0],
-                                                device=z.device)
-            losses, outs = [], []
-            for gen in mine:
-                leaves = (vi.sample_mfvi_tree(at, gen)
-                          if is_mfvi and reparam != "lrt" else at.leaves())
-                out = problem.net(leaves, x, gen, reparam=reparam,
-                                  dropout_p=(hp.dropout_p
-                                             if method_name == "mcd"
-                                             else None)).float()
-                losses.append(problem.data_loss(out))
-                outs.append(out)
-            loss = torch.stack(losses).mean()
-            if is_mfvi:
-                loss = loss + hp.temp * vi.kl_mfvi(at, 0.0, hp.prior_sigma)
-            block_losses.append(loss)
-            block_outs.append(torch.stack(outs).mean(dim=0))
-        loss = torch.stack(block_losses).mean()
-        loss.backward()
-        return loss.detach(), p.grad, torch.stack(block_outs).mean(dim=0)
 
-    def step(state: SweepState, hp_stack: HyperParams, generators, z, it):
-        if len(generators) != n_cand or len(generators[0]) % n_mc:
+def _indexed(device: torch.device) -> torch.device:
+    """``device`` as one spelling: a card with its ordinal (a bare "cuda"
+    is the current card), the CPU without one."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu") if device.type == "cpu" else device
+
+
+def _on(device: torch.device):
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class Replica(NamedTuple):
+    """One mesh entry's copy of its candidate's training state."""
+    flat: torch.Tensor         # (n,) the [mu | rho | det] parameters
+    m: torch.Tensor            # AdamW's moments
+    v: torch.Tensor
+    count: torch.Tensor        # () int32
+    out_avg: torch.Tensor      # (1, n_out, H, W) the EMA
+
+    def clone(self) -> "Replica":
+        return Replica(*(t.clone() for t in self))
+
+
+class ShardedSweepStep:
+    """The cand x mc step that ``build_sharded_sweep_step`` returns:
+    ``step(state, hp_stack, generators, z, it) -> (state, losses)``.
+
+    Entry (c, b) of the mesh holds a ``Replica`` of candidate c, made once
+    on the entry's device from ``state``'s row c on the first call, and
+    runs block b of the candidate's samples there: the input jitter from
+    the block's first generator (the JAX step's ``keys_local[0]``), each
+    sample's RT weights and dropout masks from its own generator, the
+    block's loss (mean over its samples, + temp x KL under mfvi) and its
+    gradient, and the mean of its outputs. Each entry packs (loss,
+    gradient, output mean) into one vector, which is copied into row b of
+    an (n_mc, ...) buffer on the candidate's lead entry; the lead takes
+    the mean over the rows (JAX's one ``pmean`` over ``mc``,
+    sharding.py:123-125) and copies it to every other entry of the
+    candidate. Then each entry runs, on its own replica, AdamW at the
+    candidate's lr and weight decay, the NaN guard and the EMA (seeded at
+    iteration 0: a ``torch.where`` on the iteration, held on each device),
+    as each JAX slice does; the replicas stay bit-equal. After the step
+    the mc-0 replicas are written back into ``state``.
+
+    Every copy between two entries goes through ``_to_entry``: a
+    ``copy_`` into a buffer made with the replicas, also when both entries
+    name one device, so a mesh that names one card four times runs every
+    copy that four cards would: 2 C (n_mc - 1) a step (``copies``
+    counts what ran, as the kernels' launch counters do: a graph's once
+    per replay, its eager warm-up's as a step run). No run has yet made these
+    copies between distinct cards (ROADMAP Queue 1 item 10).
+
+    When every entry names one card (and not ``eager``), the first call
+    warms the step up eagerly on a copy of the replicas (on the thread's
+    capture stream, holding the compile lock; the generators then reset)
+    and captures it as one CUDA graph with every generator registered,
+    the counterpart of JAX's ``@jax.jit``; every call replays it. The
+    graph holds the first call's state, generators, ``z`` and
+    hyperparameters: another of these in a later call raises ValueError.
+    ``eager=True`` runs the same step without a graph and gives the same
+    bits. Over several devices the step runs eagerly, as ``fit_sp`` does.
+    Nothing is read back to the host inside a step."""
+
+    def __init__(self, problem, method_name: str, mesh: Mesh, reparam: str,
+                 eager: bool):
+        self.placement = [(_indexed(lead), [_indexed(d) for d in devs])
+                          for lead, devs in sweep_placement(mesh)]
+        self.n_cand = len(self.placement)
+        self.n_mc = len(self.placement[0][1])
+        self.device = problem.device
+        self.method_name = method_name
+        self.reparam = reparam
+        self.noise_std = T.REG_NOISE_STD
+        entries = {d for _, devs in self.placement for d in devs}
+        self.problems = {d: problem_on(problem, d) for d in entries}
+        self.card = self.placement[0][0]
+        self.graphed = (not eager and len(entries) == 1
+                        and self.card.type == "cuda")
+        layout = vi.flatten(init_params(problem, Method(method_name), 0))
+        self.layout = layout.with_flat(None)
+        self.n = n = layout.flat.numel()
+        h, w = problem.imsize
+        self.out_shape = (1, N_OUT[problem.task], h, w)
+        width = 1 + n + math.prod(self.out_shape)
+        # the lead's (n_mc, width) rows, and each other entry's send and
+        # receive vectors
+        self.gather = [torch.empty((self.n_mc, width), device=lead)
+                       for lead, _ in self.placement]
+        self.send = [[torch.empty(width, device=d) for d in devs[1:]]
+                     for _, devs in self.placement]
+        self.recv = [[torch.empty(width, device=d) for d in devs[1:]]
+                     for _, devs in self.placement]
+        self.its = {d: torch.zeros(1, dtype=torch.int64, device=d)
+                    for d in entries}
+        self.replicas = None       # [c][b] Replica, made on the first call
+        self.bound = None          # (state, generators, z, hp_stack)
+        self.graph = None          # (graph, launches, copies, means)
+        self.copies = 0            # entry copies that ran
+        self.steps_run = 0         # calls, plus the graph's warm-up
+        self.replays = 0
+
+    def _to_entry(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """The one copy between two mesh entries (a peer copy between two
+        cards)."""
+        dst.copy_(src)
+        self.copies += 1
+
+    def _check(self, state: SweepState, hp_stack, generators, z) -> None:
+        if len(generators) != self.n_cand or len(generators[0]) % self.n_mc:
             raise ValueError(f"{len(generators)} x {len(generators[0])} "
-                             f"generators for a {n_cand} x {n_mc} mesh")
-        count, m, v = state.opt_state
-        losses = []
-        for c in range(n_cand):
-            hp = HyperParams(*(f[c] for f in hp_stack))
-            flat = state.params.flat[c]
-            loss, grad, out_mean = per_candidate(
-                state.params.with_flat(flat), hp, generators[c], z)
-            with torch.no_grad():
-                new = flat_adamw_update(flat, grad, m[c], v[c], count[c],
-                                        lr=hp.lr, n_var=state.params.n_var,
-                                        weight_decay=hp.weight_decay)
-                ok = torch.isfinite(loss)
-                for old, upd in zip((flat, m[c], v[c], count[c]), new):
-                    old.copy_(torch.where(ok, upd, old))
-                out_t = problem.transform(out_mean)
-                avg = state.out_avg[c]
-                avg.copy_(out_t if it == 0
-                          else avg * EXP_WEIGHT + out_t * (1.0 - EXP_WEIGHT))
-            losses.append(loss)
-        return state, torch.stack(losses)
+                             f"generators for a {self.n_cand} x {self.n_mc} "
+                             "mesh")
+        s_local = len(generators[0]) // self.n_mc
+        for (_, devs), gens in zip(self.placement, generators):
+            for s, gen in enumerate(gens):
+                entry = devs[s // s_local]
+                if _indexed(gen.device) != entry:
+                    raise ValueError(f"sample {s}'s generator lives on "
+                                     f"{gen.device}, its mesh entry on "
+                                     f"{entry}")
+        if self.bound is None:
+            return
+        if state.params.flat is not self.bound[0].params.flat:
+            raise ValueError("the step's replicas were made from another "
+                             "state: call it with the state of its first "
+                             "call")
+        if self.graph is not None and (
+                [list(g) for g in generators] != self.bound[1]
+                or z is not self.bound[2] or tuple(hp_stack) != self.bound[3]):
+            raise ValueError("the step's CUDA graph was captured with other "
+                             "generators, z or hyperparameters")
 
-    return step, {"device": problem.device, "cand": n_cand, "mc": n_mc}
+    def _bind(self, state: SweepState, hp_stack, generators, z) -> None:
+        if self.graphed and _indexed(z.device) != self.card:
+            raise ValueError(f"z lives on {z.device}; the graph runs on "
+                             f"{self.card}")
+        count, m, v = state.opt_state
+        self.replicas = [[Replica(*(t[c].to(d, copy=True) for t in (
+            state.params.flat, m, v, count, state.out_avg))) for d in devs]
+            for c, (_, devs) in enumerate(self.placement)]
+        self.bound = (state, [list(g) for g in generators], z,
+                      tuple(hp_stack))
+
+    def _run(self, replicas, hp_stack, generators, zs) -> list:
+        """One step's device work on ``replicas``: each candidate's (loss,
+        gradient, output mean) averaged over its mc entries, on its lead."""
+        n_mc, n = self.n_mc, self.n
+        s_local = len(generators[0]) // n_mc
+        is_mfvi = self.method_name == "mfvi"
+        means = []
+        for c, (_, devs) in enumerate(self.placement):
+            hp = HyperParams(*(f[c] for f in hp_stack))
+            for b, dev in enumerate(devs):
+                mine = generators[c][b * s_local:(b + 1) * s_local]
+                pack = self.gather[c][0] if b == 0 else self.send[c][b - 1]
+                with _on(dev):
+                    self._block(replicas[c][b], hp, mine, zs[dev],
+                                self.problems[dev], is_mfvi, pack)
+                if b:
+                    self._to_entry(pack, self.gather[c][b])
+            with _on(devs[0]):
+                mean = self.gather[c].mean(dim=0)
+            for b in range(1, n_mc):
+                self._to_entry(mean, self.recv[c][b - 1])
+            for b, dev in enumerate(devs):
+                red = mean if b == 0 else self.recv[c][b - 1]
+                with _on(dev), torch.no_grad():
+                    self._update(replicas[c][b], hp, red, n,
+                                 self.problems[dev], self.its[dev])
+            means.append(mean)
+        return means
+
+    def _block(self, rep: Replica, hp: HyperParams, gens, z, problem,
+               is_mfvi: bool, pack: torch.Tensor) -> None:
+        """One entry's block of samples: (loss, gradient, output mean)
+        into ``pack``."""
+        p = rep.flat.detach().requires_grad_(True)
+        at = self.layout.with_flat(p)
+        x = z
+        if self.noise_std:
+            x = z + self.noise_std * torch.randn(z.shape, generator=gens[0],
+                                                 device=z.device)
+        losses, outs = [], []
+        for gen in gens:
+            leaves = (vi.sample_mfvi_tree(at, gen)
+                      if is_mfvi and self.reparam != "lrt" else at.leaves())
+            out = problem.net(leaves, x, gen, reparam=self.reparam,
+                              dropout_p=(hp.dropout_p
+                                         if self.method_name == "mcd"
+                                         else None)).float()
+            losses.append(problem.data_loss(out))
+            outs.append(out)
+        loss = torch.stack(losses).mean()
+        if is_mfvi:
+            loss = loss + hp.temp * vi.kl_mfvi(at, 0.0, hp.prior_sigma)
+        loss.backward()
+        with torch.no_grad():
+            torch.cat([loss.detach().reshape(1), p.grad,
+                       torch.stack(outs).mean(dim=0).reshape(-1)], out=pack)
+
+    def _update(self, rep: Replica, hp: HyperParams, red: torch.Tensor,
+                n: int, problem, it: torch.Tensor) -> None:
+        """AdamW, the NaN guard and the EMA of one replica from the mean
+        (loss, gradient, output mean) ``red``."""
+        loss, grad = red[0], red[1:1 + n]
+        new = flat_adamw_update(rep.flat, grad, rep.m, rep.v, rep.count,
+                                lr=hp.lr, n_var=self.layout.n_var,
+                                weight_decay=hp.weight_decay)
+        ok = torch.isfinite(loss)
+        for old, upd in zip(rep[:4], new):
+            old.copy_(torch.where(ok, upd, old))
+        out_t = problem.transform(red[1 + n:].view(self.out_shape))
+        rep.out_avg.copy_(torch.where(
+            it == 0, out_t,
+            rep.out_avg * EXP_WEIGHT + out_t * (1.0 - EXP_WEIGHT)))
+
+    def _capture(self, hp_stack, generators, zs) -> None:
+        """Warm the step up on a copy of the replicas, reset the generators,
+        and capture it (trainer.py::capture_steps' order)."""
+        gens = [g for row in generators for g in row]
+        side = capture_stream(self.card)
+        with compile_guard.LOCK:
+            side.wait_stream(torch.cuda.current_stream(self.card))
+            starts = [g.get_state() for g in gens]
+            with torch.cuda.stream(side):
+                scratch = [[r.clone() for r in row] for row in self.replicas]
+                self._run(scratch, hp_stack, generators, zs)
+            torch.cuda.current_stream(self.card).wait_stream(side)
+            del scratch
+            for g, start in zip(gens, starts):
+                g.set_state(start)
+            self.steps_run += 1
+            copies = self.copies
+            graph, launches, means = capture(
+                lambda: self._run(self.replicas, hp_stack, generators, zs),
+                gens, side)
+            per_replay, self.copies = self.copies - copies, copies
+        self.graph = (graph, launches, per_replay, means)
+
+    def __call__(self, state: SweepState, hp_stack: HyperParams, generators,
+                 z: torch.Tensor, it: int):
+        self._check(state, hp_stack, generators, z)
+        if self.bound is None:
+            self._bind(state, hp_stack, generators, z)
+        for t in self.its.values():
+            t.fill_(it)
+        zs = {d: z.to(d) for d in self.its}
+        self.steps_run += 1
+        if not self.graphed:
+            means = self._run(self.replicas, hp_stack, generators, zs)
+        else:
+            if self.graph is None:
+                self._capture(hp_stack, generators, zs)
+            graph, launches, copies, means = self.graph
+            with _on(self.card):
+                graph.replay()
+            kernels.add_counts(launches)
+            self.copies += copies
+            self.replays += 1
+        count, m, v = state.opt_state
+        with torch.no_grad():
+            for c, row in enumerate(self.replicas):
+                lead = row[0]
+                for dst, src in ((state.params.flat[c], lead.flat),
+                                 (m[c], lead.m), (v[c], lead.v),
+                                 (count[c], lead.count),
+                                 (state.out_avg[c], lead.out_avg)):
+                    dst.copy_(src)
+            losses = torch.stack([mean[0].to(self.device) for mean in means])
+        return state, losses
+
+
+def build_sharded_sweep_step(problem, method_name: str, n_samples: int,
+                             mesh: Mesh, reparam: str = "rt", *,
+                             eager: bool = False):
+    """One training step of C candidates x S MC samples over ``mesh``
+    (sharding.py:75-171): ``step(state, hp_stack, generators, z, it) ->
+    (state, losses)``, ``state`` (``init_sweep_state``'s, on the problem's
+    device) updated in place, ``losses`` (C,) there. ``generators`` is C
+    lists of S torch generators, sample s's on the device of its mesh entry
+    (``sweep_placement``; else ValueError naming both); C must be the
+    mesh's ``cand`` size and S a multiple of its ``mc`` size. Per
+    candidate the mc entries' block losses (+ temp x KL under mfvi),
+    gradients and output means are averaged, then AdamW at the candidate's
+    lr and weight decay (JAX's ``_build_optimizer(Method(name), 1e-3)``
+    with both injected: its analytic KL term has temperature 0, so the
+    flat AdamW without it), the NaN guard and the EMA; ``ShardedSweepStep``
+    says how the entries run and copy, and when the step is a CUDA graph.
+    The problem moves to each entry's device once (``problem_on``).
+    ``n_samples`` is taken as JAX's is, and unused. Returns (step,
+    {"device", "cand", "mc"})."""
+    step = ShardedSweepStep(problem, method_name, mesh, reparam, eager)
+    return step, {"device": problem.device, "cand": step.n_cand,
+                  "mc": step.n_mc}
 
 
 def _blocks(n_cand: int, mesh: Mesh) -> list:

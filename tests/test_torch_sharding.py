@@ -214,13 +214,6 @@ def test_sharded_sweep_step_lockstep_against_jax(monkeypatch):
     assert int(state_t.opt_state[0][0]) == n_steps
 
 
-def test_sharded_sweep_step_on_one_device_only():
-    _, problem = _den_problems()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        TS.build_sharded_sweep_step(problem, "mfvi", 1, TS.make_mesh(
-            2, names=("cand",), devices=["cpu", torch.device("meta")]))
-
-
 def test_run_candidates_spmd_route(monkeypatch):
     """use_spmd=True (no runner) runs the mesh program: the scores of
     run_sweep_spmd on build_problem's problem; a given runner ignores it."""
