@@ -16,6 +16,7 @@ from ..nn.var_conv import REPARAMS
 from ..ops import kernels
 from ..utils import compile_guard
 from ..utils.graphs import capture, capture_stream
+from ..utils.profiling import TRACER
 from . import vi
 
 
@@ -67,9 +68,9 @@ def _replayed(one, generator: torch.Generator, n_samples: int,
     before the next; the graph and its memory pool are released on return.
     Kernel launches are counted once per replay (ops/kernels). The warm
     sample and the capture hold the compile lock (utils/compile_guard.py),
-    as a fit's do."""
+    as a fit's do, inside a ``capture`` span (utils/profiling.py)."""
     side = capture_stream(device)
-    with compile_guard.LOCK:
+    with TRACER.span("capture"), compile_guard.held():
         side.wait_stream(torch.cuda.current_stream(device))
         start = generator.get_state()
         with torch.cuda.stream(side):

@@ -60,6 +60,7 @@ from ..tasks.trainer import (EXP_WEIGHT, N_OUT, HyperParams, Method,
 from ..utils import compile_guard
 from ..utils.device import local_cards, resolve_device
 from ..utils.graphs import capture, capture_stream
+from ..utils.profiling import TRACER
 
 
 class Mesh(NamedTuple):
@@ -424,10 +425,11 @@ class ShardedSweepStep:
 
     def _capture(self, hp_stack, generators, zs) -> None:
         """Warm the step up on a copy of the replicas, reset the generators,
-        and capture it (trainer.py::capture_steps' order)."""
+        and capture it (trainer.py::capture_steps' order), as a ``capture``
+        span (utils/profiling.py)."""
         gens = [g for row in generators for g in row]
         side = capture_stream(self.card)
-        with compile_guard.LOCK:
+        with TRACER.span("capture"), compile_guard.held():
             side.wait_stream(torch.cuda.current_stream(self.card))
             starts = [g.get_state() for g in gens]
             with torch.cuda.stream(side):

@@ -206,7 +206,7 @@ def run_group_interleaved(task: str, method_name: str, candidates,
                           chunk_iters=None, early_stop=None,
                           compute_dtype=None, plot: bool = False,
                           save: bool = False, save_path: str = "./logs",
-                          **kwargs) -> list:
+                          log_fn=None, **kwargs) -> list:
     """Several same-method BO candidates on one device (default: the card)
     through ``fit_interleaved`` (runners.py:213-289). Each candidate's
     problem is built from its own ``default_rng(seed)``, so each fit's net
@@ -215,7 +215,8 @@ def run_group_interleaved(task: str, method_name: str, candidates,
     (NaN where a fit diverged). No MC summary runs. With ``plot`` / ``save``
     each candidate gets a ``{time}_{i}`` directory with ``locals.txt``
     (``interleaved=True``), ``save.npz`` without the MC summary's keys
-    (``save``) and the loss plot (``plot``). Other keywords of the config's
+    (``save``) and the loss plot (``plot``). ``log_fn(j, i, row)`` is
+    ``fit_interleaved``'s per-chunk hook. Other keywords of the config's
     run_params (``layout``, ``index``, ...) are taken and change nothing."""
     from ..parallel.fanout import candidate_kwargs
     from ..utils import viz
@@ -236,7 +237,7 @@ def run_group_interleaved(task: str, method_name: str, candidates,
             problem, methods, num_iter=num_iter, lr=lr, seed=seed, rngs=rngs,
             show_every=show_every, metrics_every=metrics_every,
             chunk_iters=chunk_iters, device=dev, early_stop=early_stop,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, log_fn=log_fn)
 
     if plot or save:
         for i, (cand, res) in enumerate(zip(candidates, results)):

@@ -51,16 +51,23 @@ write a checkpoint (every StepState tensor, the generator's state, the host
 rows and snapshots) and resume from one before it captures, and an opt-in
 early stop decides on the rows the host has read (trainer.py:557-579).
 ``fit_interleaved`` runs K fits of one problem on one card, each its own
-pair of graphs replayed chunk by chunk in turn, each giving the bits of
+graphs replayed chunk by chunk in turn, each giving the bits of
 its sequential ``fit``; ``capture_steps`` captures several fits' steps
 back to back as one graph per variant (parallel/sharding.py's blocks).
+A fit records spans (utils/profiling.py::TRACER, on by default) of its
+preparation, capture and chunks. With tracing on, each chunk's span
+carries the device time of its replays and, from the step's ``Marks``, of
+one replay's regions (``STEP_REGIONS``): a third graph, the step with its
+metric row and the marks, replays a chunk's last metric iteration, so the
+two graphs that replay the rest record no mark.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-import time
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -75,12 +82,29 @@ from ..utils import images as I
 from ..utils import compile_guard
 from ..utils.device import resolve_device
 from ..utils.graphs import capture, capture_stream
+from ..utils.profiling import TRACER, Marks
 from .problems import METHODS, Problem, reinit_conv_weights_normal
 
 MC_RING = 25
 EXP_WEIGHT = 0.99
 REG_NOISE_STD = 0.1
 N_OUT = {"ct": 1, "den": 2, "sr": 2, "inp": 4}   # the net's output channels
+# the step's regions, in order, between the six boundaries its Marks time
+STEP_REGIONS = ("draw", "forward", "backward", "update", "tail")
+MARKED = "marked"   # capture_step's key of the step with its metric row and
+                    # marks
+_MARKING = threading.local()   # .on: the step records its marks
+
+
+@contextlib.contextmanager
+def _marking():
+    """The steps this thread runs or captures in the block record their
+    marks."""
+    _MARKING.on = True
+    try:
+        yield
+    finally:
+        _MARKING.on = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,20 +232,32 @@ class Prepared(NamedTuple):
     net_input: np.ndarray          # the fixed DIP input (1, H, W, D)
     generator: torch.Generator     # the fit's random stream
     split: Optional[RowSplit] = None   # the net's row split, if any
+    marks: Optional[Marks] = None  # the step's region boundaries (tracing on)
 
 
 def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
               gen: torch.Generator, hp: HyperParams, dtype: torch.dtype,
               reparam: str, method_name: str,
-              split: Optional[RowSplit] = None) -> Callable:
-    """The fit's step: ``step(state, with_metrics)`` runs one iteration of
-    ``method_name`` on ``state`` in place (the one at ``state.it``) and
-    writes its metric row when ``with_metrics``. It reads nothing back to
-    the host, so the same calls can be captured as a CUDA graph: whatever
-    it needs besides the state (sgld's kernel positions and decay
-    constants) is made here, before any capture. ``split`` runs the net
-    row-split (nn/skip.py's ``split``); its input jitter is drawn whole and
-    its output gathered, so everything else is the unsplit step's."""
+              split: Optional[RowSplit] = None) -> tuple:
+    """The fit's step and its marks: ``step(state, with_metrics)`` runs one
+    iteration of ``method_name`` on ``state`` in place (the one at
+    ``state.it``) and writes its metric row when ``with_metrics``. It reads
+    nothing back to the host, so the same calls can be captured as a CUDA
+    graph: whatever it needs besides the state (sgld's kernel positions and
+    decay constants, the marks' events) is made here, before any capture.
+    ``split`` runs the net row-split (nn/skip.py's ``split``); its input
+    jitter is drawn whole and its output gathered, so everything else is
+    the unsplit step's.
+
+    With tracing on (utils/profiling.py::TRACER) the step has six
+    boundaries of ``marks`` (a ``Marks`` over ``STEP_REGIONS``): draw (the
+    jitter, sgld's noise, the RT draw, the casts), forward (the net, the
+    data loss, the MC KL), backward, update (the KL, the guard's test, the
+    flat AdamW, the guard's copies) and tail (the transform, the EMA, the
+    rings, the metric row, the iteration index). It records them only when
+    run or captured inside ``_marking()``: on the card each is an event on
+    the stream, which a capture records into the graph (``MARKED``). With
+    tracing off ``marks`` is None and the step records nothing."""
     if method_name not in METHODS:
         raise ValueError(f"unknown method {method_name!r}")
     h, w = problem.imsize
@@ -239,8 +275,14 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
     decay = (sgld.DecayedLR(hp.lr, hp.gamma, z.device)
              if is_sgld and problem.task != "ct" else None)
     net_kw = {} if split is None else {"split": split}
+    marks = Marks(STEP_REGIONS, z.device) if TRACER.enabled else None
+
+    def mark(k: int) -> None:
+        if marks is not None and getattr(_MARKING, "on", False):
+            marks.mark(k)
 
     def step(s: StepState, with_metrics: bool) -> None:
+        mark(0)
         x = z
         if noise_std:
             x = z + noise_std * torch.randn(z.shape, generator=gen,
@@ -259,6 +301,7 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
         if low is not None:
             leaves = {k: t.to(dtype) for k, t in leaves.items()}
             x = x.to(dtype)
+        mark(1)
         out = problem.net(leaves, x, gen, reparam=reparam,
                           dropout_p=dropout_p, **net_kw).float()
         loss = problem.data_loss(out)
@@ -266,7 +309,9 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
             # the MC KL's gradient through autograd, none from the AdamW
             loss = loss + hp.temp * vi.kl_mfvi_mc(params.with_flat(p), gen,
                                                   mix)
+        mark(2)
         loss.backward()
+        mark(3)
         with torch.no_grad():
             if is_mfvi and mix is None:
                 kl = vi.kl_mfvi(params.with_flat(s.flat), 0.0,
@@ -282,6 +327,7 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
                 use_kl=is_mfvi and mix is None)
             for old, upd in zip((s.flat, s.m, s.v, s.count), new):
                 old.copy_(torch.where(ok, upd, old))
+            mark(4)
 
             out_t = problem.transform(out)
             s.out_avg.copy_(torch.where(
@@ -298,8 +344,9 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
                 s.rows.index_copy_(
                     0, s.it, problem.metrics(out_t, s.out_avg)[None])
             s.it.add_(1)
+        mark(5)
 
-    return step
+    return step, marks
 
 
 def prepare_fit(problem: Problem, method: Method, *, iterations: int,
@@ -344,24 +391,28 @@ def prepare_fit(problem: Problem, method: Method, *, iterations: int,
         if split.first != flat.device:
             raise ValueError(f"the state lives on {flat.device}, the split's "
                              f"first shard on {split.first}")
-    step = make_step(problem, params, z, gen, HyperParams.of(method, lr),
-                     dtype, reparam, method.name, split)
-    return Prepared(step, state, params, z_np, gen, split)
+    step, marks = make_step(problem, params, z, gen,
+                            HyperParams.of(method, lr), dtype, reparam,
+                            method.name, split)
+    return Prepared(step, state, params, z_np, gen, split, marks)
 
 
 def capture_step(step: Callable, state: StepState,
                  gen: torch.Generator) -> dict:
     """``step``'s two variants captured as CUDA graphs on ``state``:
-    {with_metrics: (graph, the kernel launches one replay makes)}
-    (``capture_steps`` of one fit)."""
-    return capture_steps([(step, state, gen)])
+    {with_metrics: (graph, the kernel launches one replay makes)}, and with
+    tracing on a third, ``MARKED`` (``capture_steps`` of one fit)."""
+    return capture_steps([(step, state, gen)], marked=TRACER.enabled)
 
 
-def capture_steps(fits: list) -> dict:
+def capture_steps(fits: list, marked: bool = False) -> dict:
     """The steps of ``fits`` (a list of (step, state, generator) on one
     card) captured back to back as one CUDA graph per variant, so that one
     replay advances every fit by one iteration: {with_metrics: (graph, the
-    kernel launches one replay makes)}.
+    kernel launches one replay makes)}. ``marked`` adds the variant
+    ``MARKED``: the step with its metric row, recording its marks
+    (``make_step``), which a replay of it times; the launches are the
+    metric variant's.
 
     Each fit's two variants first run once eagerly on a copy of its state,
     on the capture's side stream: that builds the kernels, sets their
@@ -378,39 +429,55 @@ def capture_steps(fits: list) -> dict:
     (utils/compile_guard.py): fits on other threads capture one at a time,
     and replay meanwhile. The side stream is the thread's own
     (utils/graphs.py::capture_stream): inside ``own_stream`` the current
-    stream itself, where the graphs then replay."""
+    stream itself, where the graphs then replay. The wait for the lock,
+    the warm-up (until its work is done) and each variant's capture are
+    the spans ``lock_wait``, ``warmup`` and ``graph`` (utils/profiling.py),
+    children of the caller's innermost span."""
     dev = fits[0][1].flat.device
     side = capture_stream(dev)
-    with compile_guard.LOCK:
-        side.wait_stream(torch.cuda.current_stream(dev))
-        starts = [gen.get_state() for _, _, gen in fits]
-        with torch.cuda.stream(side):
-            for step, state, _ in fits:
-                scratch = state.clone()
-                # a fit resumed at its last chunk would write a row past the
-                # end
-                scratch.it.zero_()
-                for with_metrics in (False, True):
-                    step(scratch, with_metrics)
-        torch.cuda.current_stream(dev).wait_stream(side)
+    with compile_guard.held():
+        with TRACER.span("warmup"), \
+                (_marking() if marked else contextlib.nullcontext()):
+            # the marks' events are made in their first record, here
+            side.wait_stream(torch.cuda.current_stream(dev))
+            starts = [gen.get_state() for _, _, gen in fits]
+            with torch.cuda.stream(side):
+                for step, state, _ in fits:
+                    scratch = state.clone()
+                    # a fit resumed at its last chunk would write a row past
+                    # the end
+                    scratch.it.zero_()
+                    for with_metrics in (False, True):
+                        step(scratch, with_metrics)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            # the capture's start waits for the whole card anyway
+            side.synchronize()
         del scratch
         for (_, _, gen), start in zip(fits, starts):
             gen.set_state(start)
-        return {with_metrics: capture_variant(fits, side, with_metrics)
-                for with_metrics in (False, True)}
+        graphs = {with_metrics: capture_variant(fits, side, with_metrics)
+                  for with_metrics in (False, True)}
+        if marked:
+            with _marking():
+                graphs[MARKED] = capture_variant(fits, side, True)
+        return graphs
 
 
 def capture_variant(fits: list, stream: torch.cuda.Stream,
                     with_metrics: bool) -> tuple:
     """One variant of the steps of ``fits`` captured on ``stream``, one
-    after another: (graph, the kernel launches one replay makes). Every
-    fit's generator is registered with the graph, so each replay draws the
-    next numbers of each fit's stream, as the eager steps would."""
+    after another, as a ``graph`` span: (graph, the kernel launches one
+    replay makes). Every fit's generator is registered with the graph, so
+    each replay draws the next numbers of each fit's stream, as the eager
+    steps would. The caller holds the compile lock (``capture_steps``)."""
     def steps():
         for step, state, _ in fits:
             step(state, with_metrics)
 
-    graph, launches, _ = capture(steps, [gen for _, _, gen in fits], stream)
+    with TRACER.span("graph", with_metrics=with_metrics,
+                     marked=getattr(_MARKING, "on", False)):
+        graph, launches, _ = capture(steps, [gen for _, _, gen in fits],
+                                     stream)
     return graph, launches
 
 
@@ -478,6 +545,94 @@ def _sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
+def _advance(prep: Prepared, graphs: Optional[dict], with_metrics: bool,
+             marked: bool = False) -> int:
+    """One iteration of ``prep``'s fit: a replay of its graph of the
+    variant (``MARKED`` where ``marked``; its kernel launches counted), or
+    the eager step, recording its marks where ``marked``. Returns the
+    replays made."""
+    if graphs is None:
+        if marked:
+            with _marking():
+                prep.step(prep.state, with_metrics)
+        else:
+            prep.step(prep.state, with_metrics)
+        return 0
+    graph, launches = graphs[MARKED if marked else with_metrics]
+    graph.replay()
+    kernels.add_counts(launches)
+    return 1
+
+
+def _run_chunk(prep: Prepared, graphs: Optional[dict], start: int, end: int,
+               metrics_every: int, span, chunk_marks: Optional[Marks],
+               on_step: Optional[Callable] = None) -> int:
+    """Iterations ``start`` to ``end`` - 1 of ``prep``'s fit, their
+    ``replays`` into its ``chunk`` span. With tracing on, ``chunk_marks``
+    on the fit's stream before the first step and after the last, and the
+    chunk's last metric iteration (the span's ``marked``, None where the
+    chunk has none or the fit no ``MARKED`` graph) records the step's
+    marks. ``on_step(it)`` runs after each. Returns the replays made."""
+    marked = None
+    if chunk_marks is not None:
+        last = end - 1 - (end - 1) % metrics_every
+        if last >= start and (graphs is None or MARKED in graphs):
+            marked = last
+        span.attrs["marked"] = marked
+        chunk_marks.mark(0)
+    replays = 0
+    for it in range(start, end):
+        replays += _advance(prep, graphs, it % metrics_every == 0,
+                            it == marked)
+        if on_step is not None:
+            on_step(it)
+    if chunk_marks is not None:
+        chunk_marks.mark(1)
+    span.attrs["replays"] = replays
+    return replays
+
+
+def _read_rows(prep: Prepared, rows: np.ndarray, start: int, end: int,
+               span, chunk_marks: Optional[Marks]) -> None:
+    """The chunk's metric rows into ``rows``, which waits for its work;
+    with tracing on, the chunk's device ms between its marks
+    (``device_ms``) and the ``marked`` iteration's by ``STEP_REGIONS``
+    (``regions_ms``), on the marks' ``clock`` ('device': the card's events;
+    'host': host times, on the CPU), into ``span``."""
+    rows[start:end] = prep.state.rows[start:end].cpu().numpy()
+    if chunk_marks is not None:
+        span.attrs.update(clock=chunk_marks.clock,
+                          device_ms=chunk_marks.read()["chunk"])
+        if span.attrs["marked"] is not None:
+            span.attrs["regions_ms"] = prep.marks.read()
+
+
+def _chunk_marks(prep: Prepared, device: torch.device) -> Optional[Marks]:
+    return Marks(("chunk",), device) if prep.marks is not None else None
+
+
+def _clocks(starts: list, first_ends: list, ends: list,
+            steady_iters: int) -> dict:
+    """FitResult's clocks from span times (ns): ``compile_seconds`` from the
+    earliest of ``starts`` (the captures' starts, else the first chunks')
+    to the latest first chunk's end, ``wall_seconds`` to the latest last
+    chunk's end, and ``iters_per_sec``: ``steady_iters`` (those after the
+    first chunk) over the time between the two ends."""
+    t0, first, end = min(starts), max(first_ends), max(ends)
+    steady_s = (end - first) / 1e9
+    return dict(iters_per_sec=(steady_iters / steady_s
+                               if steady_iters > 0 and steady_s > 0 else 0.0),
+                compile_seconds=(first - t0) / 1e9,
+                wall_seconds=(end - t0) / 1e9)
+
+
+def _fit_attrs(method: Method, compute_dtype, seed: int) -> dict:
+    """A ``fit`` span's attributes before its preparation, which adds the
+    problem's task and device."""
+    return dict(method=method.name, temp=method.temp, sigma=method.sigma,
+                compute_dtype=str(compute_dtype), seed=seed)
+
+
 def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         seed: int = 42, show_every: int = 100,
         snapshot_fn: Optional[Callable] = None, device=None,
@@ -519,7 +674,16 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
     (``capture_step``); ``eager=True`` runs the step eagerly instead, with
     the same bits. A split over several cards runs eagerly, since a graph
     belongs to one device. The graphs and their memory are released on
-    return."""
+    return, and when a callback raises.
+
+    The fit is a ``fit`` span (utils/profiling.py::TRACER; attributes
+    task, method, temp, sigma, compute_dtype, device, seed, and the
+    ``executed`` iterations and ``replays`` so far) with the children
+    ``prepare``, ``capture`` (with ``capture_steps``' spans) and one
+    ``chunk`` per chunk (its ``first`` and ``last`` iteration and the
+    attributes of ``_run_chunk`` and ``_read_rows``), which ends before
+    ``snapshot_fn`` and ``log_fn`` run. ``iters_per_sec``,
+    ``compile_seconds`` and ``wall_seconds`` are read from these spans."""
     num_iter = num_iter + 1
     chunk = chunk_iters or show_every
     if collect_snapshots and chunk != show_every:
@@ -527,92 +691,103 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
             "chunk_iters must equal show_every when snapshots are collected; "
             "pass collect_snapshots=False (or plot=False, save=False via the "
             "runners) to use longer chunks")
-    prep = prepare_fit(problem, method, iterations=num_iter, lr=lr,
-                       seed=seed, rng=rng, device=device,
-                       compute_dtype=compute_dtype, reparam=reparam,
-                       shardings=shardings)
-    state, dev = prep.state, prep.state.flat.device
-    h, w = problem.imsize
-    mc = problem.mean_ch
+    with TRACER.span("fit", **_fit_attrs(method, compute_dtype,
+                                         seed)) as fit_span:
+        with TRACER.span("prepare"):
+            prep = prepare_fit(problem, method, iterations=num_iter, lr=lr,
+                               seed=seed, rng=rng, device=device,
+                               compute_dtype=compute_dtype, reparam=reparam,
+                               shardings=shardings)
+        state, dev = prep.state, prep.state.flat.device
+        fit_span.attrs.update(task=problem.task, device=str(dev))
+        h, w = problem.imsize
+        mc = problem.mean_ch
 
-    n_snaps = num_iter // show_every + 1
-    rows = np.full((num_iter, 8), np.nan)
-    recons = np.zeros((n_snaps, mc, h, w), np.float32)
-    unc_epi = np.zeros((n_snaps, mc, h, w), np.float32)
-    unc_ale = np.zeros((n_snaps, mc, h, w), np.float32)
-    # dip's uncertainty maps stay zero (trainer.py:725)
-    maps = method.name != "dip"
-    host = {"rows": rows, "recons": recons, "unc_epi": unc_epi,
-            "unc_ale": unc_ale}
-    n_chunks = -(-num_iter // chunk)
-    start_chunk = 0
-    if resume and checkpoint_path and os.path.isfile(checkpoint_path):
-        # before the capture: it resets the generator to where it finds it
-        start_chunk, saved = load_fit_checkpoint(checkpoint_path, state,
-                                                 prep.generator)
-        for name, dst in host.items():
-            dst[...] = saved[name]
+        n_snaps = num_iter // show_every + 1
+        rows = np.full((num_iter, 8), np.nan)
+        recons = np.zeros((n_snaps, mc, h, w), np.float32)
+        unc_epi = np.zeros((n_snaps, mc, h, w), np.float32)
+        unc_ale = np.zeros((n_snaps, mc, h, w), np.float32)
+        # dip's uncertainty maps stay zero (trainer.py:725)
+        maps = method.name != "dip"
+        host = {"rows": rows, "recons": recons, "unc_epi": unc_epi,
+                "unc_ale": unc_ale}
+        n_chunks = -(-num_iter // chunk)
+        start_chunk = 0
+        if resume and checkpoint_path and os.path.isfile(checkpoint_path):
+            # before the capture: it resets the generator to where it finds
+            # it
+            start_chunk, saved = load_fit_checkpoint(checkpoint_path, state,
+                                                     prep.generator)
+            for name, dst in host.items():
+                dst[...] = saved[name]
 
-    t0 = time.perf_counter()
-    graphs = (capture_step(prep.step, state, prep.generator)
-              if dev.type == "cuda" and not eager
-              and not (prep.split is not None and prep.split.spans_devices)
-              else None)
-    warmup_steps = 0 if graphs is None else len(graphs)   # one per variant
-    t_first = None
-    replays = 0
-    stop = _EarlyStop(early_stop) if early_stop else None
-    executed = num_iter
-    for s in range(start_chunk, n_chunks):
-        start = s * chunk
-        end = min(start + chunk, num_iter)
-        snaps = []
-        for it in range(start, end):
-            with_metrics = it % metrics_every == 0
-            if graphs is None:
-                prep.step(state, with_metrics)
-            else:
-                graph, launches = graphs[with_metrics]
-                graph.replay()
-                kernels.add_counts(launches)
-                replays += 1
-            if collect_snapshots and it % show_every == 0:
+        graphs, started = None, []
+        try:
+            if (dev.type == "cuda" and not eager
+                    and not (prep.split is not None
+                             and prep.split.spans_devices)):
+                with TRACER.span("capture") as capture_span:
+                    graphs = capture_step(prep.step, state, prep.generator)
+                started.append(capture_span.start_ns)
+            warmup_steps = 0 if graphs is None else 2  # per variant
+            chunk_marks = _chunk_marks(prep, dev)
+            stop = _EarlyStop(early_stop) if early_stop else None
+            executed = num_iter
+            replays = 0
+            chunks, snaps = [], []
+
+            def snapshot(it):
                 # the maps right after this iteration, read with the chunk
-                snaps.append((it, torch.clamp(state.out_avg[0, :mc], 0, 1),
-                              state.ring_epi.var(dim=0, unbiased=True)
-                              if maps else None,
-                              state.ring_ale.mean(dim=0)
-                              if maps and problem.has_ale else None))
-        rows[start:end] = state.rows[start:end].cpu().numpy()
-        for it, recon, epi, ale in snaps:
-            k = it // show_every
-            recons[k] = recon.cpu().numpy()
-            if epi is not None:
-                unc_epi[k] = epi.reshape(mc, h, w).cpu().numpy()
-            if ale is not None:
-                unc_ale[k] = ale.reshape(mc, h, w).cpu().numpy()
-            if snapshot_fn is not None:
-                snapshot_fn(it, recons[k], unc_epi[k], unc_ale[k])
-        if log_fn is not None:
-            log_fn(end - 1, rows[end - 1])
-        if t_first is None:
-            _sync(dev)
-            t_first = time.perf_counter()
-        if (checkpoint_path and s + 1 < n_chunks
-                and (s + 1) % checkpoint_every_chunks == 0):
-            save_fit_checkpoint(checkpoint_path, state, prep.generator, s + 1,
-                                host)
-        if stop is not None and stop.should_stop(rows[start:end, 4], start):
-            executed = end
-            rows[end:] = np.nan
-            break
+                if it % show_every == 0:
+                    snaps.append((
+                        it, torch.clamp(state.out_avg[0, :mc], 0, 1),
+                        state.ring_epi.var(dim=0, unbiased=True)
+                        if maps else None,
+                        state.ring_ale.mean(dim=0)
+                        if maps and problem.has_ale else None))
 
-    _sync(dev)
-    graphs = None                  # frees the graphs and their memory pools
-    total_s = time.perf_counter() - t0
-    first_iters = min(chunk, num_iter - start_chunk * chunk)
-    steady_iters = executed - start_chunk * chunk - first_iters
-    steady_s = time.perf_counter() - t_first
+            for s in range(start_chunk, n_chunks):
+                start = s * chunk
+                end = min(start + chunk, num_iter)
+                snaps.clear()
+                with TRACER.span("chunk", first=start, last=end - 1) as span:
+                    replays += _run_chunk(
+                        prep, graphs, start, end, metrics_every, span,
+                        chunk_marks, snapshot if collect_snapshots else None)
+                    _read_rows(prep, rows, start, end, span, chunk_marks)
+                    for it, recon, epi, ale in snaps:
+                        k = it // show_every
+                        recons[k] = recon.cpu().numpy()
+                        if epi is not None:
+                            unc_epi[k] = epi.reshape(mc, h, w).cpu().numpy()
+                        if ale is not None:
+                            unc_ale[k] = ale.reshape(mc, h, w).cpu().numpy()
+                chunks.append(span)
+                fit_span.attrs.update(executed=end, replays=replays)
+                if snapshot_fn is not None:
+                    for it, *_ in snaps:
+                        k = it // show_every
+                        snapshot_fn(it, recons[k], unc_epi[k], unc_ale[k])
+                if log_fn is not None:
+                    log_fn(end - 1, rows[end - 1])
+                if (checkpoint_path and s + 1 < n_chunks
+                        and (s + 1) % checkpoint_every_chunks == 0):
+                    save_fit_checkpoint(checkpoint_path, state,
+                                        prep.generator, s + 1, host)
+                if stop is not None and stop.should_stop(rows[start:end, 4],
+                                                         start):
+                    executed = end
+                    rows[end:] = np.nan
+                    break
+        finally:
+            _sync(dev)
+            graphs = None          # frees the graphs and their memory pools
+
+    clocks = _clocks(started + [chunks[0].start_ns], [chunks[0].end_ns],
+                     [chunks[-1].end_ns],
+                     sum(c.attrs["last"] + 1 - c.attrs["first"]
+                         for c in chunks[1:]))
     psnrs = rows[:, 2:5]
     valid = np.where(np.isfinite(psnrs[:, 2]))[0]
     final = float(psnrs[valid[-1], 2]) if len(valid) else float("nan")
@@ -622,11 +797,8 @@ def fit(problem: Problem, method: Method, *, num_iter: int, lr: float,
         uncerts_ale=unc_ale,
         params={k: t.detach().cpu().numpy()
                 for k, t in prep.params.with_flat(state.flat).leaves().items()},
-        net_input=prep.net_input,
-        iters_per_sec=(steady_iters / steady_s
-                       if steady_iters > 0 and steady_s > 0 else 0.0),
-        compile_seconds=t_first - t0, final_psnr=final, executed=executed,
-        wall_seconds=total_s, replays=replays, warmup_steps=warmup_steps)
+        net_input=prep.net_input, final_psnr=final, executed=executed,
+        replays=replays, warmup_steps=warmup_steps, **clocks)
 
 
 def fit_interleaved(problem: Problem, methods, *, num_iter: int, lr: float,
@@ -634,7 +806,8 @@ def fit_interleaved(problem: Problem, methods, *, num_iter: int, lr: float,
                     metrics_every: int = 1,
                     chunk_iters: Optional[int] = None, reparam: str = "rt",
                     device=None, compute_dtype="f32", eager: bool = False,
-                    early_stop: Optional[dict] = None) -> list:
+                    early_stop: Optional[dict] = None,
+                    log_fn: Optional[Callable] = None) -> list:
     """K fits of the same problem, one per ``methods`` entry (all of one
     method name), time-multiplexed on one device (default: the card):
     trainer.py:771-904. Each fit is ``fit``'s with the same ``seed``: its
@@ -649,10 +822,18 @@ def fit_interleaved(problem: Problem, methods, *, num_iter: int, lr: float,
     reads fit j's metric rows while the later fits' replays run.
     ``eager=True``, and the CPU, run each step eagerly instead. Per fit: an
     optional early stop (``fit``'s ``early_stop``) ends its replays; no
-    snapshot stacks (zero-sized) and no checkpoint. ``iters_per_sec`` is
-    each fit's iterations after the first chunk over the wall time of the
+    snapshot stacks (zero-sized) and no checkpoint. ``log_fn(j, i, row)``
+    runs for fit j once its chunk's rows are read (``i`` the chunk's last
+    iteration, ``row`` its metric row); an exception from it ends every
+    fit at that chunk boundary and propagates. ``iters_per_sec`` is each
+    fit's iterations after the first chunk over the wall time of the
     chunks after the first, as JAX reckons it. The graphs and their memory
-    are released on return. Returns one FitResult per method."""
+    are released on return. Returns one FitResult per method.
+
+    Each fit is a ``fit`` span (``fit``'s, with the fit's ``index``), a
+    child of the caller's innermost span, with ``fit``'s children, each
+    carrying the ``index``; a fit's ``chunk`` span runs from its first
+    replay to its rows' read."""
     if len({m.name for m in methods}) != 1:
         raise ValueError("interleaved fits must share a method")
     num_iter = num_iter + 1
@@ -660,64 +841,84 @@ def fit_interleaved(problem: Problem, methods, *, num_iter: int, lr: float,
     k_fits = len(methods)
     h, w = problem.imsize
     mc = problem.mean_ch
-    preps = [prepare_fit(problem, m, iterations=num_iter, lr=lr, seed=seed,
-                         rng=(rngs[j] if rngs is not None
-                              else np.random.default_rng(seed)),
-                         device=device, compute_dtype=compute_dtype,
-                         reparam=reparam)
-             for j, m in enumerate(methods)]
-    dev = preps[0].state.flat.device
-    rows = [np.full((num_iter, 8), np.nan) for _ in range(k_fits)]
-    stops = [_EarlyStop(early_stop) if early_stop else None
-             for _ in range(k_fits)]
-    executed = [num_iter] * k_fits
-    active = [True] * k_fits
-    replays = [0] * k_fits
-    n_chunks = -(-num_iter // chunk)
+    outer = TRACER.current()
+    with contextlib.ExitStack() as fit_spans:
+        spans = [fit_spans.enter_context(TRACER.span(
+                     "fit", parent=outer, index=j,
+                     **_fit_attrs(m, compute_dtype, seed)))
+                 for j, m in enumerate(methods)]
+        preps = []
+        for j, m in enumerate(methods):
+            with TRACER.span("prepare", parent=spans[j], index=j):
+                preps.append(prepare_fit(
+                    problem, m, iterations=num_iter, lr=lr, seed=seed,
+                    rng=(rngs[j] if rngs is not None
+                         else np.random.default_rng(seed)),
+                    device=device, compute_dtype=compute_dtype,
+                    reparam=reparam))
+            spans[j].attrs.update(task=problem.task,
+                                  device=str(preps[j].state.flat.device))
+        dev = preps[0].state.flat.device
+        rows = [np.full((num_iter, 8), np.nan) for _ in range(k_fits)]
+        stops = [_EarlyStop(early_stop) if early_stop else None
+                 for _ in range(k_fits)]
+        executed = [num_iter] * k_fits
+        active = [True] * k_fits
+        replays = [0] * k_fits
+        n_chunks = -(-num_iter // chunk)
 
-    t0 = time.perf_counter()
-    graphs = ([capture_step(p.step, p.state, p.generator) for p in preps]
-              if dev.type == "cuda" and not eager else None)
-    warmup_steps = 0 if graphs is None else 2   # one per variant, per fit
-    t_first = None
-    for s in range(n_chunks):
-        start = s * chunk
-        end = min(start + chunk, num_iter)
-        running = [j for j in range(k_fits) if active[j]]
-        for j in running:
-            for it in range(start, end):
-                with_metrics = it % metrics_every == 0
-                if graphs is None:
-                    preps[j].step(preps[j].state, with_metrics)
-                else:
-                    graph, launches = graphs[j][with_metrics]
-                    graph.replay()
-                    kernels.add_counts(launches)
-                    replays[j] += 1
-        for j in running:
-            # blocks until fit j's chunk is done; the later fits' run on
-            rows[j][start:end] = preps[j].state.rows[start:end].cpu().numpy()
-            if (stops[j] is not None
-                    and stops[j].should_stop(rows[j][start:end, 4], start)):
-                active[j] = False
-                executed[j] = end
-        if t_first is None:
+        graphs, started = [None] * k_fits, []
+        try:
+            if dev.type == "cuda" and not eager:
+                for j, p in enumerate(preps):
+                    with TRACER.span("capture", parent=spans[j],
+                                     index=j) as capture_span:
+                        graphs[j] = capture_step(p.step, p.state, p.generator)
+                    started.append(capture_span.start_ns)
+            warmup_steps = 0 if graphs[0] is None else 2  # per variant and fit
+            chunk_marks = [_chunk_marks(p, dev) for p in preps]
+            chunks = [[] for _ in range(k_fits)]
+            for s in range(n_chunks):
+                start = s * chunk
+                end = min(start + chunk, num_iter)
+                running = [j for j in range(k_fits) if active[j]]
+                opened = {}
+                for j in running:
+                    opened[j] = TRACER.start("chunk", parent=spans[j],
+                                             index=j, first=start,
+                                             last=end - 1)
+                    replays[j] += _run_chunk(preps[j], graphs[j], start, end,
+                                             metrics_every, opened[j],
+                                             chunk_marks[j])
+                    spans[j].attrs.update(executed=end, replays=replays[j])
+                for j in running:
+                    # blocks until fit j's chunk is done; the later fits' run
+                    # on
+                    _read_rows(preps[j], rows[j], start, end, opened[j],
+                               chunk_marks[j])
+                    chunks[j].append(TRACER.finish(opened[j]))
+                    if (stops[j] is not None
+                            and stops[j].should_stop(rows[j][start:end, 4],
+                                                     start)):
+                        active[j] = False
+                        executed[j] = end
+                    if log_fn is not None:
+                        log_fn(j, end - 1, rows[j][end - 1])
+                if not any(active):
+                    break
+        finally:
             _sync(dev)
-            t_first = time.perf_counter()
-        if not any(active):
-            break
+            graphs = None          # frees the graphs and their memory pools
 
-    _sync(dev)
-    graphs = None                  # frees the graphs and their memory pools
-    t_end = time.perf_counter()
-    steady_s = t_end - t_first
+    starts = started + [c[0].start_ns for c in chunks]
+    first_ends = [c[0].end_ns for c in chunks]
+    ends = [c[-1].end_ns for c in chunks]
     first_iters = min(chunk, num_iter)
     empty = np.zeros((0, mc, h, w), np.float32)
     results = []
     for j, prep in enumerate(preps):
         psnrs = rows[j][:, 2:5]
         valid = np.where(np.isfinite(psnrs[:, 2]))[0]
-        steady_iters = executed[j] - first_iters
         results.append(FitResult(
             mse_corrupted=rows[j][:, 0], mse_gt=rows[j][:, 1], psnrs=psnrs,
             ssims=rows[j][:, 5:8], recons=empty, uncerts_epi=empty,
@@ -725,11 +926,9 @@ def fit_interleaved(problem: Problem, methods, *, num_iter: int, lr: float,
             params={k: t.detach().cpu().numpy() for k, t in
                     prep.params.with_flat(prep.state.flat).leaves().items()},
             net_input=prep.net_input,
-            iters_per_sec=(steady_iters / steady_s
-                           if steady_iters > 0 and steady_s > 0 else 0.0),
-            compile_seconds=t_first - t0,
             final_psnr=(float(psnrs[valid[-1], 2]) if len(valid)
                         else float("nan")),
-            executed=executed[j], wall_seconds=t_end - t0,
-            replays=replays[j], warmup_steps=warmup_steps))
+            executed=executed[j], replays=replays[j],
+            warmup_steps=warmup_steps,
+            **_clocks(starts, first_ends, ends, executed[j] - first_iters)))
     return results

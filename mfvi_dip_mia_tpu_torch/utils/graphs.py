@@ -24,7 +24,6 @@ from typing import Callable, Sequence
 import torch
 
 from ..ops import kernels
-from . import compile_guard
 
 _POOL_LOCK = threading.RLock()   # reentrant: a finalizer may release
 _FREE: dict = {}              # device -> streams no thread holds
@@ -113,21 +112,20 @@ def capture(fn: Callable, generators: Sequence[torch.Generator],
     launches one replay makes, what ``fn`` returned, in the graph's
     memory). Every generator of ``generators`` is registered with the
     graph, so each replay draws the next numbers of each stream, as an
-    eager call would. The capture holds the compile lock
-    (utils/compile_guard.py), and only the calling thread's calls can
-    invalidate it (``capture_error_mode="thread_local"``): other threads'
-    replays, eager steps and allocations go on meanwhile. The launches
-    counted on ``stream`` during the capture (the backward's too, which
-    PyTorch's autograd thread launches onto it) are taken back off the
-    counters; the caller adds them once per replay (``kernels.add_counts``).
-    """
+    eager call would. The caller holds the compile lock
+    (utils/compile_guard.py::held), and only the calling thread's calls can
+    invalidate the capture (``capture_error_mode="thread_local"``): other
+    threads' replays, eager steps and allocations go on meanwhile. The
+    launches counted on ``stream`` during the capture (the backward's too,
+    which PyTorch's autograd thread launches onto it) are taken back off
+    the counters; the caller adds them once per replay
+    (``kernels.add_counts``)."""
     graph = torch.cuda.CUDAGraph()
     for generator in generators:
         graph.register_generator_state(generator)
-    with compile_guard.LOCK:
-        before = kernels.stream_counts(stream.cuda_stream)
-        with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = fn()
-        return (graph, kernels.take_counts_since(before, stream.cuda_stream),
-                out)
+    before = kernels.stream_counts(stream.cuda_stream)
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        out = fn()
+    return (graph, kernels.take_counts_since(before, stream.cuda_stream),
+            out)

@@ -1,0 +1,12 @@
+"""step_forward_ms (ms, program span; layer: Net): the median, over the
+window's whole chunks outside the profiler's run, of the device time of
+each chunk's last replay between the step's forward boundaries
+(tasks/trainer.py::make_step's marks, event-record nodes in the graph): the
+net, the data loss (with the CT Radon pair) and the MC KL.
+portbench/program.py selects the chunks."""
+
+from portbench import program
+
+
+def read(run):
+    return program.region_ms(run, "forward")

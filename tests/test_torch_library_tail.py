@@ -664,22 +664,20 @@ def test_profiling_on_the_cpu(tmp_path):
         sum(range(1000))
     s = pt.summary()
     assert s["a"]["count"] == 2 and s["a"]["total_s"] >= 0
-    tm = tprof.ThroughputMeter()
-    assert tm.per_sec == 0.0
-    tm.start()
-    tm.add(10)
-    assert tm.per_sec > 0
-    with tprof.JsonlLogger(str(tmp_path / "log.jsonl")) as log:
-        log.log(metric="x", value=1.0)
-        log.log(metric="y", value=2.0, t=5.0)
-    rows = [json.loads(line) for line in open(tmp_path / "log.jsonl")]
-    assert [r["metric"] for r in rows] == ["x", "y"] and rows[1]["t"] == 5.0
     logdir = str(tmp_path / "trace")
+    tprof.TRACER.reset()
     with tprof.trace(logdir) as prof:
-        torch.relu(torch.randn(64, 64) @ torch.randn(64, 64))
+        with tprof.TRACER.span("relu_mm", size=64) as span:
+            torch.relu(torch.randn(64, 64) @ torch.randn(64, 64))
+    assert tprof.TRACER.spans("relu_mm") == [span]
+    assert span.attrs == {"size": 64} and span.seconds >= 0
+    tprof.TRACER.reset()
     trace_file = os.path.join(logdir, tprof.TRACE_FILE)
     assert os.path.getsize(trace_file) > 0
-    assert json.load(open(trace_file))["traceEvents"]
+    events = json.load(open(trace_file))["traceEvents"]
+    assert events
+    # the span shows in the Chrome trace as a host range of its name
+    assert any(e.get("name") == "relu_mm" for e in events)
     assert any("mm" in e.key for e in prof.key_averages())
     tprof.debug_nans(True)
     assert torch.is_anomaly_enabled()
