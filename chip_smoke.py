@@ -2,6 +2,7 @@
 """Drive the PyTorch port (mfvi_dip_mia_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json] [--profile-steps N]
+                          [--parent DIR]
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -19,7 +20,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    adjoint at 256^2 / 45 angles with the f32 and the bf16 band, the four
    fused conv + BN + LeakyReLU kernels in f32 at every fused-site shape of
    the 256^2 den U-Net and four odd shapes (each twice for the same bits;
-   the dc also at 16 x 512^2, past a cluster's shared memory), the LRT
+   the dc also at 16 x 512^2, past a cluster's shared memory) and in bf16
+   at every fused-site shape of the 256^2 CT U-Net, the same odd shapes
+   and 16 x 512^2 (TOL_FUSED_BF16), the LRT
    double conv in f32 and bf16 at every conv-site shape of the 256^2 den
    U-Net (act_mu, act_var; its backward in f32 at a quarter of them), and
    the dense bf16-matrix Radon forward and adjoint at 256^2 / 45 angles and
@@ -49,7 +52,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``radon_mode="dense-bf16"`` (100 + 200 iterations). Launch counters are
    zeroed just before each path and read just after its graph fit; they
    count what the card ran: each replay adds its capture's launches, the
-   two eager warm-up steps before a capture count as steps run. Last, the
+   two eager warm-up steps before a capture count as steps run. The bf16
+   CT fit runs its 20 fused sites on the bf16 fused block: exactly
+   ``CT_STEP_LAUNCHES`` a step run (20 / 20 / 20 / 19 fused, 11 conv and 6
+   dw launches, the Radon pair once each). Last, the
    reproducibility of a fit: the den f32, CT bf16, path-A and path-B graph
    fits, each run twice at seed 1 for 60 iterations, must give equal bits
    in every metric row and in the final parameters.
@@ -129,7 +135,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``device_ms``, ``library_device_ms``; for the fused forward the cuDNN
    conv + batch_norm + leaky_relu chain, for the fused dc the
    leaky_relu_backward + native_batch_norm_backward chain on the conv
-   output; the dc also per site, its smallest site the per-launch floor).
+   output; the dc also per site, its smallest site the per-launch floor;
+   the four fused kernels also in bf16 at the CT net's 20 fused sites,
+   beside their plain versions and bound, under each kernel's "bf16" key).
    The dense Radon pair also gives the GB/s of A and the share of the bytes
    bound of the kernel and of cuBLAS. With ``--profile-steps``, each path's
    fit is profiled as graph replays (from the first replay on) and eagerly.
@@ -257,6 +265,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    TOL_STEP; (c) ``entry()``'s loss, output and gradient at 256^2 against
    the CPU at TOL_STEP. ``launches_by_path["sharded"]``: (b)'s graph
    steps' launches.
+15. (with ``--parent DIR``, after 14) The den/MFVI f32 fit (60 graph
+   replays at seed 1) in a child process on DIR, another checkout (a
+   ``git archive`` of the parent commit), and on this one, each building
+   its own kernels: equal bits in every metric row and final parameter.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -323,6 +335,17 @@ TOL = {("conv", "f32"): 1e-4, ("conv", "bf16"): 8e-3,
 #   dw, dgamma, dbeta: sums of up to 65,536 products in another order
 TOL_FUSED = {"out": 1e-4, "dconv": 1e-4, "dx": 1e-4, "mu": 1e-5, "inv": 1e-5,
              "dw": 1e-3, "dgamma": 1e-3, "dbeta": 1e-3}
+# The fused block's bf16 kernels against their bf16 plain versions: the same
+# f32 arithmetic on the same bf16 operands (the conv's products exact in
+# f32), each output rounded to bf16 once, as a share of the plain result's
+# largest magnitude:
+#   out / dconv / dx / dw / dgamma / dbeta: f32 sums in another order, then
+#     one rounding to bf16: a sum that differs in its last f32 bits can
+#     round one bf16 ulp (2^-7 of a value at most) apart, as TOL's bf16 conv
+#     entry
+#   mu, inv: f32 sums of up to 65,536 terms in another order, as in f32
+TOL_FUSED_BF16 = {"out": 8e-3, "dconv": 8e-3, "dx": 8e-3, "mu": 1e-5,
+                  "inv": 1e-5, "dw": 8e-3, "dgamma": 8e-3, "dbeta": 8e-3}
 # One f32 step, card against CPU: the same f32 arithmetic in another
 # summation order at every one of 26 convs, 30 BatchNorms (and the Radon);
 # gradients as a share of the largest one
@@ -800,25 +823,27 @@ EXTRA_FUSED_SHAPES = ((36, 68, 20, 27, 3), (68, 4, 33, 17, 3),
 DC_WIDE_SHAPES = ((16, 16, 512, 512, 1),)
 
 
-def hold_fused(checks, shape, worst: dict) -> None:
-    """Each (kernel, what, got, ref) within TOL_FUSED[what] of the largest
-    |ref|; the worst error per (kernel, what) into ``worst``."""
+def hold_fused(checks, shape, worst: dict, tol: dict = TOL_FUSED) -> None:
+    """Each (kernel, what, got, ref) of one dtype within tol[what] of the
+    largest |ref|; the worst error per (kernel, what) into ``worst``."""
     for kname, what, got, ref in checks:
-        if got.shape != ref.shape or not bool(got.isfinite().all()):
+        if (got.shape != ref.shape or got.dtype != ref.dtype
+                or not bool(got.isfinite().all())):
             raise AssertionError(
-                f"{kname} {what} at {shape}: shape {tuple(got.shape)} vs "
-                f"{tuple(ref.shape)} or non-finite values")
+                f"{kname} {what} at {shape}: {tuple(got.shape)} {got.dtype} "
+                f"vs {tuple(ref.shape)} {ref.dtype}, or non-finite values")
         a, r = rel_err(got, ref)
-        if r > TOL_FUSED[what]:
+        if r > tol[what]:
             raise AssertionError(
-                f"{kname} {what} at (Ci, Co, H, W, k) {shape}: max abs "
-                f"err {a:.3e} (rel {r:.3e}) > tolerance "
-                f"{TOL_FUSED[what]:.0e}")
+                f"{kname} {what} {got.dtype} at (Ci, Co, H, W, k) {shape}: "
+                f"max abs err {a:.3e} (rel {r:.3e}) > tolerance "
+                f"{tol[what]:.0e}")
         if r >= worst.get((kname, what), (0.0, -1.0))[1]:
             worst[(kname, what)] = (a, r)
 
 
-def check_dc(g, out, stats, gamma, beta, shape, worst: dict) -> None:
+def check_dc(g, out, stats, gamma, beta, shape, worst: dict,
+             tol: dict = TOL_FUSED) -> None:
     """fused_block_bwd_dc against bwd_dc_plain, launched twice: its sums
     have one order, fixed by the shape, so the bits must repeat."""
     import torch
@@ -832,31 +857,36 @@ def check_dc(g, out, stats, gamma, beta, shape, worst: dict) -> None:
         raise AssertionError(f"fused_block_bwd_dc at {shape}: two calls gave "
                              "different bits")
     hold_fused([("fused_block_bwd_dc", what, a, r) for what, a, r in zip(
-        ("dconv", "dgamma", "dbeta"), got, ref)], shape, worst)
+        ("dconv", "dgamma", "dbeta"), got, ref)], shape, worst, tol)
 
 
-def check_fused_kernels(sites, results: dict) -> None:
-    """Each fused kernel against its plain version at every distinct
-    fused-site shape and at EXTRA_FUSED_SHAPES, the dc also at
-    DC_WIDE_SHAPES; the backward kernels take the plain forward's out and
-    stats and the plain dconv, so each is held alone. Every kernel is called
+def check_fused_kernels(sites, results: dict, dtype=None) -> None:
+    """Each fused kernel in ``dtype`` (f32 by default, or bf16) against its
+    plain version at every distinct fused-site shape and at
+    EXTRA_FUSED_SHAPES, the dc also at DC_WIDE_SHAPES; the backward kernels
+    take the plain forward's out and stats and the plain dconv, so each is
+    held alone (to TOL_FUSED, or TOL_FUSED_BF16). Every kernel is called
     twice for the same bits."""
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
 
+    dtype = dtype or torch.float32
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    tol = TOL_FUSED_BF16 if dname == "bf16" else TOL_FUSED
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     shapes = {}
     for s in sites:
         shapes.setdefault(tuple(s[n] for n in ("ci", "co", "h", "w", "k")), s)
     for shape in EXTRA_FUSED_SHAPES:
         shapes[shape] = dict(zip(("ci", "co", "h", "w", "k"), shape))
-    log(f"[2] fused-block kernels at {len(shapes)} distinct shapes of "
-        f"{len(sites)} fused sites and {len(EXTRA_FUSED_SHAPES)} odd shapes, "
-        f"the dc also at {len(DC_WIDE_SHAPES)} shape(s) of 512^2")
+    log(f"[2] fused-block kernels in {dname} at {len(shapes)} distinct shapes "
+        f"of {len(sites)} fused sites and {len(EXTRA_FUSED_SHAPES)} odd "
+        f"shapes, the dc also at {len(DC_WIDE_SHAPES)} shape(s) of 512^2")
     worst = {}
     mu_f64 = {"kernel": 0.0, "plain": 0.0}
     for shape, s in shapes.items():
-        xp, wk, gamma, beta, g = fused_operands(s, gen)
+        xp, wk, gamma, beta, g = (t.to(dtype)
+                                  for t in fused_operands(s, gen))
         k = s["k"]
         out, stats = tfb.fwd(xp, wk, gamma, beta)
         out_p, stats_p = tfb.fwd_plain(xp, wk, gamma, beta)
@@ -894,24 +924,28 @@ def check_fused_kernels(sites, results: dict) -> None:
             ("fused_block_bwd_dx", "dx", dx, tfb.bwd_dx_plain(dc_p, wk)),
         ]
         torch.cuda.synchronize()
-        hold_fused(checks, shape, worst)
-        check_dc(g, out_p, stats_p, gamma, beta, shape, worst)
+        hold_fused(checks, shape, worst, tol)
+        check_dc(g, out_p, stats_p, gamma, beta, shape, worst, tol)
     # a channel wider than a cluster's shared memory (dc_plan keeps what
-    # fits and re-reads the rest)
+    # fits and re-reads the rest; in bf16 it fits)
     for shape in DC_WIDE_SHAPES:
-        xp, wk, gamma, beta, g = fused_operands(
-            dict(zip(("ci", "co", "h", "w", "k"), shape)), gen)
+        xp, wk, gamma, beta, g = (t.to(dtype) for t in fused_operands(
+            dict(zip(("ci", "co", "h", "w", "k"), shape)), gen))
         out_p, stats_p = tfb.fwd_plain(xp, wk, gamma, beta)
-        check_dc(g, out_p, stats_p, gamma, beta, shape, worst)
+        check_dc(g, out_p, stats_p, gamma, beta, shape, worst, tol)
+    suffix = "" if dname == "f32" else "_bf16"
     for (kname, what), (a, r) in worst.items():
-        log(f"    {kname:18s} {what:6s} worst max abs err {a:.3e} rel "
-            f"{r:.3e} (tolerance {TOL_FUSED[what]:.0e}) ok")
+        log(f"    {kname:18s} {what:6s} {dname:4s} worst max abs err {a:.3e} "
+            f"rel {r:.3e} (tolerance {tol[what]:.0e}) ok")
         res = results.setdefault(kname, {})
-        res["max_abs_err_f32"] = max(res.get("max_abs_err_f32", 0.0), a)
-        res.setdefault("errors", {})[what] = dict(max_abs_err=a, rel=r)
-    log(f"    fused_block_fwd mu against the float64 conv's mean, worst rel: "
-        f"kernel {mu_f64['kernel']:.3e}, plain {mu_f64['plain']:.3e}")
-    results["fused_block_fwd"]["mu_rel_err_vs_f64"] = mu_f64
+        res[f"max_abs_err_{dname}"] = max(res.get(f"max_abs_err_{dname}", 0.0),
+                                          a)
+        res.setdefault("errors" + suffix, {})[what] = dict(max_abs_err=a,
+                                                           rel=r)
+    log(f"    fused_block_fwd {dname} mu against the float64 conv's mean, "
+        f"worst rel: kernel {mu_f64['kernel']:.3e}, plain "
+        f"{mu_f64['plain']:.3e}")
+    results["fused_block_fwd"]["mu_rel_err_vs_f64" + suffix] = mu_f64
 
 
 def lrt_operands(site: dict, dtype, gen):
@@ -1299,6 +1333,14 @@ DENSE = {"radon_dense_fwd", "radon_dense_adj"}
 # the path whose launches each kernel's line reports
 PATH_OF = {**{k: "ct" for k in CONV | BANDED}, **{k: "den" for k in FUSED},
            "lrt_conv_fwd": "lrt_den", **{k: "dense_ct" for k in DENSE}}
+# A bf16 CT step's launches: the 20 stride-1 conv -> BN -> LeakyReLU sites
+# on the fused block (level 0's skip reads the input z: no dx), the five
+# stride-2 down1 sites and the output conv on the conv kernels (forward 6,
+# dx 5: level 0's down1 reads z), the banded Radon pair once each
+CT_STEP_LAUNCHES = dict(cf_conv_fwd=11, cf_conv_dw=6, radon_banded_fwd=1,
+                        radon_banded_adj=1, fused_block_fwd=20,
+                        fused_block_bwd_dc=20, fused_block_bwd_dw=20,
+                        fused_block_bwd_dx=19)
 
 
 def hold_launches(path: str, launches: dict, expected: set) -> None:
@@ -1470,7 +1512,9 @@ def run_fits(results: dict) -> dict:
     if not (np.isfinite(res.final_psnr)
             and res.final_psnr > res.psnrs[0, 2]):
         raise AssertionError("CT fit did not improve on iteration 0")
-    hold_launches("the bf16 CT main path", launches, CONV | BANDED)
+    hold_launches("the bf16 CT main path", launches, CONV | BANDED | FUSED)
+    hold_step_launches("the bf16 CT main path", launches, steps_run(res),
+                       CT_STEP_LAUNCHES)
     hold_replays("the bf16 CT main path", res)
     out["ct"] = dict(iters_per_sec=res.iters_per_sec,
                      eager_iters_per_sec=eager,
@@ -1586,7 +1630,7 @@ def run_dense_ct(kernels) -> dict:
     if not (np.isfinite(res.final_psnr)
             and res.final_psnr > res.psnrs[0, 2]):
         raise AssertionError("dense CT fit did not improve on iteration 0")
-    hold_launches("path B", launches, CONV | DENSE)
+    hold_launches("path B", launches, CONV | DENSE | FUSED)
     hold_replays("path B", res)
     if any(launches[k] != steps_run(res) for k in DENSE):
         raise AssertionError("the dense Radon kernels did not run once each "
@@ -1960,12 +2004,17 @@ def graph_against_eager() -> dict:
     its iterations was a replay; its launch counts are the eager fit's per
     step run (the two warm-up steps included); the graph fits leave at most
     MEMORY_SLACK bytes more allocated than before them; and every cache of
-    ``cache_state`` is the same just before and just after each capture."""
+    ``cache_state`` is the same just before and just after each capture (a
+    fit captures its two variants, and with tracing on the third,
+    ``trainer.MARKED``)."""
     import numpy as np
     import torch
     import mfvi_dip_mia_tpu_torch.tasks.problems as P
     import mfvi_dip_mia_tpu_torch.tasks.trainer as T
     from mfvi_dip_mia_tpu_torch.ops import kernels
+    from mfvi_dip_mia_tpu_torch.utils.profiling import TRACER
+
+    variants = 3 if TRACER.enabled else 2
 
     use_bench_images()
     captures = []
@@ -2035,7 +2084,7 @@ def graph_against_eager() -> dict:
             if (unequal or replays != [ref.executed] * GRAPH_FITS
                     or ref.replays or not counted
                     or mem_left > MEMORY_SLACK
-                    or len(caches_kept) != 2 * GRAPH_FITS
+                    or len(caches_kept) != variants * GRAPH_FITS
                     or not all(caches_kept)):
                 raise AssertionError(f"{label}: the graph fit failed its "
                                      "checks against the eager fit")
@@ -3344,14 +3393,19 @@ def time_conv_kernels(sites, results: dict) -> None:
     results["_conv_sites"] = per_site
 
 
-def time_fused_kernels(sites, results: dict) -> None:
-    """Per training step of the den main path (f32): each fused site's
-    forward, dc, dw and (where the input needs it) dx, one launch each."""
+def time_fused_kernels(sites, results: dict, dtype=None) -> None:
+    """Per training step of the den main path (f32), or with ``dtype`` bf16
+    of the CT main path (its results under each kernel's "bf16" key, no
+    library call beside them): each fused site's forward, dc, dw and (where
+    the input needs it) dx, one launch each."""
     import torch
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input, conv2d_weight
     from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
 
+    bf16 = dtype == torch.bfloat16
+    item = 2 if bf16 else 4
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     names = ("fused_block_fwd", "fused_block_bwd_dc", "fused_block_bwd_dw",
              "fused_block_bwd_dx")
@@ -3364,7 +3418,8 @@ def time_fused_kernels(sites, results: dict) -> None:
     def site_calls(s):
         """(name, flops, bytes, kernel, plain, library, chain) of each fused
         kernel at one site, on operands bound to the closures."""
-        xp, wk, gamma, beta, g = fused_operands(s, gen)
+        xp, wk, gamma, beta, g = (t.to(dtype or torch.float32)
+                                  for t in fused_operands(s, gen))
         ci, co, h, w, k = (s[n] for n in ("ci", "co", "h", "w", "k"))
         out, stats = tfb.fwd_plain(xp, wk, gamma, beta)
         dc = tfb.bwd_dc_plain(g, out, stats, gamma, beta)[0]
@@ -3376,13 +3431,13 @@ def time_fused_kernels(sites, results: dict) -> None:
         n_out, n_io = co * h * w, xp.numel() + wk.numel()
         calls = [
             ("fused_block_fwd", conv_flops + 8.0 * n_out,
-             (n_io + n_out + 4 * co) * 4,
+             (n_io + n_out + 4 * co) * item,
              lambda: tfb.fwd(xp, wk, gamma, beta),
              lambda: tfb.fwd_plain(xp, wk, gamma, beta), None,
              lambda: F.leaky_relu(F.batch_norm(
                  F.conv2d(xp[None], wk), None, None, gamma, beta,
                  training=True), 0.2)),
-            ("fused_block_bwd_dc", 14.0 * n_out, (3 * n_out + 6 * co) * 4,
+            ("fused_block_bwd_dc", 14.0 * n_out, (3 * n_out + 6 * co) * item,
              lambda: tfb.bwd_dc(g, out, stats, gamma, beta),
              lambda: tfb.bwd_dc_plain(g, out, stats, gamma, beta), None,
              lambda: torch.ops.aten.native_batch_norm_backward(
@@ -3390,16 +3445,18 @@ def time_fused_kernels(sites, results: dict) -> None:
                                                     tfb.SLOPE, True),
                  conv, gamma, None, None, mu, inv, True, tfb.EPS,
                  [True, True, True])),
-            ("fused_block_bwd_dw", conv_flops, (n_out + n_io) * 4,
+            ("fused_block_bwd_dw", conv_flops, (n_out + n_io) * item,
              lambda: tfb.bwd_dw(dc, xp, k),
              lambda: tfb.bwd_dw_plain(dc, xp, k),
              lambda: conv2d_weight(xp[None], wk.shape, dc[None]), None)]
         if s["needs_dx"]:
             calls.append((
-                "fused_block_bwd_dx", conv_flops, (n_out + n_io) * 4,
+                "fused_block_bwd_dx", conv_flops, (n_out + n_io) * item,
                 lambda: tfb.bwd_dx(dc, wk), lambda: tfb.bwd_dx_plain(dc, wk),
                 lambda: conv2d_input((1,) + tuple(xp.shape), wk, dc[None]),
                 None))
+        if bf16:    # the kernels and their plain versions alone
+            calls = [c[:5] + (None, None) for c in calls]
         return calls
 
     for s in sites:
@@ -3407,7 +3464,7 @@ def time_fused_kernels(sites, results: dict) -> None:
         calls = site_calls(s)
         row = dict(site=s["name"], shape=[ci, co, h, w, k])
         for name, flops, nbytes, fk, fp, fl, fc in calls:
-            b_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
+            b_ms, _ = bound(flops, nbytes, peak)
             a = agg[name]
             t = dict(ms=time_ms(fk), plain_ms=time_ms(fp),
                      library_ms=time_ms(fl) if fl else 0.0,
@@ -3417,13 +3474,26 @@ def time_fused_kernels(sites, results: dict) -> None:
             steps[name][0].append(fk)
             if fl or fc:
                 steps[name][1].append(fl or fc)
-            a["t_ops"] += flops / PEAK_F32_FLOPS * 1e3
+            a["t_ops"] += flops / peak * 1e3
             a["t_bytes"] += nbytes / PEAK_BYTES_PER_S * 1e3
             a["calls"] += 1
             a["flops"] += flops
             a["nbytes"] += nbytes
             row[name] = t
         per_site.append(row)
+    if bf16:
+        for name, a in agg.items():
+            r = results.setdefault(name, {})["bf16"] = dict(
+                ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+                bound_by=("operations" if a["t_ops"] > a["t_bytes"]
+                          else "bytes"), calls_timed_per_step=a["calls"],
+                device_ms=device_ms(lambda: [f() for f in steps[name][0]]))
+            log(f"[6] {name} bf16: {a['calls']} launches per CT step: kernel "
+                f"{a['ms']:.3f} ms, plain {a['plain_ms']:.3f} ms; profiler "
+                f"device time {r['device_ms']:.4f} ms, bound "
+                f"{a['bound_ms']:.4f} ms ({r['bound_by']})")
+        results["_fused_sites_bf16"] = per_site
+        return
     for name, a in agg.items():
         r = results.setdefault(name, {})
         lib = a["library_ms"] if name in ("fused_block_bwd_dw",
@@ -5220,9 +5290,9 @@ class FitRecorder:
             note(methods, results, t0)
             return results
 
-        def captured(fits):
+        def captured(fits, **kw):
             t0 = time.perf_counter()
-            graphs = capture_steps(fits)
+            graphs = capture_steps(fits, **kw)
             with self._lock:
                 self.captures.append((t0, time.perf_counter()))
             return graphs
@@ -5747,6 +5817,68 @@ def sharded_phase(den_iters_per_sec: float) -> dict:
     return out
 
 
+# -- phase 15: the den f32 fit against another checkout's ---------------------
+
+PARENT_BITS_ITERS = 60
+# One den/MFVI f32 graph fit at seed 1 in a child process on the checkout
+# at argv[1] (the port's public API only, so that any checkout runs it), its
+# metric rows and final parameters saved to argv[2].
+_DEN_FIT_CHILD = f"""
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import mfvi_dip_mia_tpu_torch.tasks.data as D
+import mfvi_dip_mia_tpu_torch.tasks.problems as P
+from mfvi_dip_mia_tpu_torch.tasks.trainer import Method, fit
+D.get_image_denoising = lambda img: (D.synthetic_xray(img, {SIZE}),
+                                     ({SIZE}, {SIZE}))
+problem = P.build_problem("den", "mfvi", 0, input_depth=16, device="cuda")
+res = fit(problem, Method("mfvi", temp=5.66e-7, sigma=1.46e-5),
+          num_iter={PARENT_BITS_ITERS - 1}, lr=1e-3, seed=1,
+          show_every={PARENT_BITS_ITERS}, metrics_every=1,
+          compute_dtype="f32", collect_snapshots=False, device="cuda")
+np.savez(sys.argv[2], **{{f: getattr(res, f) for f in {METRIC_ROWS!r}}},
+         **{{"param." + k: v for k, v in res.params.items()}})
+print(res.replays, res.executed, flush=True)
+"""
+
+
+def den_bits_against_parent(parent: str) -> dict:
+    """The den f32 fit (PARENT_BITS_ITERS graph replays at seed 1), run in a
+    child process on ``parent`` and on this checkout, each building its own
+    kernels: every metric row and final parameter must be equal bit for
+    bit (the f32 fused block's instantiation is the f32 kernel as it was)."""
+    import tempfile
+    import numpy as np
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, root in (("parent", os.path.abspath(parent)),
+                            ("this", REPO)):
+            path = os.path.join(tmp, f"{label}.npz")
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-c", _DEN_FIT_CHILD, root,
+                                  path], cwd=root, capture_output=True,
+                                 text=True, timeout=600)
+            if run.returncode != 0:
+                raise AssertionError(f"the den fit on {label} ({root}) failed:"
+                                     f"\n{run.stdout[-2000:]}"
+                                     f"\n{run.stderr[-4000:]}")
+            out[label] = dict(np.load(path))
+            log(f"[15] den f32 fit on {label}: {run.stdout.strip()} "
+                f"(replays, iterations), {time.perf_counter() - t0:.1f} s "
+                "with its build")
+    a, b = out["parent"], out["this"]
+    differ = sorted(k for k in a if not np.array_equal(a[k], b.get(k),
+                                                       equal_nan=True))
+    log(f"[15] the den f32 fit, this checkout against {parent}: "
+        + ("equal bits in every metric row and final parameter"
+           if not differ else f"{len(differ)} arrays differ: {differ[:8]}"))
+    if differ or set(a) != set(b):
+        raise AssertionError(f"the den f32 fit differs from {parent}'s")
+    return dict(arrays=len(a), equal=True, iterations=PARENT_BITS_ITERS)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -5754,6 +5886,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-steps", type=int, default=0,
                     help="profile this many steps of each path with "
                     "torch.profiler (den also without the fused block)")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of another commit (git archive): its "
+                    "den f32 fit must give this checkout's bits (phase 15)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5800,6 +5935,8 @@ def main(argv=None) -> int:
             for n_out in (1, 2)}
     sites = conv_sites(nets[1], SIZE)
     f_sites = fused_sites(nets[2], SIZE)
+    # the CT net's fused sites, which its bf16 fits run on the bf16 block
+    f_sites_ct = fused_sites(nets[1], SIZE)
     # every LRT site of the den net, as the kernel sees it (stride-2 sites
     # on parity planes): the conv sites' geometry
     l_sites = conv_sites(nets[2], SIZE)
@@ -5826,6 +5963,7 @@ def main(argv=None) -> int:
                            results)
         states = check_radon_kernels(results)
         check_fused_kernels(f_sites + p8_fused, results)
+        check_fused_kernels(f_sites_ct, results, torch.bfloat16)
         check_lrt_kernel(l_sites + p8_conv, results)
         dense = check_dense_radon(results)
         check_concurrent_streams(*concurrent_sites(l_sites, f_sites), dense,
@@ -5860,6 +5998,7 @@ def main(argv=None) -> int:
         time_radon_kernels(states, dense, results)
         del states
         time_fused_kernels(f_sites, results)
+        time_fused_kernels(f_sites_ct, results, torch.bfloat16)
         time_lrt_kernel(l_sites, results)
         time_dense_radon(dense, results)
         del dense
@@ -5887,6 +6026,9 @@ def main(argv=None) -> int:
         fits["threads"] = threads_phase()
     with timer.phase("14 sharded step", sync=True):
         fits["sharded"] = sharded_phase(fits["den"]["iters_per_sec"])
+    if args.parent:
+        with timer.phase("15 den bits against the parent", sync=True):
+            fits["parent_bits"] = den_bits_against_parent(args.parent)
 
     line = []
     for k in kernels.KERNELS:

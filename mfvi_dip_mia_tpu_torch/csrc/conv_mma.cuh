@@ -360,6 +360,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bf16)
 }
 
+// a stored value widened to f32 (exact)
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // The accumulators of output tile (at.my(), at.nz()) of conv(x, w0) and,
 // with NW == 2, conv(x^2, w1) (x^2 formed from the staged value at the point
 // of use), handed to epi(acc, y0, x0, n0, warp_m, warp_n, lane) by the block
@@ -662,9 +668,10 @@ inline int with_tile(int i, F&& f) {
 // ---------------------------------------------------------------------------
 // The weight gradient of the VALID conv on the same staging and MMAs:
 //   dw[o, i, ky, kx] = sum_{y, x} g[o, y, x] * xp[i, y + ky, x + kx],
-// g (O, H, W), xp (I, H + K - 1, W + K - 1), dw (O, I, K, K) f32: a GEMM with
-// M = output channels, N = input channels x taps, and the reduction over
-// pixels.
+// g (O, H, W), xp (I, H + K - 1, W + K - 1), dw (O, I, K, K) summed in f32
+// and stored in OutT (f32; or bf16, rounded once, for the fused block): a
+// GEMM with M = output channels, N = input channels x taps, and the
+// reduction over pixels.
 //   * A block owns BO = 16 WM output channels, BC = 16 WN input channels and
 //     KYB rows of taps (all K rows for K <= 3, one row for K = 5, whose 25
 //     taps would not fit in registers), and walks pixel tiles of kDwTH rows x
@@ -861,10 +868,10 @@ __device__ __forceinline__ void dw_stage_g(char* gbuf,
 // group, the last fastest) of dw, launched on a grid (cluster * groups,
 // tiles) in clusters of (cluster, 1, 1). partial: tiles * groups * BO * BC *
 // KYB * K floats (unused when groups == 1); ticket: tiles ints, zero before
-// the launch and after it.
-template <typename T, class TL, int K, int KYB>
+// the launch and after it. OutT (dw's type) is taken from the argument.
+template <typename T, class TL, int K, int KYB, typename OutT>
 __device__ __forceinline__ void dw_tile_mma(
-    const T* __restrict__ xp, const T* __restrict__ g, float* __restrict__ dw,
+    const T* __restrict__ xp, const T* __restrict__ g, OutT* __restrict__ dw,
     float* __restrict__ partial, int* __restrict__ ticket, int I, int Hp,
     int Wp, int O, int cluster, bool vec) {
   extern __shared__ __align__(128) char smem[];
@@ -1137,7 +1144,8 @@ __device__ __forceinline__ void dw_tile_mma(
         const int o = o0 + warp_m * 16 + gq + (e >> 1) * 8;
         const int c = c0 + warp_n * 16 + nf * 8 + 2 * tq + (e & 1);
         if (o < O && c < I)
-          dw[(((size_t)o * I + c) * K + ky) * K + kx] = acc[t][nf][e];
+          dw[(((size_t)o * I + c) * K + ky) * K + kx] =
+              from_f<OutT>(acc[t][nf][e]);
       }
   }
 }

@@ -1,5 +1,6 @@
 // Fused 'same' conv (k in {1, 3}) + train-mode BatchNorm + LeakyReLU and its
-// three backward kernels for Hopper (sm_90a), f32 only, as the TPU block is.
+// three backward kernels for Hopper (sm_90a), in f32, as the TPU block is,
+// and in bf16 (below).
 //
 // Replaces the four Pallas TPU kernels of
 // mfvi_dip_mia_tpu/ops/pallas/fused_block.py:
@@ -74,8 +75,29 @@
 //     the output tiles are few; the tile and split of ops/kernels/
 //     cf_conv.py::tile_plan. Its own kernel name, not cf_conv_fwd's, so its
 //     launches and its profile rows are its own.
+//
+// bf16 (the TPU block has none; the port's bf16 fits convolve in bf16 with
+// f32 master parameters): each kernel is one template on the element type
+// T, which the C entry picks from its dtype code, so the f32 instantiation
+// is the f32 kernel as it was. With T = bf16 the operands (xp, w, gamma,
+// beta, g, out) are stored in bf16 and every sum, statistic and epilogue is
+// f32; each output is rounded to bf16 once.
+//   * fwd: the conv on the bf16 mma.sync tile (16-channel chunks, PROMOTE
+//     as in f32) stores its f32 tile into an f32 scratch the wrapper
+//     allocates (at 256^2 x 16 channels 4 MB, held in L2), passes 2 and 3
+//     take the exact two-pass statistics from it, and pass 3 writes the
+//     block output in bf16; stats stay f32. Its tile is the wrapper's
+//     bf16 choice (fused_block.py::FWD_TILE_BF16).
+//   * bwd_dc: reads bf16 g and out (16 bytes are 8 pixels: slices, bulk
+//     copies and a thread's groups go by 8 pixels where f32's go by 4),
+//     sums in f32 in the same rank order, writes dconv and [dgamma;
+//     dbeta] in bf16.
+//   * bwd_dw / bwd_dx: the bf16 dw and FULL tiles cf_conv_dw and the bf16
+//     dx run on, dw rounded to bf16 once (cf_conv_dw's f32 sum cast to the
+//     kernel's dtype, as the unfused site returns it), dx stored in bf16.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -95,18 +117,28 @@ constexpr int kWarps = kThreads / 32;
 
 constexpr int kFwdPix = 2048;  // pixels of one BN work item of the forward
 
-// out (O, H, W) <- lrelu(bn(conv(xp, w))), stats (O, 2) <- [mu, inv];
-// xp (I, H+K-1, W+K-1) the padded input, w (O, I, K, K); part_sum: m_tiles
-// * O floats, part_sq: O * ceil(H*W / kFwdPix) floats of scratch.
-template <class TL>
+// out (O, H, W) <- lrelu(bn(conv(xp, w))) in T, stats (O, 2) <- [mu, inv]
+// in f32; xp (I, H+K-1, W+K-1) the padded input, w (O, I, K, K), gamma /
+// beta (O,), all T; conv: an f32 scratch (O, H, W) for the conv output where
+// T = bf16 (unread where T = float: the conv output is then `out` itself);
+// part_sum: m_tiles * O floats, part_sq: O * ceil(H*W / kFwdPix) floats of
+// scratch.
+template <typename T, class TL>
 __global__ void __launch_bounds__(TL::kThreads)
-fused_fwd_mma_kernel(const float* __restrict__ xp,
-                     const float* __restrict__ w,
-                     const float* __restrict__ gamma,
-                     const float* __restrict__ beta, float* out, float* stats,
+fused_fwd_mma_kernel(const T* __restrict__ xp, const T* __restrict__ w,
+                     const T* __restrict__ gamma, const T* __restrict__ beta,
+                     float* __restrict__ conv, T* out, float* stats,
                      float* part_sum, float* part_sq, int I, int H, int W,
                      int O, int K, float inv_hw, float slope, float eps) {
   constexpr int THREADS = TL::kThreads, NWARP = THREADS / 32;
+  // The conv output: f32 normalises it in place through the one pointer
+  // `out`, as the f32 kernel always has; bf16 keeps it in the scratch, whose
+  // pointer aliases nothing, so pass 3's loads need not wait on its stores.
+  float* cv;
+  if constexpr (sizeof(T) == sizeof(float))
+    cv = out;
+  else
+    cv = conv;
   __shared__ float red[TL::WM][TL::BN];
   __shared__ float wsum[NWARP];
   __shared__ float tot[2];
@@ -116,13 +148,13 @@ fused_fwd_mma_kernel(const float* __restrict__ xp,
   const int n_items = m_tiles * ((O + TL::BN - 1) / TL::BN);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // pass 1: the conv tile (3xTF32 on the tensor cores) into out, its
-  // per-channel sums into part_sum[my * O + oc]: each thread's pixels in
+  // pass 1: the conv tile (3xTF32 or bf16 on the tensor cores) into cv,
+  // its per-channel sums into part_sum[my * O + oc]: each thread's pixels in
   // (mf, column half) order, the 8 lanes of a channel pair by a shuffle
   // tree (lane g = 0's result), then the tile's WM warp rows in order
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int my = item % m_tiles, nz = item / m_tiles;
-    conv_mma::conv_tile_mma_at<float, TL, 1, false, true>(
+    conv_mma::conv_tile_mma_at<T, TL, 1, false, true>(
         xp, w, nullptr, I, H + K - 1, W + K - 1, O, K, H, W,
         conv_mma::AtTile{(unsigned)my, (unsigned)nz},
         [&](const float (&acc)[1][conv_mma::kMF][TL::NF][4], int y0, int x0,
@@ -143,7 +175,7 @@ fused_fwd_mma_kernel(const float* __restrict__ xp,
                   const int xx = x0 + g + eh * 8;
                   if (oc < O && y < H && xx < W) {
                     const float a = acc[0][mf][nf][eh * 2 + c2];
-                    out[((size_t)oc * H + y) * W + xx] = a;
+                    cv[((size_t)oc * H + y) * W + xx] = a;
                     v += a;
                   }
                 }
@@ -191,7 +223,7 @@ fused_fwd_mma_kernel(const float* __restrict__ xp,
     const int p_end = min(HW, (ch + 1) * kFwdPix);
     float v = 0.f;
     for (int p = ch * kFwdPix + threadIdx.x; p < p_end; p += THREADS) {
-      const float d = out[(size_t)c * HW + p] - mu;
+      const float d = cv[(size_t)c * HW + p] - mu;
       v += d * d;
     }
     v = warp_sum(v);
@@ -206,7 +238,7 @@ fused_fwd_mma_kernel(const float* __restrict__ xp,
   }
   grid.sync();
 
-  // pass 3: stats, then normalize + LeakyReLU in place
+  // pass 3: stats, then normalize + LeakyReLU (in place where T = float)
   for (int item = blockIdx.x; item < n_bn; item += gridDim.x) {
     const int c = item / n_chunks, ch = item % n_chunks;
     totals(c, true);
@@ -217,12 +249,12 @@ fused_fwd_mma_kernel(const float* __restrict__ xp,
       stats[c * 2] = mu;
       stats[c * 2 + 1] = inv;
     }
-    const float ga = gamma[c], be = beta[c];
+    const float ga = conv_mma::to_f(gamma[c]), be = conv_mma::to_f(beta[c]);
     const int p_end = min(HW, (ch + 1) * kFwdPix);
     for (int p = ch * kFwdPix + threadIdx.x; p < p_end; p += THREADS) {
-      float* q = &out[(size_t)c * HW + p];
-      const float yv = (*q - mu) * inv * ga + be;
-      *q = yv > 0.f ? yv : slope * yv;
+      const size_t q = (size_t)c * HW + p;
+      const float yv = (cv[q] - mu) * inv * ga + be;
+      out[q] = conv_mma::from_f<T>(yv > 0.f ? yv : slope * yv);
     }
     __syncthreads();
   }
@@ -230,10 +262,10 @@ fused_fwd_mma_kernel(const float* __restrict__ xp,
 
 struct DcLeaf {
   float ga, be, rg;
-  __device__ __forceinline__ DcLeaf(const float* gamma, const float* beta,
-                                    int c) {
-    ga = gamma[c];
-    be = beta[c];
+  template <typename T>
+  __device__ __forceinline__ DcLeaf(const T* gamma, const T* beta, int c) {
+    ga = conv_mma::to_f(gamma[c]);
+    be = conv_mma::to_f(beta[c]);
     // gamma can be ~0 early in training: a safe reciprocal, as the TPU kernel
     rg = 1.f / (fabsf(ga) < 1e-20f ? 1e-20f : ga);
   }
@@ -245,10 +277,46 @@ constexpr int kDcMaxCpb = 8;     // channels per block at most: a warp each
 // DC_SMEM), below the 227 KB a block may opt in to
 constexpr int kDcSmemMax = 224 * 1024;
 
+// Pixels of T in 16 bytes: a bulk copy's granule, a thread's group.
+template <typename T>
+constexpr int kGroup = 16 / (int)sizeof(T);
+
 // The end of bulk chunk k of `chunks` of a resident slice of n pixels
-// (n % 4 == 0): 16-byte boundaries, the last chunk ending at n.
+// (n % G == 0): 16-byte boundaries, the last chunk ending at n.
+template <int G>
 __device__ __forceinline__ int dc_chunk_end(int n, int k, int chunks) {
-  return k + 1 == chunks ? n : (n * (k + 1) / chunks) & ~3;
+  return k + 1 == chunks ? n : (n * (k + 1) / chunks) & ~(G - 1);
+}
+
+// 16 bytes of T widened to f32, and f32 values rounded into 16 bytes of T.
+__device__ __forceinline__ void widen(uint4 u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void widen(uint4 u, float (&f)[8]) {
+  const uint32_t q[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ uint4 narrow(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 narrow(const float (&f)[8]) {
+  uint32_t q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    q[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  return make_uint4(q[0], q[1], q[2], q[3]);
 }
 
 // The cluster barrier in its two halves (PTX barrier.cluster): every
@@ -268,32 +336,34 @@ __device__ __forceinline__ void cluster_wait() {
 // blocks share one channel (cpb == 1), rank r taking pixels [r * len,
 // (r + 1) * len); or a block takes cpb whole channels (cluster == 1), a
 // group of 256 / cpb threads each. The first `res` pixels of each of a
-// block's slices stay in dynamic shared memory (cpb * 2 * res floats: g,
-// then out, per channel). Where `bulk` (H*W % 4 == 0; g, out and dc
-// 16-byte aligned) they arrive by 1-D bulk copies in `chunks` pieces, each
-// on its own mbarrier, and are read and written as float4; else each
-// thread loads its own pixels and keeps them. Pixels past `res` are read
-// from global memory again in the second step.
+// block's slices stay in dynamic shared memory (cpb * 2 * res values of T:
+// g, then out, per channel). Where `bulk` (H*W % G == 0; g, out and dc
+// 16-byte aligned; G = 16 / sizeof(T) pixels) they arrive by 1-D bulk
+// copies in `chunks` pieces, each on its own mbarrier, and are read and
+// written 16 bytes at a time; else each thread loads its own pixels and
+// keeps them. Pixels past `res` are read from global memory again in the
+// second step.
 // The order of the sums, the same on both paths: a thread takes the groups
-// of four pixels u = t, t + 256 / cpb, ..., each group's pixels in order;
+// of G pixels u = t, t + 256 / cpb, ..., each group's pixels in order;
 // then the warp's shuffle tree, the group's warps in index order, and the
 // cluster's ranks in rank order. Each rank pushes its partials into every
 // rank's shared memory (distributed shared memory) between two cluster
 // barriers, the first of which only proves that every rank has started,
 // so every rank sums the same values in the same order: the bits depend
-// on the shape alone. No grid barrier, no scratch, no atomics.
+// on the shape alone. No grid barrier, no scratch, no atomics. Every sum
+// is f32; dconv, dgamma and dbeta are stored in T.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_bwd_dc_cluster_kernel(const float* __restrict__ g,
-                            const float* __restrict__ out,
+fused_bwd_dc_cluster_kernel(const T* __restrict__ g, const T* __restrict__ out,
                             const float* __restrict__ stats,
-                            const float* __restrict__ gamma,
-                            const float* __restrict__ beta,
-                            float* __restrict__ dc, float* __restrict__ dgamma,
-                            float* __restrict__ dbeta, int O, int HW,
-                            int cluster, int cpb, int len, int res,
-                            int chunks, int bulk, float inv_hw, float slope,
-                            float inv_slope) {
-  extern __shared__ __align__(128) float dsm[];
+                            const T* __restrict__ gamma,
+                            const T* __restrict__ beta, T* __restrict__ dc,
+                            T* __restrict__ dgamma, T* __restrict__ dbeta,
+                            int O, int HW, int cluster, int cpb, int len,
+                            int res, int chunks, int bulk, float inv_hw,
+                            float slope, float inv_slope) {
+  constexpr int G = kGroup<T>;
+  extern __shared__ __align__(128) unsigned char dc_smem[];
   __shared__ __align__(8) uint64_t bars[kDcMaxCpb * kDcMaxChunks];
   __shared__ float red[2][kWarps];
   __shared__ float part[kDcMaxCpb][2];
@@ -308,8 +378,8 @@ fused_bwd_dc_cluster_kernel(const float* __restrict__ g,
   const int n = c < O ? max(0, min(len, HW - p0)) : 0;  // this slice's pixels
   const int nr = min(n, res);                            // resident
   const size_t base = (size_t)c * HW + p0;
-  float* sg = dsm + (size_t)2 * j * res;
-  float* so = sg + res;
+  T* sg = reinterpret_cast<T*>(dc_smem) + (size_t)2 * j * res;
+  T* so = sg + res;
   const uint32_t bar = bulk_copy::smem_u32(bars + j * kDcMaxChunks);
   const DcLeaf lf(gamma, beta, min(c, O - 1));
   const float scale = stats[min(c, O - 1) * 2 + 1] * lf.ga;
@@ -324,8 +394,8 @@ fused_bwd_dc_cluster_kernel(const float* __restrict__ g,
     if (t == 0) {
       const uint64_t pol = bulk_copy::l2_evict_normal();
       for (int k = 0, lo = 0; k < chunks; ++k) {
-        const int hi = dc_chunk_end(nr, k, chunks);
-        const uint32_t bytes = (uint32_t)(hi - lo) * 4;
+        const int hi = dc_chunk_end<G>(nr, k, chunks);
+        const uint32_t bytes = (uint32_t)(hi - lo) * sizeof(T);
         bulk_copy::bar_expect_tx(bar + 8 * k, 2 * bytes);
         if (bytes) {
           bulk_copy::bulk_load(bulk_copy::smem_u32(sg + lo), g + base + lo,
@@ -353,35 +423,36 @@ fused_bwd_dc_cluster_kernel(const float* __restrict__ g,
     s1 += gp;
     s2 += __fmul_rn(gp, xh);
   };
-  const float4* sg4 = reinterpret_cast<const float4*>(sg);
-  const float4* so4 = reinterpret_cast<const float4*>(so);
-  const float4* g4 = reinterpret_cast<const float4*>(g + base);
-  const float4* o4 = reinterpret_cast<const float4*>(out + base);
+  auto add_group = [&](uint4 o, uint4 v) {
+    float of[G], vf[G];
+    widen(o, of);
+    widen(v, vf);
+#pragma unroll
+    for (int e = 0; e < G; ++e) add(of[e], vf[e]);
+  };
+  const uint4* sg4 = reinterpret_cast<const uint4*>(sg);
+  const uint4* so4 = reinterpret_cast<const uint4*>(so);
+  const uint4* g4 = reinterpret_cast<const uint4*>(g + base);
+  const uint4* o4 = reinterpret_cast<const uint4*>(out + base);
   // step 1: this thread's groups, in order, wherever they are
   int u = t;
   if (bulk) {
     for (int k = 0; k < chunks; ++k) {
-      const int hi = dc_chunk_end(nr, k, chunks) >> 2;
+      const int hi = dc_chunk_end<G>(nr, k, chunks) / G;
       if (u >= hi) continue;
       bulk_copy::bar_wait(bar + 8 * k, 0);
-      for (; u < hi; u += gt) {
-        const float4 o = so4[u], v = sg4[u];
-        add(o.x, v.x), add(o.y, v.y), add(o.z, v.z), add(o.w, v.w);
-      }
+      for (; u < hi; u += gt) add_group(so4[u], sg4[u]);
     }
-    for (; u < n >> 2; u += gt) {
-      const float4 o = __ldg(o4 + u), v = __ldg(g4 + u);
-      add(o.x, v.x), add(o.y, v.y), add(o.z, v.z), add(o.w, v.w);
-    }
+    for (; u < n / G; u += gt) add_group(__ldg(o4 + u), __ldg(g4 + u));
   } else {
-    for (; 4 * u < n; u += gt)
-      for (int p = 4 * u; p < min(4 * u + 4, n); ++p) {
-        const float o = out[base + p], gv = g[base + p];
+    for (; G * u < n; u += gt)
+      for (int p = G * u; p < min(G * u + G, n); ++p) {
+        const T o = out[base + p], gv = g[base + p];
         if (p < nr) {  // read back by this thread alone in step 2
           so[p] = o;
           sg[p] = gv;
         }
-        add(o, gv);
+        add(conv_mma::to_f(o), conv_mma::to_f(gv));
       }
   }
 
@@ -422,8 +493,8 @@ fused_bwd_dc_cluster_kernel(const float* __restrict__ g,
     tot2 = part[j][1];
   }
   if (rank == 0 && t == 0 && c < O) {
-    dgamma[c] = tot2;
-    dbeta[c] = tot1;
+    dgamma[c] = conv_mma::from_f<T>(tot2);
+    dbeta[c] = conv_mma::from_f<T>(tot1);
   }
 
   // step 2: dconv from the resident slice (the rest from global memory)
@@ -434,46 +505,65 @@ fused_bwd_dc_cluster_kernel(const float* __restrict__ g,
     return scale * ((gp - m1) - __fmul_rn(xh, m2));
   };
   if (bulk) {
-    float4* d4 = reinterpret_cast<float4*>(dc + base);
-    for (int q = t; q < n >> 2; q += gt) {
-      const bool in = q < nr >> 2;
-      const float4 o = in ? so4[q] : __ldg(o4 + q);
-      const float4 v = in ? sg4[q] : __ldg(g4 + q);
-      d4[q] = make_float4(dconv(o.x, v.x), dconv(o.y, v.y), dconv(o.z, v.z),
-                          dconv(o.w, v.w));
+    uint4* d4 = reinterpret_cast<uint4*>(dc + base);
+    for (int q = t; q < n / G; q += gt) {
+      const bool in = q < nr / G;
+      float of[G], vf[G], r[G];
+      widen(in ? so4[q] : __ldg(o4 + q), of);
+      widen(in ? sg4[q] : __ldg(g4 + q), vf);
+#pragma unroll
+      for (int e = 0; e < G; ++e) r[e] = dconv(of[e], vf[e]);
+      d4[q] = narrow(r);
     }
   } else {
-    for (int q = t; 4 * q < n; q += gt)
-      for (int p = 4 * q; p < min(4 * q + 4, n); ++p)
-        dc[base + p] = p < nr ? dconv(so[p], sg[p])
-                              : dconv(out[base + p], g[base + p]);
+    for (int q = t; G * q < n; q += gt)
+      for (int p = G * q; p < min(G * q + G, n); ++p)
+        dc[base + p] = conv_mma::from_f<T>(
+            p < nr ? dconv(conv_mma::to_f(so[p]), conv_mma::to_f(sg[p]))
+                   : dconv(conv_mma::to_f(out[base + p]),
+                           conv_mma::to_f(g[base + p])));
   }
 }
 
 // dw (O, I, K, K) = sum over pixels of dc (O, H, W) x the patches of xp
-// (I, H+K-1, W+K-1): conv_mma.cuh's dw tile in 3xTF32, all K rows of taps
-// per block. partial / ticket as conv_mma::dw_tile_mma takes them.
-template <int WM, int WN, int WK, int K, int KYB>
+// (I, H+K-1, W+K-1): conv_mma.cuh's dw tile (3xTF32 or bf16), all K rows of
+// taps per block, dw stored in T. partial / ticket as conv_mma::dw_tile_mma
+// takes them.
+template <typename T, int WM, int WN, int WK, int K, int KYB>
 __global__ void __launch_bounds__(32 * WM * WN * WK)
-fused_bwd_dw_mma_kernel(const float* __restrict__ xp,
-                        const float* __restrict__ dc, float* __restrict__ dw,
-                        float* __restrict__ partial, int* __restrict__ ticket,
-                        int I, int Hp, int Wp, int O, int cluster, int vec) {
-  conv_mma::dw_tile_mma<float, conv_mma::DwTile<WM, WN, WK>, K, KYB>(
+fused_bwd_dw_mma_kernel(const T* __restrict__ xp, const T* __restrict__ dc,
+                        T* __restrict__ dw, float* __restrict__ partial,
+                        int* __restrict__ ticket, int I, int Hp, int Wp, int O,
+                        int cluster, int vec) {
+  conv_mma::dw_tile_mma<T, conv_mma::DwTile<WM, WN, WK>, K, KYB>(
       xp, dc, dw, partial, ticket, I, Hp, Wp, O, cluster, vec != 0);
 }
 
 // dx (I, H+K-1, W+K-1) of the padded input from dc (O, H, W) and w
 // (O, I, K, K): dx[i, y, x] = sum_{o, ky, kx} dc[o, y-K+1+ky, x-K+1+kx] *
 // w[o, i, K-1-ky, K-1-kx], dc zero outside its extent -- conv_mma.cuh's
-// FULL tile in 3xTF32 on dc and w as stored.
-template <int WM, int WN, int NF>
+// FULL tile (3xTF32 or bf16) on dc and w as stored.
+template <typename T, int WM, int WN, int NF>
 __global__ void __launch_bounds__(32 * WM * WN)
-fused_bwd_dx_mma_kernel(const float* __restrict__ dc,
-                        const float* __restrict__ w, float* __restrict__ dx,
-                        int O, int H, int W, int I, int K) {
-  conv_mma::conv_tile_mma<float, conv_mma::Tile<WM, WN, NF>, 1, true>(
+fused_bwd_dx_mma_kernel(const T* __restrict__ dc, const T* __restrict__ w,
+                        T* __restrict__ dx, int O, int H, int W, int I,
+                        int K) {
+  conv_mma::conv_tile_mma<T, conv_mma::Tile<WM, WN, NF>, 1, true>(
       dc, w, nullptr, dx, nullptr, O, H, W, I, K, H + K - 1, W + K - 1);
+}
+
+// F(Of<T>{}) for the element type of dtype code 0 (float32) or 1
+// (bfloat16); cudaErrorInvalidValue for any other code.
+template <typename T>
+struct Of {
+  using type = T;
+};
+
+template <class F>
+int with_dtype(int dtype, F&& f) {
+  if (dtype == 0) return f(Of<float>{});
+  if (dtype == 1) return f(Of<__nv_bfloat16>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 // The co-resident block count of a cooperative kernel of `threads` threads
@@ -523,8 +613,9 @@ int launch_coop(Kern kern, int n_items, void** args, cudaStream_t st,
 
 // the forward on conv_mma's tile `tile` (conv_mma::with_tile's index; the
 // grid walks the tiles, so no cluster split)
-int fwd_tile(const float* xp, const float* w, const float* gamma,
-             const float* beta, float* out, float* stats, float* part_sum,
+template <typename T>
+int fwd_tile(const T* xp, const T* w, const T* gamma, const T* beta,
+             float* conv, T* out, float* stats, float* part_sum,
              float* part_sq, int I, int H, int W, int O, int K, int tile,
              float inv_hw, float slope, float eps, cudaStream_t st) {
   return conv_mma::with_tile(tile, [&](auto tl) {
@@ -533,17 +624,19 @@ int fwd_tile(const float* xp, const float* w, const float* gamma,
                         ((W + conv_mma::kTW - 1) / conv_mma::kTW);
     const int conv_items = m_tiles * ((O + TL::BN - 1) / TL::BN);
     const int bn_items = O * ((H * W + kFwdPix - 1) / kFwdPix);
-    void* args[] = {&xp, &w, &gamma, &beta, &out, &stats, &part_sum,
-                    &part_sq, &I, &H, &W, &O, &K, &inv_hw, &slope, &eps};
-    return launch_coop(fused_fwd_mma_kernel<TL>,
+    void* args[] = {&xp, &w, &gamma, &beta, &conv, &out, &stats,
+                    &part_sum, &part_sq, &I, &H, &W, &O, &K,
+                    &inv_hw, &slope, &eps};
+    return launch_coop(fused_fwd_mma_kernel<T, TL>,
                        conv_items > bn_items ? conv_items : bn_items, args,
                        st, TL::kThreads,
-                       conv_mma::smem_bytes<float, TL>(K, 1, 1));
+                       conv_mma::smem_bytes<T, TL>(K, 1, 1));
   });
 }
 
-int dx_tile(const float* dc, const float* w, float* dx, int O, int H, int W,
-            int I, int K, int tile, int split, cudaStream_t st) {
+template <typename T>
+int dx_tile(const T* dc, const T* w, T* dx, int O, int H, int W, int I, int K,
+            int tile, int split, cudaStream_t st) {
   const int Hout = H + K - 1, Wout = W + K - 1;
   return conv_mma::with_tile(tile, [&](auto tl) {
     using TL = decltype(tl);
@@ -552,24 +645,24 @@ int dx_tile(const float* dc, const float* w, float* dx, int O, int H, int W,
                         ((Wout + conv_mma::kTW - 1) / conv_mma::kTW),
                     (I + TL::BN - 1) / TL::BN);
     return conv_mma::launch(
-        fused_bwd_dx_mma_kernel<TL::WM, TL::WN, TL::NF>, TL::kThreads,
-        conv_mma::smem_bytes<float, TL>(K, 1, split), grid, split, st, dc, w,
+        fused_bwd_dx_mma_kernel<T, TL::WM, TL::WN, TL::NF>, TL::kThreads,
+        conv_mma::smem_bytes<T, TL>(K, 1, split), grid, split, st, dc, w,
         dx, O, H, W, I, K);
   });
 }
 
-template <int K>
-int dw_k(const float* xp, const float* dc, float* partial, int* ticket,
-         float* dw, int I, int H, int W, int O, int tile, int cluster,
-         int groups, cudaStream_t st) {
+template <typename T, int K>
+int dw_k(const T* xp, const T* dc, float* partial, int* ticket, T* dw, int I,
+         int H, int W, int O, int tile, int cluster, int groups,
+         cudaStream_t st) {
   const int vec = reinterpret_cast<uintptr_t>(dc) % 16 == 0 &&
-                  (W * (int)sizeof(float)) % 16 == 0;
+                  (W * (int)sizeof(T)) % 16 == 0;
   return conv_mma::with_dw_tile<false>(tile, [&](auto tl) {
     using TL = decltype(tl);
     const int tiles = ((O + TL::BO - 1) / TL::BO) * ((I + TL::BC - 1) / TL::BC);
     return conv_mma::launch(
-        fused_bwd_dw_mma_kernel<TL::WM, TL::WN, TL::WK, K, K>, TL::kThreads,
-        conv_mma::dw_smem_bytes<float, TL>(K, K, cluster),
+        fused_bwd_dw_mma_kernel<T, TL::WM, TL::WN, TL::WK, K, K>,
+        TL::kThreads, conv_mma::dw_smem_bytes<T, TL>(K, K, cluster),
         dim3(cluster * groups, tiles, 1), cluster, st, xp, dc, dw, partial,
         ticket, I, H + K - 1, W + K - 1, O, cluster, vec);
   });
@@ -579,92 +672,118 @@ int dw_k(const float* xp, const float* dc, float* partial, int* ticket,
 
 extern "C" {
 
+// dtype: 0 = float32, 1 = bfloat16, the type of xp, w, gamma, beta and out.
 // xp (I, H+K-1, W+K-1), w (O, I, K, K), gamma / beta (O,) -> out (O, H, W),
-// stats (O, 2); tile: conv_mma::with_tile's index; part_sum: m_tiles * O
+// stats (O, 2) f32; conv: an f32 scratch (O, H, W) for the conv output
+// (unread for float32); tile: conv_mma::with_tile's index; part_sum: m_tiles * O
 // floats (m_tiles the tile's (row, column) tiles of H x W), part_sq: O *
 // ceil(H*W / 2048) floats.
-int fused_block_fwd(const float* xp, const float* w, const float* gamma,
-                    const float* beta, float* out, float* stats,
-                    float* part_sum, float* part_sq, int I, int H, int W,
-                    int O, int K, int tile, float inv_hw, float slope,
+int fused_block_fwd(const void* xp, const void* w, const void* gamma,
+                    const void* beta, float* conv, void* out, float* stats,
+                    float* part_sum, float* part_sq, int dtype, int I, int H,
+                    int W, int O, int K, int tile, float inv_hw, float slope,
                     float eps, void* stream) {
   if (K != 1 && K != 3) return (int)cudaErrorInvalidValue;
-  return fwd_tile(xp, w, gamma, beta, out, stats, part_sum, part_sq, I, H, W,
-                  O, K, tile, inv_hw, slope, eps,
-                  static_cast<cudaStream_t>(stream));
+  return with_dtype(dtype, [&](auto of) {
+    using T = typename decltype(of)::type;
+    return fwd_tile(static_cast<const T*>(xp), static_cast<const T*>(w),
+                    static_cast<const T*>(gamma), static_cast<const T*>(beta),
+                    conv, static_cast<T*>(out), stats, part_sum, part_sq, I, H,
+                    W, O, K, tile, inv_hw, slope, eps,
+                    static_cast<cudaStream_t>(stream));
+  });
 }
 
-// g, out (O, H*W), stats (O, 2), gamma / beta (O,) -> dc (O, H*W), dgb
-// (2, O) = [dgamma; dbeta]. The plan of ops/kernels/fused_block.py::
-// dc_plan: cluster (1-8) blocks per channel, or cpb (1, 2, 4, 8) channels
-// per block, slices of len pixels, res of them resident (both multiples of
-// 4), loaded in `chunks` (1-4) bulk copies; one ordinary cluster launch.
-// The bulk copies are taken where H*W % 4 == 0 and g, out and dc are
-// 16-byte aligned (checked here).
-int fused_block_bwd_dc(const float* g, const float* out, const float* stats,
-                       const float* gamma, const float* beta, float* dc,
-                       float* dgb, int O, int HW, int cluster, int cpb,
-                       int len, int res, int chunks, float inv_hw,
+// g, out (O, H*W), gamma / beta (O,) and the outputs dc (O, H*W), dgb
+// (2, O) = [dgamma; dbeta] in dtype (0 = float32, 1 = bfloat16), stats
+// (O, 2) f32. The plan of ops/kernels/fused_block.py::dc_plan: cluster
+// (1-8) blocks per channel, or cpb (1, 2, 4, 8) channels per block, slices
+// of len pixels, res of them resident (both multiples of G = 16 bytes of
+// the dtype's pixels), loaded in `chunks` (1-4) bulk copies; one ordinary
+// cluster launch. The bulk copies are taken where H*W % G == 0 and g, out
+// and dc are 16-byte aligned (checked here).
+int fused_block_bwd_dc(const void* g, const void* out, const float* stats,
+                       const void* gamma, const void* beta, void* dc,
+                       void* dgb, int dtype, int O, int HW, int cluster,
+                       int cpb, int len, int res, int chunks, float inv_hw,
                        float slope, float inv_slope, void* stream) {
-  static std::atomic<bool> allowed{false};
-  const int smem = cpb * 2 * res * (int)sizeof(float);
-  if (O < 1 || HW < 1 || cluster < 1 || cluster > conv_mma::kMaxSplit ||
-      (cpb != 1 && cpb != 2 && cpb != 4 && cpb != kDcMaxCpb) ||
-      (cpb > 1 && (cluster > 1 || len < HW)) || len % 4 || res % 4 ||
-      res < 4 || (long long)len * cluster < HW || smem > kDcSmemMax ||
-      chunks < 1 || chunks > kDcMaxChunks)
-    return (int)cudaErrorInvalidValue;
-  if (!allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_bwd_dc_cluster_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kDcSmemMax);
-    if (e != cudaSuccess) return (int)e;
-    allowed = true;
-  }
-  const int bulk = HW % 4 == 0 && (reinterpret_cast<uintptr_t>(g) |
-                                   reinterpret_cast<uintptr_t>(out) |
-                                   reinterpret_cast<uintptr_t>(dc)) %
-                                          16 == 0;
-  return conv_mma::launch_cluster(
-      fused_bwd_dc_cluster_kernel, kThreads, smem,
-      dim3((O + cpb - 1) / cpb * cluster), cluster,
-      static_cast<cudaStream_t>(stream), g, out, stats, gamma, beta, dc, dgb,
-      dgb + O, O, HW, cluster, cpb, len, res, chunks, bulk, inv_hw, slope,
-      inv_slope);
+  return with_dtype(dtype, [&](auto of) {
+    using T = typename decltype(of)::type;
+    constexpr int G = kGroup<T>;
+    static std::atomic<bool> allowed{false};
+    const int smem = cpb * 2 * res * (int)sizeof(T);
+    if (O < 1 || HW < 1 || cluster < 1 || cluster > conv_mma::kMaxSplit ||
+        (cpb != 1 && cpb != 2 && cpb != 4 && cpb != kDcMaxCpb) ||
+        (cpb > 1 && (cluster > 1 || len < HW)) || len % G || res % G ||
+        res < G || (long long)len * cluster < HW || smem > kDcSmemMax ||
+        chunks < 1 || chunks > kDcMaxChunks)
+      return (int)cudaErrorInvalidValue;
+    if (!allowed) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          fused_bwd_dc_cluster_kernel<T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kDcSmemMax);
+      if (e != cudaSuccess) return (int)e;
+      allowed = true;
+    }
+    const int bulk = HW % G == 0 && (reinterpret_cast<uintptr_t>(g) |
+                                     reinterpret_cast<uintptr_t>(out) |
+                                     reinterpret_cast<uintptr_t>(dc)) %
+                                            16 == 0;
+    T* dgamma = static_cast<T*>(dgb);
+    return conv_mma::launch_cluster(
+        fused_bwd_dc_cluster_kernel<T>, kThreads, smem,
+        dim3((O + cpb - 1) / cpb * cluster), cluster,
+        static_cast<cudaStream_t>(stream), static_cast<const T*>(g),
+        static_cast<const T*>(out), stats, static_cast<const T*>(gamma),
+        static_cast<const T*>(beta), static_cast<T*>(dc), dgamma, dgamma + O,
+        O, HW, cluster, cpb, len, res, chunks, bulk, inv_hw, slope,
+        inv_slope);
+  });
 }
 
-// xp (I, H+K-1, W+K-1), dc (O, H, W) -> dw (O, I, K, K), K in {1, 3}.
+// xp (I, H+K-1, W+K-1), dc (O, H, W) -> dw (O, I, K, K), all in dtype (0 =
+// float32, 1 = bfloat16; dw summed in f32, stored in dtype), K in {1, 3}.
 // tile: conv_mma::with_dw_tile's index; the pixel tiles split over cluster
 // * groups blocks per output tile (cluster 1-8). partial: groups * (output
 // tiles) * BO * BC * K * K floats of scratch (unread when groups == 1);
 // ticket: one int per output tile, zero, and left zero.
-int fused_block_bwd_dw(const float* xp, const float* dc, float* partial,
-                       int* ticket, float* dw, int I, int H, int W, int O,
-                       int K, int tile, int cluster, int groups,
+int fused_block_bwd_dw(const void* xp, const void* dc, float* partial,
+                       int* ticket, void* dw, int dtype, int I, int H, int W,
+                       int O, int K, int tile, int cluster, int groups,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cluster < 1 || cluster > conv_mma::kMaxSplit || groups < 1)
+  if (cluster < 1 || cluster > conv_mma::kMaxSplit || groups < 1 ||
+      (K != 1 && K != 3))
     return (int)cudaErrorInvalidValue;
-  if (K == 1)
-    return dw_k<1>(xp, dc, partial, ticket, dw, I, H, W, O, tile, cluster,
-                   groups, st);
-  if (K == 3)
-    return dw_k<3>(xp, dc, partial, ticket, dw, I, H, W, O, tile, cluster,
-                   groups, st);
-  return (int)cudaErrorInvalidValue;
+  return with_dtype(dtype, [&](auto of) {
+    using T = typename decltype(of)::type;
+    const T* x = static_cast<const T*>(xp);
+    const T* d = static_cast<const T*>(dc);
+    T* out = static_cast<T*>(dw);
+    return K == 1 ? dw_k<T, 1>(x, d, partial, ticket, out, I, H, W, O, tile,
+                               cluster, groups, st)
+                  : dw_k<T, 3>(x, d, partial, ticket, out, I, H, W, O, tile,
+                               cluster, groups, st);
+  });
 }
 
-// dc (O, H, W), w (O, I, K, K) -> dx (I, H+K-1, W+K-1), K in {1, 3}. tile:
-// conv_mma::with_tile's index; split: the blocks of a cluster that share
-// one output tile (1-8, at most the chunks of 8 of the O channels).
-int fused_block_bwd_dx(const float* dc, const float* w, float* dx, int O,
-                       int H, int W, int I, int K, int tile, int split,
+// dc (O, H, W), w (O, I, K, K) -> dx (I, H+K-1, W+K-1), all in dtype (0 =
+// float32, 1 = bfloat16), K in {1, 3}. tile: conv_mma::with_tile's index;
+// split: the blocks of a cluster that share one output tile (1-8, at most
+// the 32-byte chunks of the O channels: 8 float32 or 16 bfloat16 each).
+int fused_block_bwd_dx(const void* dc, const void* w, void* dx, int dtype,
+                       int O, int H, int W, int I, int K, int tile, int split,
                        void* stream) {
-  if ((K != 1 && K != 3) || split < 1 || split > conv_mma::kMaxSplit ||
-      split > (O + 7) / 8)
+  if ((K != 1 && K != 3) || split < 1 || split > conv_mma::kMaxSplit)
     return (int)cudaErrorInvalidValue;
-  return dx_tile(dc, w, dx, O, H, W, I, K, tile, split,
-                 static_cast<cudaStream_t>(stream));
+  return with_dtype(dtype, [&](auto of) {
+    using T = typename decltype(of)::type;
+    constexpr int C = conv_mma::Chunk<T>::C;
+    if (split > (O + C - 1) / C) return (int)cudaErrorInvalidValue;
+    return dx_tile(static_cast<const T*>(dc), static_cast<const T*>(w),
+                   static_cast<T*>(dx), O, H, W, I, K, tile, split,
+                   static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

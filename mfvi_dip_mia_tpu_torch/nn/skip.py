@@ -33,12 +33,14 @@ tensors keyed by the JAX package's leaf paths (``levels.0.down1.conv.w``,
 deterministic and the sampled-variational trees, and weights move across from
 the JAX package by name (utils/bridge.py). Conv kernels are OIHW.
 
-Every stride-1 conv -> BN -> LeakyReLU site on a batch-1 f32 input with k
-in {1, 3} runs as one fused block (ops/kernels/fused_block.py), as JAX routes
-its channels-first sites (skip.py:325-343); JAX's further W % 128 / H % 8 /
-VMEM gate was about the TPU, so at 256^2 the port fuses 20 sites where JAX
-fuses 5. The stride-2 down1 sites (k5 ones as k3 parity planes), the k5
-stride-1 sites, the bn_cat BatchNorms and every bf16 site keep the conv
+Every stride-1 conv -> BN -> LeakyReLU site on a batch-1 f32 or bf16 input
+with k in {1, 3} runs as one fused block (ops/kernels/fused_block.py), as
+JAX routes its f32 channels-first sites (skip.py:325-343); JAX's further
+W % 128 / H % 8 / VMEM gate was about the TPU, so at 256^2 the port fuses
+20 sites where JAX fuses 5, and it fuses them at bf16 too, where JAX fuses
+none (the bf16 block keeps its sums, statistics and epilogue in f32 and
+rounds each output once). The stride-2 down1 sites (k5 ones as k3 parity
+planes), the k5 stride-1 sites and the bn_cat BatchNorms keep the conv
 kernel + shifted one-pass BN + activation chain, and so does every site of
 a net built with another ``act_fun`` (ELU, Swish; skip.py:334) and
 every site with dropout (skip.py:322-343): the dropout sits between the conv

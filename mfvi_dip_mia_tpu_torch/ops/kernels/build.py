@@ -51,10 +51,10 @@ _SIGNATURES = {
     "radon_banded_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "radon_banded_adj": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fused_block_fwd": [_P] * 8 + [_I] * 6 + [_F] * 3 + [_P],
-    "fused_block_bwd_dc": [_P] * 7 + [_I] * 7 + [_F] * 3 + [_P],
-    "fused_block_bwd_dw": [_P] * 5 + [_I] * 8 + [_P],
-    "fused_block_bwd_dx": [_P] * 3 + [_I] * 7 + [_P],
+    "fused_block_fwd": [_P] * 9 + [_I] * 7 + [_F] * 3 + [_P],
+    "fused_block_bwd_dc": [_P] * 7 + [_I] * 8 + [_F] * 3 + [_P],
+    "fused_block_bwd_dw": [_P] * 5 + [_I] * 9 + [_P],
+    "fused_block_bwd_dx": [_P] * 3 + [_I] * 8 + [_P],
     "lrt_conv_fwd": [_P] * 5 + [_I] * 8 + [_P],
     "radon_dense_fwd": [_P] * 4 + [_I] * 4 + [_P],
     "radon_dense_adj": [_P] * 6 + [_I] * 7 + [_P],

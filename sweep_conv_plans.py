@@ -7,15 +7,16 @@
 On one NVIDIA GPU: for every launch of a 256^2 5-scale step (chip_smoke.py's
 conv sites) -- ``cf_conv_fwd`` forward and FULL dx in bf16 (the CT path) and
 f32 (den, the LRT backward's dx) and ``lrt_conv_fwd`` in f32 (path A) -- and
-for ``fused_block_bwd_dx`` at the den net's 19 fused sites that need a dx,
-the profiler's device time of each (tile, split of K) the kernels can
-launch, beside the plan ``ops/kernels/cf_conv.py::tile_plan`` picks
-(``fused_block.py::dx_plan``). With ``--dw`` instead: ``cf_conv_dw`` at
-every distinct conv-site shape of the CT and den nets in bf16 and f32, and
-``fused_block_bwd_dw`` at the den net's 20 fused sites, at each (tile, split
-of the pixels) of ``dw_candidates``, beside ``dw_plan``'s pick; and
-``fused_block_fwd`` at the 20 fused sites with each conv tile (no split of
-K), beside ``fused_block.py::fwd_plan``'s pick. With ``--inp-k5`` instead:
+for ``fused_block_bwd_dx`` at the 19 fused sites that need a dx, in f32
+(den) and bf16 (CT), the profiler's device time of each (tile, split of K)
+the kernels can launch, beside the plan ``ops/kernels/cf_conv.py::
+tile_plan`` picks (``fused_block.py::dx_plan``). With ``--dw`` instead:
+``cf_conv_dw`` at every distinct conv-site shape of the CT and den nets in
+bf16 and f32, and ``fused_block_bwd_dw`` at the 20 fused sites in f32 and
+bf16, at each (tile, split of the pixels) of ``dw_candidates``, beside
+``dw_plan``'s pick; and ``fused_block_fwd`` at the 20 fused sites in f32
+and bf16 with each conv tile (no split of K), beside ``fused_block.py::
+fwd_plan``'s pick (``FWD_TILE``, ``FWD_TILE_BF16``). With ``--inp-k5`` instead:
 ``cf_conv_fwd`` (forward and FULL dx) and ``lrt_conv_fwd`` in f32 at the
 12 k5 sites of the 6-scale inpainting net on 256^2 (stride-2 down1 as k3
 parity planes, stride-1 down2 as k5), the sites the cost model was not
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import sys
 import time
@@ -207,13 +209,15 @@ def main(argv=None) -> int:
     if args.dw:
         rows = sweep_dw(cs, sites + l_sites, f_sites, args.check)
         return report(cs, smi, rows, (("dw", "bf16"), ("dw", "f32"),
-                                      ("fused_dw", "f32"), ("fused", "f32")),
-                      args.out, t0)
+                                      ("fused_dw", "f32"), ("fused", "f32"),
+                                      ("fused_dw", "bf16"),
+                                      ("fused", "bf16")), args.out, t0)
     if args.check:
         results = {}
         cs.check_conv_kernels(sites, results)
         cs.check_lrt_kernel(l_sites, results)
         cs.check_fused_kernels(f_sites, results)
+        cs.check_fused_kernels(f_sites, results, torch.bfloat16)
 
     groups = (("conv", torch.bfloat16, "bf16", sites),
               ("conv", torch.float32, "f32", sites),
@@ -273,8 +277,8 @@ def main(argv=None) -> int:
                       args.out, t0)
     rows += sweep_fused_dx(cs, f_sites, gen)
     return report(cs, smi, rows, (("conv", "bf16"), ("conv", "f32"),
-                                  ("lrt", "f32"), ("fused_dx", "f32")),
-                  args.out, t0)
+                                  ("lrt", "f32"), ("fused_dx", "f32"),
+                                  ("fused_dx", "bf16")), args.out, t0)
 
 
 @contextlib.contextmanager
@@ -289,25 +293,27 @@ def forced(module, attr, plan):
 
 
 def sweep_fused_dx(cs, fused_sites, gen) -> list:
-    """fused_block_bwd_dx at every fused site that needs a dx under each
-    (tile, split of K) of the FULL conv of its shape."""
+    """fused_block_bwd_dx in f32 and bf16 at every fused site that needs a
+    dx under each (tile, split of K) of the FULL conv of its shape."""
     import torch
     from mfvi_dip_mia_tpu_torch.ops.kernels import cf_conv as tcf
     from mfvi_dip_mia_tpu_torch.ops.kernels import fused_block as tfb
 
     rows = []
-    for s in fused_sites:
-        if not s["needs_dx"]:
-            continue
-        _, wk, _, _, dc = cs.fused_operands(s, gen)
-        h, wd, co, ci, k = (s[n] for n in ("h", "w", "co", "ci", "k"))
-        row = timed_row(
-            cs, "fused_dx", "f32", s["name"], h + k - 1, wd + k - 1, ci, co,
-            k, candidates(tcf, h + k - 1, wd + k - 1, ci, co, torch.float32),
-            tfb.dx_plan(h, wd, co, ci, k),
-            lambda p: forced(tfb, "dx_plan", p),
-            lambda dc=dc, wk=wk: tfb.bwd_dx(dc, wk))
-        rows.append(dict(row, n_weights=1))
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for s in fused_sites:
+            if not s["needs_dx"]:
+                continue
+            _, wk, _, _, dc = (t.to(dtype)
+                               for t in cs.fused_operands(s, gen))
+            h, wd, co, ci, k = (s[n] for n in ("h", "w", "co", "ci", "k"))
+            row = timed_row(
+                cs, "fused_dx", dname, s["name"], h + k - 1, wd + k - 1, ci,
+                co, k, candidates(tcf, h + k - 1, wd + k - 1, ci, co, dtype),
+                tfb.dx_plan(h, wd, co, ci, k, dtype),
+                lambda p: forced(tfb, "dx_plan", p),
+                lambda dc=dc, wk=wk: tfb.bwd_dx(dc, wk))
+            rows.append(dict(row, n_weights=1))
     return rows
 
 
@@ -358,6 +364,7 @@ def sweep_dw(cs, conv_sites, fused_sites, check: bool) -> list:
         results = {}
         cs.check_conv_kernels(conv_sites, results)
         cs.check_fused_kernels(fused_sites, results)
+        cs.check_fused_kernels(fused_sites, results, torch.bfloat16)
 
     gen = torch.Generator(device=cs.DEVICE).manual_seed(13)
     shapes = {}
@@ -375,20 +382,23 @@ def sweep_dw(cs, conv_sites, fused_sites, check: bool) -> list:
                 tcf.dw_plan(h, wd, o, i, dtype, k),
                 lambda p: forced(tcf, "dw_plan", p),
                 lambda xp=xp, g=g, k=k: tcf.conv_dw(xp, g, k, k)))
-    for s in fused_sites:
-        xp, wk, gamma, beta, dc = cs.fused_operands(s, gen)
+    for (dname, dtype), s in itertools.product(
+            (("f32", torch.float32), ("bf16", torch.bfloat16)), fused_sites):
+        xp, wk, gamma, beta, dc = (t.to(dtype)
+                                   for t in cs.fused_operands(s, gen))
         h, wd, co, ci, k = (s[n] for n in ("h", "w", "co", "ci", "k"))
         rows.append(timed_row(
-            cs, "fused_dw", "f32", s["name"], h, wd, co, ci, k,
-            tcf.dw_candidates(h, wd, co, ci, k), tfb.dw_plan(h, wd, co, ci, k),
+            cs, "fused_dw", dname, s["name"], h, wd, co, ci, k,
+            tcf.dw_candidates(h, wd, co, ci, k),
+            tfb.dw_plan(h, wd, co, ci, k, dtype),
             lambda p: forced(tfb, "dw_plan", p),
             lambda xp=xp, dc=dc, k=k: tfb.bwd_dw(dc, xp, k)))
-        chunks = -(-ci // tcf.chunk_channels(torch.float32))
+        chunks = -(-ci // tcf.chunk_channels(dtype))
         plans = [tcf._plan(t, 1, h, wd, co, chunks)
                  for t, (_, bn) in enumerate(tcf.TILES) if bn <= max(16, co)]
         rows.append(timed_row(
-            cs, "fused", "f32", s["name"], h, wd, co, ci, k, plans,
-            tfb.fwd_plan(h, wd, co, ci, k),
+            cs, "fused", dname, s["name"], h, wd, co, ci, k, plans,
+            tfb.fwd_plan(h, wd, co, ci, k, dtype),
             lambda p: forced(tfb, "fwd_plan", p),
             lambda xp=xp, wk=wk, gamma=gamma, beta=beta: tfb.fwd(
                 xp, wk, gamma, beta)))

@@ -163,11 +163,14 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
 
 
 def test_only_eligible_inputs_fuse():
+    """Batch 1, f32 or bf16, k in {1, 3}; an input and parameters of two
+    dtypes raise."""
     x = torch.zeros((1, 4, 8, 8))
     assert tfb.supported(x, 3) and tfb.supported(x, 1)
     assert not tfb.supported(x, 5)
-    assert not tfb.supported(x.to(torch.bfloat16), 3)
+    assert tfb.supported(x.to(torch.bfloat16), 3)
+    assert not tfb.supported(x.to(torch.float16), 3)
     assert not tfb.supported(torch.zeros((2, 4, 8, 8)), 3)
-    with pytest.raises(ValueError, match="batch-1 f32"):
+    with pytest.raises(ValueError, match="batch-1 f32 or bf16"):
         tfb.apply_fused(x.to(torch.bfloat16), torch.zeros((2, 4, 3, 3)),
                         torch.ones(2), torch.zeros(2))

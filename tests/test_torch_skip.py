@@ -270,12 +270,13 @@ def test_variational_tree_in_eval_uses_the_posterior_means(jax_fused_off,
 
 
 @pytest.mark.parametrize("dtype,n_fused", [(torch.float32, 20),
-                                           (torch.bfloat16, 0)])
+                                           (torch.bfloat16, 20)])
 def test_fused_sites_of_the_five_scale_net(count_fused, monkeypatch, dtype,
                                            n_fused):
-    """f32: the 20 stride-1 sites fuse (skip, down2, up, up1x1 at each of 5
-    levels); the 5 stride-2 down1 sites and the output conv stay on the conv
-    kernel. bf16 never fuses, as in JAX."""
+    """f32 and bf16: the 20 stride-1 sites fuse (skip, down2, up, up1x1 at
+    each of 5 levels); the 5 stride-2 down1 sites and the output conv stay
+    on the conv kernel. JAX fuses no bf16 site; the port's bf16 block keeps
+    f32 sums and statistics."""
     convs = []
     conv = tcf.conv_valid
 
