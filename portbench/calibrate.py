@@ -115,7 +115,7 @@ def program_readings(cell, seed, port, setup, device) -> list:
         side = check.program_side(c)
         c.prep = None
         t = time.perf_counter()
-        ref = check.reference_side(cell.config, c.temp, c.sigma, seed, device)
+        ref = check.reference_side(cell, c.temp, c.sigma, seed, device)
         r = check.readings(side, ref)
         r["reference_s"] = time.perf_counter() - t
         r["detail"] = check.worst_leaves(side, ref)
@@ -128,9 +128,8 @@ def control_readings(cell, seed, device) -> list:
     rounding = cell.config["control"]
     out = []
     for temp, sigma in cell.traffic().candidates(cell):
-        low = check.reference_side(cell.config, temp, sigma, seed, device,
-                                   rounding)
-        ref = check.reference_side(cell.config, temp, sigma, seed, device)
+        low = check.reference_side(cell, temp, sigma, seed, device, rounding)
+        ref = check.reference_side(cell, temp, sigma, seed, device)
         r = check.readings(low, ref)
         r["detail"] = check.worst_leaves(low, ref)
         out.append(r)

@@ -1,6 +1,7 @@
 """What decides ``correct``: each candidate's first three steps, as the
-program ran them in the timed fit, against the plain reference
-(portbench/reference/) from the same seed.
+program ran them in the timed fit, against the plain reference from the
+same seed: the module the configuration names (``"reference"``,
+portbench/reference/<module>.py).
 
 Read from the program (the probe, ``fits.py``): its initial parameters, Adam's
 first moment after step 1 (m1 = (1 - b1) g1, so the first gradient as the
@@ -33,7 +34,7 @@ import math
 
 import torch
 
-from .reference import precision, step as S
+from .reference import precision
 
 ADAM_B1 = 0.9
 NOUGHT = 1e-3
@@ -121,13 +122,15 @@ def program_side(cand) -> dict:
             "rows": cand.rows3}
 
 
-def reference_side(cfg: dict, temp: float, sigma: float, seed: int,
-                   device, rounding: str | None = None) -> dict:
-    """The reference's three steps from ``seed`` on ``device``;
-    ``rounding`` computes its convs at a lower precision (the control)."""
+def reference_side(cell, temp: float, sigma: float, seed: int, device,
+                   rounding: str | None = None) -> dict:
+    """The three steps of ``cell``'s reference module from ``seed`` on
+    ``device``; ``rounding`` computes its convs at a lower precision (the
+    control)."""
+    ref = cell.reference()
     with precision.turn_off_tf32():
-        fit = S.Fit(cfg, temp, sigma, seed, device,
-                    quant=precision.rounding(rounding))
+        fit = ref.Fit(cell.config, temp, sigma, seed, device,
+                      quant=precision.rounding(rounding))
         flat0 = fit.flat.clone()
         rows = []
         first = fit.step()

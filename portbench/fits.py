@@ -17,6 +17,13 @@ so that the state is read after the first three replays (on the CPU, where
 the trainer steps eagerly, the prepared step is wrapped instead) and the
 host's seconds inside each replay are summed. The reads are set-up: they
 end before the first chunk does.
+
+A traffic module hands the probe the candidates whose fits a thread runs,
+in the order the program prepares them (``assigned``): one, or several
+that one call prepares one after another (``fit_interleaved``). Each
+``prepare_fit`` on the thread takes the next of them, and each
+``capture_step`` goes to the candidate whose prepared state it captures;
+calls beyond them, and on other threads, pass through.
 """
 
 from __future__ import annotations
@@ -142,10 +149,22 @@ class Window:
 
 
 class _Local(threading.local):
-    cand: Optional[Candidate] = None
+    pending: tuple = ()       # candidates still to prepare, in call order
+    prepared: tuple = ()      # candidates prepared on this thread
 
 
 CURRENT = _Local()
+
+
+@contextlib.contextmanager
+def assigned(cands):
+    """For the block, the fits this thread prepares are those of ``cands``,
+    in this order."""
+    CURRENT.pending, CURRENT.prepared = tuple(cands), ()
+    try:
+        yield
+    finally:
+        CURRENT.pending, CURRENT.prepared = (), ()
 
 
 class _ProbedGraph:
@@ -165,15 +184,17 @@ class _ProbedGraph:
 @contextlib.contextmanager
 def probe(trainer):
     """Wrap ``trainer.prepare_fit`` and ``trainer.capture_step`` (the
-    program's ``tasks/trainer.py`` module) for fits run on threads whose
-    ``CURRENT.cand`` is set; other calls pass through."""
+    program's ``tasks/trainer.py`` module) for the fits of the candidates
+    ``assigned`` to the calling thread; other calls pass through."""
     prepare_fit, capture_step = trainer.prepare_fit, trainer.capture_step
 
     def prepare_probed(*args, **kwargs):
         prep = prepare_fit(*args, **kwargs)
-        cand = CURRENT.cand
-        if cand is None:
+        if not CURRENT.pending:
             return prep
+        cand = CURRENT.pending[0]
+        CURRENT.pending = CURRENT.pending[1:]
+        CURRENT.prepared += (cand,)
         cand.t_prepared = time.perf_counter()
         cand.prep = prep
         cand.flat0 = prep.state.flat.detach().clone()
@@ -188,7 +209,8 @@ def probe(trainer):
         return prep._replace(step=step_probed)
 
     def capture_probed(step, state, gen):
-        cand = CURRENT.cand
+        cand = next((c for c in CURRENT.prepared if c.prep.state is state),
+                    None)
         if cand is None:
             return capture_step(step, state, gen)
         t0 = time.perf_counter()

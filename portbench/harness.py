@@ -49,15 +49,18 @@ class Run:
 
 
 class Stretch:
-    """Starts the profiler at candidate 0's first chunk end after the window
-    opens and stops it ``chunks`` chunk ends later; reads the kernel
-    launch counters at both ends. The window stays open until it is done:
-    the profiler's first start (seconds of CUPTI's set-up) and its stop
-    (seconds of flushing) fall inside a traced run's window, whose rates
-    are therefore not reported."""
+    """Starts the profiler at candidate 0's first chunk end more than
+    ``after`` seconds after the window opens and stops it ``chunks`` chunk
+    ends later; reads the kernel launch counters at both ends. The window
+    stays open until it is done: the profiler's first start (seconds of
+    CUPTI's set-up) and its stop (seconds of flushing) fall inside a traced
+    run's window, whose rates are therefore not reported. The chunks before
+    the start and after the stop are those the span readers take
+    (program.py)."""
 
-    def __init__(self, run: Run, chunks: int, kernels):
+    def __init__(self, run: Run, chunks: int, kernels, after: float = 0.0):
         self.run, self.chunks, self.kernels = run, int(chunks), kernels
+        self.after = float(after)
         self.prof = T.Profiler()
         self.seen = 0
         self.done = False
@@ -68,7 +71,8 @@ class Stretch:
 
     def on_chunk(self, cand: fits.Candidate, t: float) -> None:
         w = self.run.window
-        if cand.index != 0 or self.done or w.w0 is None or t <= w.w0:
+        if cand.index != 0 or self.done or w.w0 is None \
+                or t <= w.w0 + (self.after if self.seen == 0 else 0.0):
             return
         if self.seen == 0:
             self.run.stretch.update(counts0=self.kernels.counts(),
@@ -126,7 +130,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t_start: float,
     stretch = None
     if trace:
         stretch = Stretch(run, cell.workload.get("trace_chunks", 3),
-                          port["ops.kernels"])
+                          port["ops.kernels"],
+                          cell.workload.get("trace_after_s", 0.0))
     traffic = cell.traffic()
     run.candidates = [fits.Candidate(i, temp, sigma) for i, (temp, sigma)
                       in enumerate(traffic.candidates(cell))]

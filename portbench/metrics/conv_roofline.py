@@ -1,8 +1,8 @@
 """conv_roofline (%, device trace; layer: Kernels): per iteration, the
-least time of the net's conv sites (forward, dx where needed, dw; operations
-at the configuration's tensor-core peak, bytes at the HBM rate; see
-portbench/work/conv.py) over the device time of the kernels that do that
-work in the traced stretch.
+least time of the net's conv sites (the sites its reference module lists;
+forward, dx where needed, dw; operations at the configuration's tensor-core
+peak, bytes at the HBM rate; see portbench/work/conv.py) over the device
+time of the kernels that do that work in the traced stretch.
 
 The kernels matched as conv work: the port's tensor-core conv kernels (the
 forward and the input gradient of ``cf_conv``, its weight gradient, the
@@ -30,5 +30,6 @@ def read(run):
     busy = sum(o.dur for o in tr.kernels() if PATTERNS.search(o.name))
     if not replays or busy <= 0:
         return None
-    least = conv.least_seconds_per_iteration(run.config)
+    least = conv.least_seconds_per_iteration(run.config,
+                                             run.cell.reference())
     return 100.0 * least / (busy / 1e9 / replays)

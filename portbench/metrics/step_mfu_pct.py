@@ -18,7 +18,7 @@ def read(run):
     if not replays:
         return None
     cfg = run.config
-    flops = conv.flops_per_iteration(cfg)
+    flops = conv.flops_per_iteration(cfg, run.cell.reference())
     if cfg.get("task") == "ct":
         flops += radon.flops_per_iteration(cfg)
     rate = replays / tr.window_s

@@ -99,6 +99,31 @@ class Net:
             out += list(self.level_sites(i).values())
         return out + [self.out_site()]
 
+    def conv_sites(self, size: int) -> list:
+        """Every conv site on a ``size`` x ``size`` net input, as a
+        reference module's ``conv_sites`` gives them: name, c_in, c_out,
+        k, stride, size_in (the side of the site's input) and needs_dx.
+        Level 0's skip and down1 read the net input, which needs no
+        gradient, so they have no dx."""
+        out = []
+
+        def add(s: Site, s_in: int, needs_dx: bool):
+            out.append(dict(name=s.name, c_in=s.c_in, c_out=s.c_out, k=s.k,
+                            stride=s.stride, size_in=s_in,
+                            needs_dx=needs_dx))
+
+        for i in range(self.n_scales):
+            lv = self.level_sites(i)
+            s_in = size >> i
+            if "skip" in lv:
+                add(lv["skip"], s_in, i > 0)
+            add(lv["down1"], s_in, i > 0)
+            add(lv["down2"], s_in // 2, True)
+            add(lv["up"], s_in, True)
+            add(lv["up1x1"], s_in, True)
+        add(self.out_site(), size, True)
+        return out
+
 
 def init_params(net: Net, seed: int) -> dict:
     """The deterministic tree (PyTorch-default conv init) from a CPU

@@ -1,5 +1,26 @@
 """The plain reference of an MFVI DIP fit's first steps, in float32 with
-TF32 off, on any device.
+TF32 off, on any device: the reference module of the ct and den skip-net
+MFVI configurations (their ``"reference": "step"``).
+
+A reference module (portbench/reference/<module>.py, named by a
+configuration's ``reference`` key, found by ``spec.reference``) gives:
+
+  * ``Fit(cfg, temp, sigma, seed, device, quant)``: the fit of
+    configuration ``cfg`` with (temp, sigma) from ``seed`` on ``device``,
+    its inputs, weights and draws made by itself from the seed; ``.flat``
+    its parameters as one vector, ``.layout.leaves(flat)`` a vector of that
+    layout by leaf name (the program's leaf names), ``.step()`` one
+    iteration, returning ``{"row": its metric row (8,), "grad": the
+    gradient the optimizer got, in ``flat``'s layout}``; ``quant`` (a
+    ``precision.Rounding`` or None) computes its convs at a lower precision
+    (the control);
+  * ``conv_sites(cfg)``: each conv site of the configuration's net as a
+    dict: name, c_in, c_out, k, stride, size_in (the side of its input)
+    and needs_dx (False for a site that reads the net input), which
+    work/conv.py reckons operations and bytes from.
+
+It imports nothing of the program. ``net.py``, ``data.py``, ``radon.py``
+and ``precision.py`` are helpers a module may import.
 
 One step, as the upstream trainer defines it:
 
@@ -32,7 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import data, net as N, radon as R
+from portbench.reference import data, net as N, radon as R
 
 EXP_WEIGHT = 0.99
 REG_NOISE_STD = 0.1
@@ -72,6 +93,11 @@ def kl_reverse(mu, rho, prior_sigma: float) -> torch.Tensor:
     sq = F.softplus(rho)
     return (torch.log(sq) - math.log(sp) + (sp ** 2 + mu ** 2)
             / (2.0 * sq ** 2) - 0.5).sum()
+
+
+def conv_sites(cfg: dict) -> list:
+    """The skip U-Net's conv sites (``net.Net.conv_sites``)."""
+    return N.Net.of(cfg).conv_sites(int(cfg["imsize"]))
 
 
 class Fit:

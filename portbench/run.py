@@ -40,6 +40,10 @@ PORT_KERNELS = re.compile(
     r"|lrt_conv_fwd_mma_kernel|radon_dense")
 
 
+# set-up parts timed before the harness runs the cell (the setup line)
+PARTS = {}
+
+
 def forbidden_modules() -> list:
     """Loaded modules whose top-level name is JAX's or the JAX package's,
     compared whole (the port's own name begins with the JAX package's)."""
@@ -67,6 +71,7 @@ def main(argv=None) -> int:
     from portbench import spec
     cell = spec.load_cell(ROOT, args.workload)
 
+    t = time.perf_counter()
     import torch
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < cell.chips:
@@ -74,6 +79,7 @@ def main(argv=None) -> int:
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
             " available")
         return 2
+    PARTS["torch_s"] = time.perf_counter() - t
     out = measure(cell, args, "cuda")
     found = forbidden_modules()
     if found:
@@ -101,7 +107,7 @@ def measure(cell, args, device: str) -> dict:
     rates = run.rates()
     metrics = {}
     for m in cell.metrics(bool(args.trace)):
-        value = spec.reader(m["name"])(run)
+        value = spec.reader(m["name"], cell.bench_dir)(run)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = {"platform": "gpu" if device != "cpu" else "cpu",
@@ -141,8 +147,7 @@ def measure(cell, args, device: str) -> dict:
 
     t_ref = time.perf_counter()
     per_cand = [check.readings(p, check.reference_side(
-        cell.config, t, s, args.seed, device)) for p, (t, s)
-        in zip(side, cands)]
+        cell, t, s, args.seed, device)) for p, (t, s) in zip(side, cands)]
     lines["reference_s"] = time.perf_counter() - t_ref
     numbers = check.worst(per_cand) if per_cand else {}
     correct, compared = check.judge(numbers, cell.config["limits"])
@@ -158,8 +163,10 @@ def setup_line(run) -> dict:
     """The set-up's parts, in seconds, and the peak memory at the window's
     opening."""
     import torch
-    s = dict(run.setup)
+    s = dict(PARTS, **run.setup)
     cs = run.candidates
+    if all(c.t_call for c in cs):
+        s["before_trainer_s"] = min(c.t_call for c in cs) - run.t_start
     s["prepare_s"] = [c.t_prepared - c.t_call for c in cs if c.t_prepared]
     s["warmup_capture_s"] = [c.t_capture[1] - c.t_capture[0] for c in cs
                              if c.t_capture]

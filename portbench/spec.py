@@ -1,8 +1,9 @@
 """Everything a run finds by name: the cell's entry in ``BENCHMARK.json``, its
-workload file, its configuration file, its traffic module and the reader of
-each metric it reports. Adding a configuration, a cell or a per-layer
-metric is adding files under ``portbench/`` and entries in
-``BENCHMARK.json``; nothing here names one of them."""
+workload file, its configuration file, its traffic module, its
+configuration's plain reference module and the reader of each metric it
+reports. Adding a configuration (with a reference module of its own), a
+cell or a per-layer metric is adding files under ``portbench/`` and entries
+in ``BENCHMARK.json``; nothing here names one of them."""
 
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ class Cell:
     end_to_end: list         # BENCHMARK.json metric entries for this cell
     per_layer: list
     bench_dir: str
+    _reference: object = dataclasses.field(default=None, repr=False)
 
     @property
     def chips(self) -> int:
@@ -54,6 +56,14 @@ class Cell:
             raise ValueError(f"bad traffic kind {kind!r}")
         return _module(os.path.join(self.bench_dir, "traffic", f"{kind}.py"),
                        f"portbench_traffic_{kind}")
+
+    def reference(self):
+        """The configuration's plain reference module,
+        portbench/reference/<its 'reference'>.py, loaded once."""
+        if self._reference is None:
+            self._reference = reference(self.config["reference"],
+                                        self.bench_dir)
+        return self._reference
 
     def metrics(self, trace: bool) -> list:
         """The metric entries a run reports: the end-to-end ones untraced,
@@ -93,3 +103,12 @@ def reader(name: str, bench_dir: str = HERE):
     mod = _module(os.path.join(bench_dir, "metrics", f"{name}.py"),
                   "portbench_metric_" + name.replace(".", "_"))
     return mod.read
+
+
+def reference(name: str, bench_dir: str = HERE):
+    """The plain reference module ``name`` (portbench/reference/<name>.py):
+    ``Fit`` and ``conv_sites``, as reference/step.py's docstring says."""
+    if not NAME.match(name):
+        raise ValueError(f"bad reference module name {name!r}")
+    return _module(os.path.join(bench_dir, "reference", f"{name}.py"),
+                   "portbench_reference_" + name.replace(".", "_"))

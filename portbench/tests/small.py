@@ -15,13 +15,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 SIZE = 32
 
 
-def small_config(name: str) -> dict:
-    with open(os.path.join(ROOT, "portbench", "configs", f"{name}.json")) as f:
-        cfg = json.load(f)
+def cut(cfg: dict) -> dict:
+    """A copy of configuration ``cfg`` cut to ``SIZE``."""
     cfg = copy.deepcopy(cfg)
     cfg["imsize"] = SIZE
     cfg["net"].update(skip_n33d=[16, 32], skip_n33u=[16, 32], num_scales=2)
     return cfg
+
+
+def small_config(name: str) -> dict:
+    with open(os.path.join(ROOT, "portbench", "configs", f"{name}.json")) as f:
+        return cut(json.load(f))
 
 
 def small_cell(name: str) -> spec.Cell:

@@ -21,7 +21,8 @@ def measure(name, monkeypatch, **over):
 
 
 @pytest.mark.parametrize("name", ["den_mfvi_f32_256.fit",
-                                  "ct_mfvi_bf16_256.fit"])
+                                  "ct_mfvi_bf16_256.fit",
+                                  "den_mfvi_f32_256.round4_interleaved"])
 def test_reference_steps_agree_in_f32(name, monkeypatch):
     out = measure(name, monkeypatch, compute_dtype="f32")
     r = out["lines"]["readings"]

@@ -56,3 +56,35 @@ def test_window_opens_when_every_candidate_is_ready():
     assert w.w0 is not None and b.nonfinite_chunks == 1
     with pytest.raises(fits.WindowClosed):
         la(299, [0.0] * 8)
+
+
+@pytest.mark.parametrize("after, started_at", [(0.0, 1.5), (3.0, 4.5)])
+def test_stretch_starts_after_its_delay(after, started_at):
+    """The profiler starts at candidate 0's first chunk end more than
+    ``trace_after_s`` after the window opens, and stops ``chunks`` chunk
+    ends later; other candidates' chunk ends move nothing."""
+    from portbench import harness
+
+    class Prof:
+        start_s = stop_s = 0.0
+        started = stopped = None
+
+        def start(self):
+            Prof.started = t
+
+        def stop(self):
+            Prof.stopped = t
+
+    window = fits.Window(2, 10.0)
+    window.w0 = 1.0
+    run = harness.Run(None, 1, 10.0, 0.0, window, [], "cpu")
+    kernels = type("K", (), {"counts": staticmethod(lambda: [0])})
+    st = harness.Stretch(run, 2, kernels, after)
+    st.prof = Prof()
+    c0, c1 = fits.Candidate(0, 1.0, 1.0), fits.Candidate(1, 1.0, 1.0)
+    for t in (1.5, 3.0, 4.5, 6.0, 7.5, 9.0):
+        c0.chunks.append((t, int(t * 100), 0.0))
+        st.on_chunk(c1, t)
+        st.on_chunk(c0, t)
+    assert Prof.started == started_at
+    assert Prof.stopped == started_at + 3.0 and st.done

@@ -22,8 +22,8 @@ def candidates(cell) -> list:
 
 def fit_candidate(run, port, cand, device) -> float:
     """Build ``cand``'s problem and run its fit until the window closes;
-    returns the last smoothed PSNR it reported (NaN if none). Used by every
-    traffic kind that runs fits."""
+    returns the last smoothed PSNR it reported (NaN if none). Used by the
+    traffic kinds that run one fit a thread."""
     cfg, seed = run.config, run.seed
     problems = port["tasks.problems"]
     trainer = port["tasks.trainer"]
@@ -35,7 +35,6 @@ def fit_candidate(run, port, cand, device) -> float:
         last[0] = float(row[4])
         log(i, row)
 
-    fits.CURRENT.cand = cand
     try:
         t = time.perf_counter()
         rng = np.random.default_rng(seed)
@@ -49,20 +48,20 @@ def fit_candidate(run, port, cand, device) -> float:
         cand.t_call = time.perf_counter()
         run.setup.setdefault("problem_s", []).append(cand.t_call - t)
         try:
-            trainer.fit(problem, method, num_iter=int(cfg["num_iter"]),
-                        lr=float(cfg["lr"]), seed=seed,
-                        show_every=int(cfg["show_every"]), device=device,
-                        metrics_every=int(cfg["metrics_every"]),
-                        compute_dtype=cfg["compute_dtype"],
-                        collect_snapshots=False, rng=rng, log_fn=log_fn,
-                        chunk_iters=int(cfg["chunk_iters"]))
+            with fits.assigned([cand]):
+                trainer.fit(problem, method, num_iter=int(cfg["num_iter"]),
+                            lr=float(cfg["lr"]), seed=seed,
+                            show_every=int(cfg["show_every"]),
+                            device=device,
+                            metrics_every=int(cfg["metrics_every"]),
+                            compute_dtype=cfg["compute_dtype"],
+                            collect_snapshots=False, rng=rng, log_fn=log_fn,
+                            chunk_iters=int(cfg["chunk_iters"]))
         except fits.WindowClosed:
             pass
     except Exception:
         cand.error = traceback.format_exc()
         raise
-    finally:
-        fits.CURRENT.cand = None
     return last[0]
 
 
