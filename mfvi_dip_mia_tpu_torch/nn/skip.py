@@ -290,7 +290,7 @@ class SkipNet(nn.Module):
         return self.act(layers.batch_norm_train(x, scale, offset))
 
     def _apply_level(self, params, i, x, generator, training, reparam,
-                     dropout_p):
+                     dropout_p, deep=None):
         cfg = self.levels[i]
         p = f"levels.{i}"
         h = self._conv_bn_act(cfg.down1, params, f"{p}.down1", x, generator,
@@ -299,7 +299,9 @@ class SkipNet(nn.Module):
                               training, reparam, dropout_p)
         if i < self.n_scales - 1:
             h = self._apply_level(params, i + 1, h, generator, training,
-                                  reparam, dropout_p)
+                                  reparam, dropout_p, deep)
+        elif deep is not None:
+            deep(h)
         h = layers.upsample2x(h, cfg.upsample_mode)
         if cfg.skip_conv is not None:
             s = self._conv_bn_act(cfg.skip_conv, params, f"{p}.skip", x,
@@ -415,8 +417,8 @@ class SkipNet(nn.Module):
 
     def forward(self, params: dict, x: torch.Tensor, generator=None,
                 training: bool = True, reparam: str = "rt",
-                dropout_p=None, split: sp.RowSplit | None = None
-                ) -> torch.Tensor:
+                dropout_p=None, split: sp.RowSplit | None = None,
+                deep=None) -> torch.Tensor:
         """x: (1, C, H, W). ``generator`` drives the RT weight draws (or,
         with ``reparam='lrt'``, the activation noise) of a variational tree
         and the dropout masks; a deterministic (or pre-sampled) tree on a
@@ -431,7 +433,11 @@ class SkipNet(nn.Module):
         shard's device; the draws are the unsplit forward's, draw for draw,
         so the result is the unsplit one up to the order of its sums.
         Raises ValueError unless each shard's rows are a multiple of
-        2^n_scales."""
+        2^n_scales.
+
+        ``deep(h)`` is called with the deepest level's output (its last
+        down2 site's, before the first upsample), where the encoder ends
+        and the decoder begins; the row-split forward does not call it."""
         if split is not None:
             sp.RowSplit.check(x.shape[2], split.n, self.n_scales)
             if split.bounds0[-1] != x.shape[2]:
@@ -446,7 +452,7 @@ class SkipNet(nn.Module):
                 z = [torch.sigmoid(t) for t in z]
             return sp.gather_rows(z, split.first)
         z = self._apply_level(params, 0, x, generator, training, reparam,
-                              dropout_p)
+                              dropout_p, deep)
         z = self._conv_site(self.out_conv, params, "out", z, generator,
                             training, reparam, dropout_p)
         return torch.sigmoid(z) if self.need_sigmoid else z

@@ -57,7 +57,8 @@ back to back as one graph per variant (parallel/sharding.py's blocks).
 A fit records spans (utils/profiling.py::TRACER, on by default) of its
 preparation, capture and chunks. With tracing on, each chunk's span
 carries the device time of its replays and, from the step's ``Marks``, of
-one replay's regions (``STEP_REGIONS``): a third graph, the step with its
+one replay's regions (``STEP_REGIONS``, and the encoder's share of its
+forward and backward, ``STEP_SUBREGIONS``): a third graph, the step with its
 metric row and the marks, replays a chunk's last metric iteration, so the
 two graphs that replay the rest record no mark.
 """
@@ -91,6 +92,12 @@ REG_NOISE_STD = 0.1
 N_OUT = {"ct": 1, "den": 2, "sr": 2, "inp": 4}   # the net's output channels
 # the step's regions, in order, between the six boundaries its Marks time
 STEP_REGIONS = ("draw", "forward", "backward", "update", "tail")
+# the encoder's share of forward and backward: from a boundary to a point
+# of the step's Marks, or back (the net's deepest output, and the moment its
+# gradient is complete)
+STEP_SUBREGIONS = {"forward_down": (1, "deep"),
+                   "backward_down": ("deep_grad", "net_grad"),
+                   "backward_flat": ("net_grad", 3)}
 MARKED = "marked"   # capture_step's key of the step with its metric row and
                     # marks
 _MARKING = threading.local()   # .on: the step records its marks
@@ -257,7 +264,20 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
     rings, the metric row, the iteration index). It records them only when
     run or captured inside ``_marking()``: on the card each is an event on
     the stream, which a capture records into the graph (``MARKED``). With
-    tracing off ``marks`` is None and the step records nothing."""
+    tracing off ``marks`` is None and the step records nothing.
+
+    Inside those regions three points of ``marks`` split off the encoder
+    (``STEP_SUBREGIONS``): ``deep``, where the net's forward reaches its
+    deepest output (nn/skip.py's ``deep``); ``deep_grad``, where that
+    output's gradient is complete, recorded by a tensor hook on it; and
+    ``net_grad``, where the first of the net's leaves gets its gradient,
+    recorded by a hook on each leaf. Autograd takes the latest-made ready
+    node first, so the leaves' views, made before the forward, run their
+    backward after the net's: ``net_grad`` ends the net's backward and
+    starts the leaves' gradients' sum into the flat buffer and the draw's
+    backward. A marked step registers the hooks as its forward runs,
+    since the backward calls them on autograd's thread, which is not
+    marking; the row-split net has no ``deep``."""
     if method_name not in METHODS:
         raise ValueError(f"unknown method {method_name!r}")
     h, w = problem.imsize
@@ -275,11 +295,33 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
     decay = (sgld.DecayedLR(hp.lr, hp.gamma, z.device)
              if is_sgld and problem.task != "ct" else None)
     net_kw = {} if split is None else {"split": split}
-    marks = Marks(STEP_REGIONS, z.device) if TRACER.enabled else None
+    marks = (Marks(STEP_REGIONS, z.device,
+                   points=("deep", "deep_grad", "net_grad"))
+             if TRACER.enabled else None)
+
+    def marking() -> bool:
+        return marks is not None and getattr(_MARKING, "on", False)
 
     def mark(k: int) -> None:
-        if marks is not None and getattr(_MARKING, "on", False):
+        if marking():
             marks.mark(k)
+
+    def at_deep(h: torch.Tensor) -> None:
+        marks.point("deep")
+        if h.requires_grad:
+            h.register_hook(lambda g: marks.point("deep_grad"))
+
+    def at_net_grad(leaves: dict) -> None:
+        first = []
+
+        def hook(g):
+            if not first:
+                first.append(True)
+                marks.point("net_grad")
+
+        for t in leaves.values():
+            if t.requires_grad:
+                t.register_hook(hook)
 
     def step(s: StepState, with_metrics: bool) -> None:
         mark(0)
@@ -301,9 +343,13 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
         if low is not None:
             leaves = {k: t.to(dtype) for k, t in leaves.items()}
             x = x.to(dtype)
+        if marking():
+            at_net_grad(leaves)
         mark(1)
         out = problem.net(leaves, x, gen, reparam=reparam,
-                          dropout_p=dropout_p, **net_kw).float()
+                          dropout_p=dropout_p,
+                          deep=at_deep if marking() else None,
+                          **net_kw).float()
         loss = problem.data_loss(out)
         if mix is not None:
             # the MC KL's gradient through autograd, none from the AdamW
@@ -596,7 +642,8 @@ def _read_rows(prep: Prepared, rows: np.ndarray, start: int, end: int,
                span, chunk_marks: Optional[Marks]) -> None:
     """The chunk's metric rows into ``rows``, which waits for its work;
     with tracing on, the chunk's device ms between its marks
-    (``device_ms``) and the ``marked`` iteration's by ``STEP_REGIONS``
+    (``device_ms``) and the ``marked`` iteration's by ``STEP_REGIONS``,
+    then by those of ``STEP_SUBREGIONS`` its step recorded
     (``regions_ms``), on the marks' ``clock`` ('device': the card's events;
     'host': host times, on the CPU), into ``span``."""
     rows[start:end] = prep.state.rows[start:end].cpu().numpy()
@@ -604,7 +651,12 @@ def _read_rows(prep: Prepared, rows: np.ndarray, start: int, end: int,
         span.attrs.update(clock=chunk_marks.clock,
                           device_ms=chunk_marks.read()["chunk"])
         if span.attrs["marked"] is not None:
-            span.attrs["regions_ms"] = prep.marks.read()
+            regions = prep.marks.read()
+            for name, (a, b) in STEP_SUBREGIONS.items():
+                ms = prep.marks.between(a, b)
+                if ms is not None:
+                    regions[name] = ms
+            span.attrs["regions_ms"] = regions
 
 
 def _chunk_marks(prep: Prepared, device: torch.device) -> Optional[Marks]:

@@ -7,10 +7,11 @@ mfvi_dip_mia_tpu/utils/profiling.py):
                              thread and attributes, kept in memory in a
                              bounded ring. On by default; ``TRACER.enabled =
                              False`` keeps no span and makes no ``Marks``
-  * ``Marks``              — times at fixed boundaries of a repeated step:
-                             timing events on the card (inside a CUDA graph,
-                             event-record nodes every replay records again),
-                             host times elsewhere
+  * ``Marks``              — times at fixed boundaries of a repeated step,
+                             and at named points inside it: timing events
+                             on the card (inside a CUDA graph, event-record
+                             nodes every replay records again), host times
+                             elsewhere
   * ``trace(logdir)``      — torch.profiler around a block (host and, on the
                              card, device activity), written into ``logdir``
                              as a Chrome trace (Perfetto / chrome://tracing);
@@ -135,41 +136,69 @@ TRACER = Tracer()
 
 class Marks:
     """Times at the ``len(regions) + 1`` boundaries of a repeated step,
-    read as each region's milliseconds. On a card each boundary is a
+    read as each region's milliseconds, and at the named ``points`` inside
+    it, read against the boundaries by ``between``. On a card each is a
     timing event recorded on the device's current stream, created
     ``external``: inside a CUDA graph capture its recording becomes an
     event-record node that every replay records again, so ``read`` gives
     the last replay's (or the last eager step's) device time. Elsewhere a
     boundary takes the host's time (``clock`` 'host')."""
 
-    def __init__(self, regions: Sequence[str], device: torch.device):
+    def __init__(self, regions: Sequence[str], device: torch.device,
+                 points: Sequence[str] = ()):
         self.regions = tuple(regions)
+        self.points = tuple(points)
         self.device = device
         self.clock = "device" if device.type == "cuda" else "host"
-        n = len(self.regions) + 1
+        n = len(self.regions) + 1 + len(self.points)
         if self.clock == "device":
             self._events = [torch.cuda.Event(enable_timing=True, external=True)
                             for _ in range(n)]
         else:
             self._ns = [0] * n
+        self._seen = set()     # the slots recorded at least once
+
+    def _slot(self, k) -> int:
+        """A boundary's number, or a point's name, as its slot."""
+        if isinstance(k, int):
+            return k
+        return len(self.regions) + 1 + self.points.index(k)
+
+    def _record(self, i: int) -> None:
+        if self.clock == "device":
+            self._events[i].record(torch.cuda.current_stream(self.device))
+        else:
+            self._ns[i] = time.perf_counter_ns()
+        self._seen.add(i)
 
     def mark(self, k: int) -> None:
         """Boundary ``k``: before region k, after region k - 1."""
+        self._record(k)
+
+    def point(self, name: str) -> None:
+        """The named point ``name``, on whichever thread reaches it (a
+        tensor hook runs on autograd's thread, on the forward's stream)."""
+        self._record(self._slot(name))
+
+    def _ms(self, a: int, b: int) -> float:
         if self.clock == "device":
-            self._events[k].record(torch.cuda.current_stream(self.device))
-        else:
-            self._ns[k] = time.perf_counter_ns()
+            return self._events[a].elapsed_time(self._events[b])
+        return (self._ns[b] - self._ns[a]) / 1e6
 
     def read(self) -> dict:
         """{region: ms} of the last step that passed every boundary; on a
         card, once that step's work is done (the caller has waited for
         it)."""
-        if self.clock == "device":
-            ms = [a.elapsed_time(b)
-                  for a, b in zip(self._events, self._events[1:])]
-        else:
-            ms = [(b - a) / 1e6 for a, b in zip(self._ns, self._ns[1:])]
-        return dict(zip(self.regions, ms))
+        return {r: self._ms(k, k + 1) for k, r in enumerate(self.regions)}
+
+    def between(self, a, b) -> Optional[float]:
+        """The ms from ``a`` to ``b`` (each a boundary's number or a point's
+        name) in the last step that recorded both, as ``read``; None where
+        either was never recorded."""
+        a, b = self._slot(a), self._slot(b)
+        if a not in self._seen or b not in self._seen:
+            return None
+        return self._ms(a, b)
 
 
 @contextlib.contextmanager

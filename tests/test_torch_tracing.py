@@ -93,10 +93,13 @@ def test_fit_span_tree(small):
         assert at["replays"] == 0 and at["clock"] == "host"
         assert at["marked"] == at["last"]
         assert at["device_ms"] > 0
-        assert list(at["regions_ms"]) == list(TT.STEP_REGIONS)
+        # the regions, then the encoder's share of forward and backward
+        assert list(at["regions_ms"]) == list(TT.STEP_REGIONS) + list(
+            TT.STEP_SUBREGIONS)
         assert all(v >= 0 for v in at["regions_ms"].values())
         # the last step's regions lie inside the chunk's steps
-        assert sum(at["regions_ms"].values()) <= at["device_ms"]
+        assert sum(at["regions_ms"][r] for r in TT.STEP_REGIONS) \
+            <= at["device_ms"]
     # FitResult's clocks are the spans'
     assert res.compile_seconds == pytest.approx(chunks[0].seconds)
     assert res.wall_seconds == pytest.approx(
@@ -427,8 +430,8 @@ def test_card_captured_events_time_every_replay(card_fits):
 def test_card_regions_sum_to_the_replay(card_fits):
     c = [s for s in card_fits[True][1] if s.name == "chunk"][-1]
     per_replay = c.attrs["device_ms"] / c.attrs["replays"]
-    assert sum(c.attrs["regions_ms"].values()) == pytest.approx(
-        per_replay, rel=0.03)
+    assert sum(c.attrs["regions_ms"][r] for r in TT.STEP_REGIONS) == \
+        pytest.approx(per_replay, rel=0.03)
 
 
 def test_card_launches_a_replay_unchanged(card_fits):
