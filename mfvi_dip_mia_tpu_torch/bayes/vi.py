@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -108,27 +109,117 @@ def eps_order(params: FlatParams) -> list:
             if n.endswith("_mu")]
 
 
+class _Layout(NamedTuple):
+    """The leaves ``sample_mfvi_tree`` returns, in its order: the sampled
+    leaves (the mu segment's, '_mu' dropped) and then the det leaves, each
+    (name, shape, offset into the buffer, size)."""
+    sampled: tuple
+    det: tuple
+
+
+def _layout(params: FlatParams) -> _Layout:
+    sampled, det = [], []
+    for name, s, o in zip(params.names, params.shapes, params.offsets):
+        if name.endswith("_mu"):
+            sampled.append((name[:-3], s, o, math.prod(s)))
+        elif o >= 2 * params.n_var:
+            det.append((name, s, o, math.prod(s)))
+    return _Layout(tuple(sampled), tuple(det))
+
+
+_GATHERED_LOCK = threading.Lock()
+_gathered = 0   # leaf gradients _Draw's backwards have gathered, all threads
+
+
+def flat_grad_leaves() -> int:
+    """The leaf gradients the draw's backward (``_Draw``) has gathered into
+    flat gradients in this process so far, over every thread: each
+    backward adds one per leaf it returned, a leaf with no gradient (its
+    segment zeros) included."""
+    with _GATHERED_LOCK:
+        return _gathered
+
+
+def _count_gathered(n: int) -> None:
+    global _gathered
+    with _GATHERED_LOCK:
+        _gathered += n
+
+
+def _flat_grads(grads, leaves, like: torch.Tensor) -> list:
+    """Each leaf's gradient as a flat tensor; the leaves with none share
+    one buffer of zeros (``like``'s dtype and device)."""
+    sizes = [size for _, _, _, size in leaves]
+    missing = [n for g, n in zip(grads, sizes) if g is None]
+    zeros = like.new_zeros(max(missing)) if missing else None
+    return [zeros[:n] if g is None else g.reshape(-1)
+            for g, n in zip(grads, sizes)]
+
+
+class _Draw(torch.autograd.Function):
+    """The RT draw as one autograd node over the flat parameters ``p``: its
+    forward returns every sampled leaf as a view of ``mu + softplus(rho) *
+    eps`` (cast once to ``out_dtype``) and every det leaf as a view of
+    ``p``; its backward writes ``p``'s whole gradient in one pass: the
+    sampled leaves' gradients concatenated into the mu segment (in
+    ``out_dtype``, then cast once), the rho segment from them as the
+    mul's and softplus's backward make it, and the det leaves' gradients
+    concatenated into the det segment. Per-leaf views of one tensor would
+    each fill and add a gradient of their whole base instead."""
+
+    @staticmethod
+    def forward(ctx, p, eps, layout, out_dtype):
+        n = eps.shape[0]
+        sample = p[:n] + F.softplus(p[n:2 * n]) * eps
+        if out_dtype is not None:
+            sample = sample.to(out_dtype)
+        ctx.save_for_backward(p, eps)
+        ctx.layout, ctx.out_dtype = layout, out_dtype
+        ctx.set_materialize_grads(False)
+        return (tuple(sample[o:o + size].view(s)
+                      for _, s, o, size in layout.sampled)
+                + tuple(p[o:o + size].view(s)
+                        for _, s, o, size in layout.det))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        p, eps = ctx.saved_tensors
+        layout, low = ctx.layout, ctx.out_dtype
+        n, k = eps.shape[0], len(layout.sampled)
+        g = torch.empty_like(p)
+        g_mu, g_rho = g[:n], g[n:2 * n]
+        if k:
+            like = p if low is None else p.new_empty(0, dtype=low)
+            pieces = _flat_grads(grads[:k], layout.sampled, like)
+            if low is None:
+                torch.cat(pieces, out=g_mu)
+            else:
+                g_mu.copy_(torch.cat(pieces))
+        torch.mul(g_mu, eps, out=g_rho)
+        torch.ops.aten.softplus_backward.grad_input(
+            g_rho, p[n:2 * n], 1, 20, grad_input=g_rho)
+        if layout.det:
+            torch.cat(_flat_grads(grads[k:], layout.det, p), out=g[2 * n:])
+        _count_gathered(len(grads))
+        return g, None, None, None
+
+
 def sample_mfvi_tree(params: FlatParams, generator=None, out_dtype=None,
                      eps: torch.Tensor | None = None) -> dict:
     """One RT draw for the whole tree: mu + softplus(rho) * eps over the flat
     segments in one pass (cast once to ``out_dtype``), returned as a dict of
     deterministic leaves ('<path>.w', '<path>.b') plus the det leaves as
     views of the buffer. ``eps`` (length n_var, in ``eps_order``) replaces
-    the standard-normal draw from ``generator``."""
+    the standard-normal draw from ``generator``. One autograd node
+    (``_Draw``) makes every leaf, so the buffer's gradient is written in
+    one pass."""
     n = params.n_var
     if eps is None:
         eps = torch.randn((n,), generator=generator, device=params.flat.device)
-    sample = params.mu + F.softplus(params.rho) * eps
-    if out_dtype is not None:
-        sample = sample.to(out_dtype)
-    out = {}
-    for name, s, o in zip(params.names, params.shapes, params.offsets):
-        size = math.prod(s)
-        if name.endswith("_mu"):
-            out[name[:-3]] = sample[o:o + size].view(s)
-        elif o >= 2 * n:
-            out[name] = params.flat[o:o + size].view(s)
-    return out
+    layout = _layout(params)
+    leaves = _Draw.apply(params.flat, eps, layout, out_dtype)
+    return {name: t for (name, *_), t in
+            zip(layout.sampled + layout.det, leaves)}
 
 
 def posterior_mean_params(params: dict) -> dict:

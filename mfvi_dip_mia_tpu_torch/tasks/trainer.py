@@ -272,11 +272,12 @@ def make_step(problem: Problem, params: vi.FlatParams, z: torch.Tensor,
     output's gradient is complete, recorded by a tensor hook on it; and
     ``net_grad``, where the first of the net's leaves gets its gradient,
     recorded by a hook on each leaf. Autograd takes the latest-made ready
-    node first, so the leaves' views, made before the forward, run their
+    node first, so the leaves' nodes, made before the forward, run their
     backward after the net's: ``net_grad`` ends the net's backward and
-    starts the leaves' gradients' sum into the flat buffer and the draw's
-    backward. A marked step registers the hooks as its forward runs,
-    since the backward calls them on autograd's thread, which is not
+    starts the leaves' gradients' gathering into the flat buffer (for the
+    RT draw one node, ``vi._Draw``, whose hooks fire when it starts) and
+    the draw's backward. A marked step registers the hooks as its forward
+    runs, since the backward calls them on autograd's thread, which is not
     marking; the row-split net has no ``deep``."""
     if method_name not in METHODS:
         raise ValueError(f"unknown method {method_name!r}")
@@ -515,15 +516,20 @@ def capture_variant(fits: list, stream: torch.cuda.Stream,
     after another, as a ``graph`` span: (graph, the kernel launches one
     replay makes). Every fit's generator is registered with the graph, so
     each replay draws the next numbers of each fit's stream, as the eager
-    steps would. The caller holds the compile lock (``capture_steps``)."""
+    steps would. The caller holds the compile lock (``capture_steps``).
+    The span's ``flat_grad_leaves`` counts the leaf gradients the captured
+    steps gather into their flat gradients in one pass each
+    (``vi.flat_grad_leaves``); 0 for steps whose leaves are slices."""
     def steps():
         for step, state, _ in fits:
             step(state, with_metrics)
 
     with TRACER.span("graph", with_metrics=with_metrics,
-                     marked=getattr(_MARKING, "on", False)):
+                     marked=getattr(_MARKING, "on", False)) as span:
+        gathered = vi.flat_grad_leaves()
         graph, launches, _ = capture(steps, [gen for _, _, gen in fits],
                                      stream)
+        span.attrs["flat_grad_leaves"] = vi.flat_grad_leaves() - gathered
     return graph, launches
 
 

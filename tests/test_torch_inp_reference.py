@@ -112,8 +112,9 @@ def test_encoder_points_in_order_in_a_marked_step_only(cfg, problem):
 
 def test_net_grad_ends_the_nets_backward(cfg, problem, monkeypatch):
     """In a marked step's backward the net's matrix products all run
-    before ``net_grad``, and after it only the leaves' gradients' sum into
-    the flat buffer and the draw's backward, up to boundary 3."""
+    before ``net_grad``, and after it only the leaves' gradients' gathering
+    into the flat buffer and the draw's backward (one node: concatenations
+    and the softplus backward, no slice backward), up to boundary 3."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from mfvi_dip_mia_tpu_torch.utils import profiling
 
@@ -145,7 +146,8 @@ def test_net_grad_ends_the_nets_backward(cfg, problem, monkeypatch):
                 "convolution_backward"}
     assert products & set(log[a:b])
     assert not products & set(log[b:c])
-    assert "slice_backward" in log[b:c]
+    assert {"cat", "softplus_backward"} <= set(log[b:c])
+    assert "slice_backward" not in log[b:c]
 
 
 def test_chunk_spans_carry_the_encoders_share(cfg, problem):

@@ -143,6 +143,41 @@ def test_regions_in_order_in_each_eager_step(small, monkeypatch):
             (times[-1] - times[0]) / 1e6)
 
 
+def test_net_grad_fires_once_after_deep_grad_and_before_backwards_end(
+        small, monkeypatch):
+    """The RT draw's leaves are one node's outputs (bayes/vi.py::_Draw),
+    whose hooks fire as that node starts: a marked step records
+    ``net_grad`` once, after ``deep_grad`` and before boundary 3, and a
+    fit's chunks read ``backward_flat`` from it."""
+    log = []
+    point, mark = profiling.Marks.point, profiling.Marks.mark
+
+    def logged_point(self, name):
+        log.append(name)
+        point(self, name)
+
+    def logged_mark(self, k):
+        log.append(k)
+        mark(self, k)
+
+    monkeypatch.setattr(profiling.Marks, "point", logged_point)
+    monkeypatch.setattr(profiling.Marks, "mark", logged_mark)
+    prep = TT.prepare_fit(small, METHOD, iterations=4, lr=LR, seed=1,
+                          device="cpu")
+    prep.step(prep.state, True)
+    assert log == []
+    with TT._marking():
+        prep.step(prep.state, True)
+    assert log.count("net_grad") == 1 and log.count("deep_grad") == 1
+    assert log.index("deep_grad") < log.index("net_grad") < log.index(3)
+    assert 0 <= prep.marks.between("net_grad", 3) \
+        <= prep.marks.read()["backward"]
+    _fit(small, num_iter=9, show_every=5)
+    chunks = TRACER.spans("chunk")
+    assert len(chunks) == 2
+    assert all(c.attrs["regions_ms"]["backward_flat"] >= 0 for c in chunks)
+
+
 @pytest.mark.parametrize("metrics_every,marked", [
     (1, [9, 19, 29]), (4, [8, 16, 28]), (25, [0, None, 25])])
 def test_a_fit_marks_one_step_a_chunk(small, monkeypatch, metrics_every,
